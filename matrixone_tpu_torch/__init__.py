@@ -1,17 +1,19 @@
 """matrixone_tpu_torch — the PyTorch/CUDA port of `matrixone_tpu`.
 
-A second package beside the JAX one, written for one NVIDIA H100.  It
-mirrors the JAX package's layout (`ops/`, `vectorindex/`, `worker/`,
-`utils/`) so each module's counterpart is easy to find, and it is held
-against that package on the same inputs by the `tests/test_torch_*.py`
-suite.  It imports `torch` and numpy only: never `jax` and nothing of
-`matrixone_tpu`, whose host-only helpers it keeps its own copies of.
+A second package beside the JAX one, written for one NVIDIA H100.  Its
+slices so far are vector search: IVF-Flat served by `WorkerCore`, and
+IVF-PQ (`vectorindex/ivf_pq.py`).  It mirrors the JAX package's layout
+(`ops/`, `vectorindex/`, `worker/`, `utils/`) so each module's
+counterpart is easy to find, and it is held against that package on
+the same inputs by the `tests/test_torch_*.py` suite.  It imports
+`torch` and numpy only: never `jax` and nothing of `matrixone_tpu`,
+whose host-only helpers it keeps its own copies of.
 
 Device rule: functions run where their input tensors live.  Entry
-points that take numpy (`WorkerCore`, `ivf_flat.build`, the data
-generator) resolve their `device` argument with `resolve_device`, which
-defaults to CUDA and raises when CUDA is missing unless the caller asks
-for the CPU.  A CUDA tensor always runs the hand-written CUDA kernel
+points that take numpy (`WorkerCore`, `ivf_flat.build`,
+`ivf_pq.build`, the data generator) resolve their `device` argument
+with `resolve_device`, which defaults to CUDA and raises when CUDA is
+missing unless the caller asks for the CPU.  A CUDA tensor always runs the hand-written CUDA kernel
 (`ops/cuda_kernels.py`); a CPU tensor runs its plain PyTorch version.
 There is no switch between the two and no fallback.
 
@@ -38,3 +40,10 @@ def resolve_device(device=None) -> torch.device:
             "matrixone_tpu_torch: CUDA is not available; pass "
             "device='cpu' to run the plain PyTorch path on the CPU")
     return dev
+
+
+# the index types, after resolve_device: their modules import it
+from matrixone_tpu_torch.vectorindex import (  # noqa: E402
+    IvfFlatIndex, IvfPqIndex)
+
+__all__ = ["resolve_device", "IvfFlatIndex", "IvfPqIndex"]

@@ -13,8 +13,12 @@
 #include <torch/library.h>
 
 void mo_l2_distance_sq_launch(const float* x, const float* q,
-                              const float* q2, float* out, int64_t n,
-                              int64_t b, int64_t d, cudaStream_t stream);
+                              const float* q2, const bool* mask,
+                              float* out, int64_t n, int64_t b, int64_t d,
+                              cudaStream_t stream);
+cudaError_t mo_adc_score_launch(const void* codes, bool codes_i32,
+                                const float* lut, float* out, int64_t G,
+                                int64_t P, int64_t M, cudaStream_t stream);
 
 namespace {
 
@@ -24,8 +28,8 @@ void check_f32_cuda(const at::Tensor& t, const char* name) {
   TORCH_CHECK(t.is_contiguous(), name, " must be contiguous");
 }
 
-at::Tensor l2_distance_sq(const at::Tensor& x, const at::Tensor& q,
-                          const at::Tensor& q2) {
+at::Tensor l2_distance_sq_impl(const at::Tensor& x, const at::Tensor& q,
+                               const at::Tensor& q2, const bool* mask) {
   check_f32_cuda(x, "x");
   check_f32_cuda(q, "q");
   check_f32_cuda(q2, "q2");
@@ -40,8 +44,57 @@ at::Tensor l2_distance_sq(const at::Tensor& x, const at::Tensor& q,
   at::Tensor out = at::empty({n, b}, x.options());
   if (n == 0 || b == 0) return out;
   mo_l2_distance_sq_launch(x.data_ptr<float>(), q.data_ptr<float>(),
-                           q2.data_ptr<float>(), out.data_ptr<float>(), n,
-                           b, d, c10::cuda::getCurrentCUDAStream().stream());
+                           q2.data_ptr<float>(), mask,
+                           out.data_ptr<float>(), n, b, d,
+                           c10::cuda::getCurrentCUDAStream().stream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  return out;
+}
+
+at::Tensor l2_distance_sq(const at::Tensor& x, const at::Tensor& q,
+                          const at::Tensor& q2) {
+  return l2_distance_sq_impl(x, q, q2, nullptr);
+}
+
+at::Tensor l2_distance_sq_masked(const at::Tensor& x, const at::Tensor& q,
+                                 const at::Tensor& q2,
+                                 const at::Tensor& mask) {
+  TORCH_CHECK(mask.is_cuda() && mask.device() == x.device(),
+              "mask must be a CUDA tensor on x's device");
+  TORCH_CHECK(mask.scalar_type() == at::kBool, "mask must be bool");
+  TORCH_CHECK(mask.dim() == 1 && mask.size(0) == x.size(0),
+              "mask must be [n]");
+  TORCH_CHECK(mask.is_contiguous(), "mask must be contiguous");
+  return l2_distance_sq_impl(x, q, q2, mask.data_ptr<bool>());
+}
+
+at::Tensor adc_score(const at::Tensor& codes, const at::Tensor& lut) {
+  TORCH_CHECK(codes.is_cuda() && lut.is_cuda(),
+              "codes and lut must be CUDA tensors");
+  TORCH_CHECK(codes.device() == lut.device(),
+              "codes and lut must be on one device");
+  TORCH_CHECK(codes.scalar_type() == at::kByte ||
+                  codes.scalar_type() == at::kInt,
+              "codes must be uint8 or int32");
+  TORCH_CHECK(lut.scalar_type() == at::kFloat, "lut must be float32");
+  TORCH_CHECK(codes.is_contiguous() && lut.is_contiguous(),
+              "codes and lut must be contiguous");
+  TORCH_CHECK(codes.dim() == 3 && lut.dim() == 3,
+              "expected codes [G, P, M], lut [G, M, 256]");
+  const int64_t G = codes.size(0), P = codes.size(1), M = codes.size(2);
+  TORCH_CHECK(M >= 1, "codes need at least one subspace");
+  TORCH_CHECK(lut.size(0) == G && lut.size(1) == M && lut.size(2) == 256,
+              "lut must be [G, M, 256] for codes [G, P, M]");
+  constexpr int64_t kMaxBlocks = 2147483647LL;  // the kernel's int grid
+  TORCH_CHECK(M <= kMaxBlocks && G * ((P + 1023) / 1024) <= kMaxBlocks,
+              "adc_score: grid too large");
+  const c10::cuda::CUDAGuard guard(codes.device());
+  at::Tensor out = at::empty({G, P}, lut.options());
+  if (G == 0 || P == 0) return out;
+  C10_CUDA_CHECK(mo_adc_score_launch(
+      codes.data_ptr(), codes.scalar_type() == at::kInt,
+      lut.data_ptr<float>(), out.data_ptr<float>(), G, P, M,
+      c10::cuda::getCurrentCUDAStream().stream()));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
   return out;
 }
@@ -50,8 +103,13 @@ at::Tensor l2_distance_sq(const at::Tensor& x, const at::Tensor& q,
 
 TORCH_LIBRARY(mo_torch, m) {
   m.def("l2_distance_sq(Tensor x, Tensor q, Tensor q2) -> Tensor");
+  m.def("l2_distance_sq_masked(Tensor x, Tensor q, Tensor q2, Tensor mask)"
+        " -> Tensor");
+  m.def("adc_score(Tensor codes, Tensor lut) -> Tensor");
 }
 
 TORCH_LIBRARY_IMPL(mo_torch, CUDA, m) {
   m.impl("l2_distance_sq", &l2_distance_sq);
+  m.impl("l2_distance_sq_masked", &l2_distance_sq_masked);
+  m.impl("adc_score", &adc_score);
 }

@@ -1,15 +1,23 @@
-// Pairwise squared L2 distance with the norm epilogue fused, for Hopper.
+// Pairwise squared L2 distance with the norm epilogue fused, for Hopper,
+// with an optional row mask in the same epilogue.
 //
-// Replaces the Pallas TPU kernel `l2_distance_sq_pallas`
-// (matrixone_tpu/ops/pallas_kernels.py, body `_l2_kernel`):
+// Replaces two Pallas TPU kernels (matrixone_tpu/ops/pallas_kernels.py):
+// `l2_distance_sq_pallas` (body `_l2_kernel`)
 //
 //     out[i, j] = max(||x_i||^2 + q2[j] - 2 * x_i . q_j, 0)
 //
+// and `l2_distance_sq_masked_pallas` (body `_l2_masked_kernel`), which
+// writes +inf instead where mask[i] is false (a filtered-search
+// prefilter).  Both share this one tile: the mask is a nullable pointer
+// read only in the epilogue, so an all-true mask gives the unmasked
+// bits and a fully masked tile is all +inf.  The mask adds n bytes to the
+// traffic and nothing to the operations.
+//
 // x [n, d] f32, q [b, d] f32, q2 [b] f32 (||q_j||^2, computed by the
-// caller as the TPU version does), out [n, b] f32, all row-major and
-// contiguous.  Any n, b and d: every load and store is bounds-checked
-// (the TPU version needs n % 1024 == 0; the IVF probe's n is the split
-// nlist, which is not aligned).
+// caller as the TPU version does), mask [n] bool or null, out [n, b]
+// f32, all row-major and contiguous.  Any n, b and d: every load and
+// store is bounds-checked (the TPU version needs n % 1024 == 0; the IVF
+// probe's n is the split nlist, which is not aligned).
 //
 // What bounds it: at the search shapes (b = 256, d = 768) the work is
 // 2*n*b*d FLOPs against 4*(n*d + b*d + n*b) bytes, ~110 FLOPs a byte,
@@ -25,9 +33,9 @@
 // (each thread keeps a partial for the rows it loaded) and reduced
 // across the 16 lanes that loaded each row once the d loop ends, so x
 // is read from device memory once per column tile.  The epilogue adds
-// q2 and clamps at 0 before the only store.  Threads own rows ty + 16 i
-// and columns tx + 16 j, so neighbouring lanes store neighbouring
-// columns.
+// q2, clamps at 0 and applies the mask before the only store.  Threads
+// own rows ty + 16 i and columns tx + 16 j, so neighbouring lanes store
+// neighbouring columns.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -49,6 +57,7 @@ __global__ void __launch_bounds__(THREADS)
 l2_distance_sq_kernel(const float* __restrict__ x,
                       const float* __restrict__ q,
                       const float* __restrict__ q2,
+                      const bool* __restrict__ mask,
                       float* __restrict__ out,
                       int64_t n, int64_t b, int64_t d) {
   __shared__ float xs[BK][BM + 1];
@@ -123,12 +132,14 @@ l2_distance_sq_kernel(const float* __restrict__ x,
     const int64_t row = row0 + r;
     if (row >= n) continue;
     const float x2 = x2s[r];
+    const bool keep = mask == nullptr || mask[row];
+    const float inf = __int_as_float(0x7f800000);
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       const int64_t col = col0 + tx + (BN / TN) * j;
       if (col < b) {
         const float v = (x2 + q2[col]) - 2.f * acc[i][j];
-        out[row * b + col] = fmaxf(v, 0.f);
+        out[row * b + col] = keep ? fmaxf(v, 0.f) : inf;
       }
     }
   }
@@ -137,10 +148,13 @@ l2_distance_sq_kernel(const float* __restrict__ x,
 }  // namespace
 
 // Launches on `stream` and returns at once; the caller checks the launch.
+// `mask` [n] may be null (no row masked).
 void mo_l2_distance_sq_launch(const float* x, const float* q,
-                              const float* q2, float* out, int64_t n,
-                              int64_t b, int64_t d, cudaStream_t stream) {
+                              const float* q2, const bool* mask,
+                              float* out, int64_t n, int64_t b, int64_t d,
+                              cudaStream_t stream) {
   if (n == 0 || b == 0) return;
   const dim3 grid((unsigned)((n + BM - 1) / BM), (unsigned)((b + BN - 1) / BN));
-  l2_distance_sq_kernel<<<grid, THREADS, 0, stream>>>(x, q, q2, out, n, b, d);
+  l2_distance_sq_kernel<<<grid, THREADS, 0, stream>>>(x, q, q2, mask, out,
+                                                      n, b, d);
 }

@@ -16,7 +16,10 @@ repository root, all in one call.  Only `csrc/binding.cpp` includes
 PyTorch's headers.  Nothing is built when this module is imported.
 
 Kernels (the TPU kernel each replaces in brackets):
-  * `l2_distance_sq`  [`l2_distance_sq_pallas`, pallas_kernels.py:79]
+  * `l2_distance_sq`         [`l2_distance_sq_pallas`, pallas_kernels.py:79]
+  * `l2_distance_sq_masked`  [`l2_distance_sq_masked_pallas`, :121], the
+    same tile as `l2_distance_sq` (csrc/l2_distance.cu) with a row mask
+  * `adc_score`              [`adc_score_pallas`, :313]
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ _CSRC = os.path.join(os.path.dirname(os.path.dirname(
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 BUILD_DIR = os.path.join(_REPO, "build", "torch_kernels")
-SOURCES = ("binding.cpp", "l2_distance.cu")
+SOURCES = ("binding.cpp", "l2_distance.cu", "adc_score.cu")
 CUDA_CFLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a"]
 
 
@@ -107,22 +110,95 @@ def l2_distance_sq_plain(x: torch.Tensor, q: torch.Tensor,
     return torch.clamp_min(x2 + q2[None, :] - 2.0 * (x @ q.T), 0.0)
 
 
+def _check_l2_inputs(name: str, x, q, q2) -> None:
+    if not (x.is_cuda and q.is_cuda and q2.is_cuda):
+        raise ValueError(f"{name} launches on CUDA tensors only")
+    if not (x.dtype == q.dtype == q2.dtype == torch.float32):
+        raise TypeError(f"{name} takes float32 x, q and q2")
+    if x.dim() != 2 or q.dim() != 2 or q2.dim() != 1 \
+            or x.shape[1] != q.shape[1] or q2.shape[0] != q.shape[0]:
+        raise ValueError(f"{name}: bad shapes x {tuple(x.shape)} "
+                         f"q {tuple(q.shape)} q2 {tuple(q2.shape)}")
+    if not (x.is_contiguous() and q.is_contiguous() and q2.is_contiguous()):
+        raise ValueError(f"{name} takes contiguous tensors")
+
+
 def l2_distance_sq(x: torch.Tensor, q: torch.Tensor,
                    q2: torch.Tensor) -> torch.Tensor:
     """Launch the fused L2 kernel (csrc/l2_distance.cu) on CUDA f32
     tensors x [n, d], q [b, d], q2 [b] -> [n, b] f32."""
-    if not (x.is_cuda and q.is_cuda and q2.is_cuda):
-        raise ValueError("l2_distance_sq launches on CUDA tensors only")
-    if not (x.dtype == q.dtype == q2.dtype == torch.float32):
-        raise TypeError("l2_distance_sq takes float32 x, q and q2")
-    if x.dim() != 2 or q.dim() != 2 or q2.dim() != 1 \
-            or x.shape[1] != q.shape[1] or q2.shape[0] != q.shape[0]:
-        raise ValueError(f"l2_distance_sq: bad shapes x {tuple(x.shape)} "
-                         f"q {tuple(q.shape)} q2 {tuple(q2.shape)}")
-    if not (x.is_contiguous() and q.is_contiguous() and q2.is_contiguous()):
-        raise ValueError("l2_distance_sq takes contiguous tensors")
+    _check_l2_inputs("l2_distance_sq", x, q, q2)
     out = build().l2_distance_sq(x, q, q2)
     if out.numel():
         LAUNCHES.add("l2_distance_sq",
                      (x.shape[0], q.shape[0], x.shape[1]))
+    return out
+
+
+# ---------------------------------------- pairwise L2 with a row mask
+def l2_distance_sq_masked_plain(x: torch.Tensor, q: torch.Tensor,
+                                q2: torch.Tensor,
+                                mask: torch.Tensor) -> torch.Tensor:
+    """Plain version of the masked kernel: `l2_distance_sq_plain` with
+    the rows where mask [n] is false set to +inf."""
+    dist = l2_distance_sq_plain(x, q, q2)
+    return dist.masked_fill(~mask[:, None], float("inf"))
+
+
+def l2_distance_sq_masked(x: torch.Tensor, q: torch.Tensor,
+                          q2: torch.Tensor,
+                          mask: torch.Tensor) -> torch.Tensor:
+    """Launch the L2 kernel with its row mask (csrc/l2_distance.cu) on
+    CUDA f32 x [n, d], q [b, d], q2 [b] and bool mask [n] -> [n, b] f32,
+    +inf on masked rows."""
+    _check_l2_inputs("l2_distance_sq_masked", x, q, q2)
+    if not mask.is_cuda:
+        raise ValueError("l2_distance_sq_masked launches on CUDA tensors "
+                         "only")
+    if mask.dtype != torch.bool:
+        raise TypeError("l2_distance_sq_masked takes a bool mask")
+    if mask.shape != (x.shape[0],) or not mask.is_contiguous():
+        raise ValueError(f"l2_distance_sq_masked: mask must be a "
+                         f"contiguous [{x.shape[0]}], got "
+                         f"{tuple(mask.shape)}")
+    out = build().l2_distance_sq_masked(x, q, q2, mask)
+    if out.numel():
+        LAUNCHES.add("l2_distance_sq_masked",
+                     (x.shape[0], q.shape[0], x.shape[1]))
+    return out
+
+
+# ------------------------------------------------- IVF-PQ ADC scoring
+def adc_score_plain(codes: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
+    """Plain version of the ADC kernel: scores [G, P] with
+    scores[g, p] = sum_m lut[g, m, codes[g, p, m]], for codes [G, P, M]
+    (any integer type) and lut [G, M, 256], in the lut's dtype."""
+    g, p, m = codes.shape
+    flat = (codes.to(torch.int64)
+            + 256 * torch.arange(m, device=codes.device)).reshape(g, p * m)
+    return lut.reshape(g, m * 256).gather(1, flat).reshape(g, p, m).sum(-1)
+
+
+def adc_score(codes: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
+    """Launch the ADC kernel (csrc/adc_score.cu) on CUDA codes [G, P, M]
+    uint8 or int32 and f32 lut [G, M, 256] -> [G, P] f32.  Any P and
+    M >= 1; int32 codes must lie in [0, 256)."""
+    if not (codes.is_cuda and lut.is_cuda):
+        raise ValueError("adc_score launches on CUDA tensors only")
+    if codes.dtype not in (torch.uint8, torch.int32) \
+            or lut.dtype != torch.float32:
+        raise TypeError("adc_score takes uint8 or int32 codes and a "
+                        "float32 lut")
+    if codes.dim() != 3 or codes.shape[2] < 1 \
+            or tuple(lut.shape) != (codes.shape[0], codes.shape[2], 256):
+        raise ValueError(f"adc_score: bad shapes codes "
+                         f"{tuple(codes.shape)} lut {tuple(lut.shape)}")
+    if not (codes.is_contiguous() and lut.is_contiguous()):
+        raise ValueError("adc_score takes contiguous tensors")
+    if codes.dtype == torch.int32 and codes.numel() and bool(
+            ((codes < 0) | (codes > 255)).any()):
+        raise ValueError("adc_score: int32 codes must lie in [0, 256)")
+    out = build().adc_score(codes, lut)
+    if out.numel():
+        LAUNCHES.add("adc_score", tuple(codes.shape))
     return out

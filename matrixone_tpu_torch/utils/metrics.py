@@ -30,7 +30,8 @@ class Counter:
 
 vector_build_seconds = Counter(
     "mo_vector_build_seconds_total",
-    "IVF build wall seconds by stage (kmeans/assign/pack)")
+    "IVF build wall seconds by stage (kmeans/assign/pack; IVF-PQ: "
+    "kmeans/assign/pq)")
 vector_search_queries = Counter(
     "mo_vector_search_queries_total", "queries entering ivf search")
 vector_search_pad_rows = Counter(

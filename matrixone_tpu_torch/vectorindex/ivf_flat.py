@@ -10,15 +10,6 @@ the mesh-sharded hooks), with the same design:
    ||x-q||^2 = ||c-q||^2 + ||r||^2 + 2 r.c - 2 r.q, where ||c-q||^2
    comes from the probe and ||r||^2, r.c are f32 scalars kept from the
    build, so bf16 storage rounds only the small-magnitude r.q term;
- * `refine=True` (a departure from the JAX package, which the worker's
-   capped build takes) also keeps the bf16 remainder r - bf16(r)
-   (`vectors_lo`) and re-scores each query's final 2k candidates with
-   r = hi + lo, which carries about 16 significant bits of r where bf16
-   carries 8.  Where lists span several true clusters, as under the
-   worker's capped build, residuals are large and the bf16 rounding alone
-   reorders about 1% of the true top-20 inside the probed lists; the hot
-   gather still reads 2 bytes a value.  Without it (the default, and any
-   index converted from the JAX package) the search is the reference's;
  * search runs fixed-size query chunks: the probe scores every query
    against the centroid table with the fused L2 kernel (exact f32) and
    keeps the nprobe nearest lists; each chunk gathers its probed lists
@@ -60,9 +51,6 @@ class IvfFlatIndex:
     r_dot_c: torch.Tensor    # [n] f32 r . centroid (l2 metric)
     ids: torch.Tensor        # [n] int32 original row position
     offsets: torch.Tensor    # [nlist+1] int32 CSR into vectors
-    # [n, d] remainder r - vectors of low-precision residuals, or None
-    # (build's `refine`): read only for each query's final 2k candidates
-    vectors_lo: Optional[torch.Tensor] = None
     metric: str = METRIC_L2
     max_cluster_size: int = 0
     n: int = 0
@@ -101,7 +89,6 @@ def build(dataset, nlist: int, metric: str = METRIC_L2,
           kmeans_minibatch: Optional[int] = None,
           balance_mode: str = "cap",
           target_list_size: int = 224,
-          refine: bool = False,
           device=None) -> IvfFlatIndex:
     """Build an IVF-Flat index from `dataset` [n, d] (numpy, built on
     `device`, CUDA by default; or a tensor, built where it lies).
@@ -119,10 +106,6 @@ def build(dataset, nlist: int, metric: str = METRIC_L2,
       "split" kmeans.split_oversized: big clusters become local child
               clusters of at most target_list_size rows (nlist grows by
               the number of extra children).
-
-    refine keeps, beside residuals stored below f32, their remainder in
-    the storage dtype, and search re-scores each query's final 2k
-    candidates with both halves (see the module docstring).
     """
     data = _as_tensor(dataset, device).to(torch.float32)
     dev = data.device
@@ -166,30 +149,17 @@ def build(dataset, nlist: int, metric: str = METRIC_L2,
     r_norm2 = (residuals * residuals).sum(dim=-1)
     r_dot_c = (residuals * sorted_centroids).sum(dim=-1)
     del sorted_centroids
-    residuals, residuals_lo = split_residuals(residuals, storage_dtype,
-                                              refine)
+    if storage_dtype is not None:
+        residuals = residuals.to(storage_dtype)
     max_cs = int(counts.max())
     max_cs = ((max_cs + 127) // 128) * 128   # 128-aligned gather budget
     index = IvfFlatIndex(centroids=centroids, vectors=residuals,
                          r_norm2=r_norm2, r_dot_c=r_dot_c,
                          ids=order.to(torch.int32), offsets=offsets,
-                         vectors_lo=residuals_lo, metric=metric,
-                         max_cluster_size=max_cs, n=n)
+                         metric=metric, max_cluster_size=max_cs, n=n)
     _sync(dev)
     M.vector_build_seconds.inc(time.perf_counter() - t0, stage="pack")
     return index
-
-
-def split_residuals(residuals: torch.Tensor, storage_dtype, refine: bool):
-    """f32 residuals -> (stored residuals, remainder or None): the
-    remainder r - stored(r), in the storage dtype, is kept only when
-    `refine` is set and the storage dtype is below f32."""
-    if storage_dtype is None or storage_dtype == torch.float32:
-        return residuals, None
-    hi = residuals.to(storage_dtype)
-    if not refine:
-        return hi, None
-    return hi, (residuals - hi.to(torch.float32)).to(storage_dtype)
 
 
 def _bucket_batch(b: int, query_chunk: int) -> Tuple[int, int]:
@@ -253,28 +223,14 @@ def _score_chunk(index: IvfFlatIndex, qc: torch.Tensor, pc: torch.Tensor,
     del vecs
     dist = _residual_scores(index, cs[:, :, None], cand, own)
     dist = torch.where(valid, dist, torch.full_like(dist, float("inf")))
-    # two-stage top-k: per-probe partial top-k, then merge nprobe*kk;
-    # an index with a remainder keeps 2k for the refinement below
-    k1 = 2 * k if index.vectors_lo is not None else k
-    kk = min(k1, pad)
+    # two-stage top-k: per-probe partial top-k, then merge nprobe*kk
+    kk = min(k, pad)
     s1, p1 = topk_smallest(dist, kk)                   # [qc, nprobe, kk]
     c1 = cand.gather(2, p1)
     s1f = s1.reshape(query_chunk, nprobe * kk)
     c1f = c1.reshape(query_chunk, nprobe * kk)
-    top_s, top_pos = topk_smallest(s1f, min(k1, nprobe * kk))
+    top_s, top_pos = topk_smallest(s1f, min(k, nprobe * kk))
     top_cand = c1f.gather(1, top_pos)
-    if index.vectors_lo is not None:
-        # re-score the survivors with r = hi + lo (about 16 significant
-        # bits), so the rounding of the stored residuals does not reorder
-        # the final k; lanes past a list's end stay +inf
-        r = (index.vectors[top_cand].to(torch.float32)
-             + index.vectors_lo[top_cand].to(torch.float32))
-        own = (r * qc[:, None, :]).sum(dim=-1)         # [qc, k1]
-        exact = _residual_scores(index, cs.gather(1, top_pos // kk),
-                                 top_cand, own)
-        exact = torch.where(torch.isinf(top_s), top_s, exact)
-        top_s, pos = topk_smallest(exact, min(k, exact.shape[1]))
-        top_cand = top_cand.gather(1, pos)
     return top_s, index.ids[top_cand]
 
 

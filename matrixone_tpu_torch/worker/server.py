@@ -150,19 +150,15 @@ class WorkerCore:
     def load_index(self, name: str, data: np.ndarray, nlist: int = 64,
                    metric: str = "l2", mode: str = "single") -> dict:
         """Build an IVF-Flat index of `data` on the worker's device and
-        keep it there under `name`.
-
-        The build settings are the JAX worker's, plus `refine`: its
-        capped lists span several true clusters, and without the
-        residuals' bf16 remainder their rounding loses about 1% of the
-        exact top-k inside the probed lists (see ivf_flat)."""
+        keep it there under `name`, with the JAX worker's build settings
+        (nlist, metric, bf16 storage, capped balancing)."""
         if mode != "single":
             raise NotImplementedError(
                 f"index mode {mode!r}: only 'single' is ported")
         idx = ivf_flat.build(np.asarray(data, np.float32),
                              nlist=max(1, min(nlist, len(data))),
                              metric=metric, storage_dtype=torch.bfloat16,
-                             refine=True, device=self.device)
+                             device=self.device)
         with self._lock:
             self.indexes[name] = {"mode": "single", "index": idx,
                                   "n": len(data)}

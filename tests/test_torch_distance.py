@@ -150,3 +150,49 @@ def test_launch_counts_by_shape():
     assert counts.snapshot() == {"k": 3, "other": 1}
     counts.reset()
     assert counts.get("k") == 0 and counts.shapes("k") == {}
+
+
+@pytest.mark.parametrize("seed,tile", [(4, 512), (5, 1024)])
+def test_plain_masked_l2_matches_pallas_kernel(seed, tile):
+    """The reference test's shapes (test_pallas_kernels.py: 2048 x 8 x
+    32, a 0.7 Bernoulli mask): the Pallas kernel in interpret mode
+    against the seam's CPU path, +inf on exactly the same entries."""
+    x, q = _pair(seed, 2048, 8, 32)
+    mask = np.random.default_rng(seed).random(2048) < 0.7
+    want = np.asarray(PK.l2_distance_sq_masked_pallas(
+        jnp.asarray(x), jnp.asarray(q), jnp.asarray(mask), tile_m=tile,
+        interpret=True))
+    got = TK.l2_distance_sq_masked_exact(
+        torch.from_numpy(x), torch.from_numpy(q),
+        torch.from_numpy(mask)).numpy()
+    assert got.dtype == np.float32 and got.shape == (2048, 8)
+    np.testing.assert_array_equal(np.isinf(got), np.isinf(want))
+    assert np.isinf(got[~mask]).all() and np.isfinite(got[mask]).all()
+    np.testing.assert_allclose(got[mask], want[mask], rtol=1e-5, atol=1e-4)
+
+
+def test_plain_masked_l2_all_masked_and_unmasked():
+    """An all-false mask gives all +inf, as the Pallas kernel does on a
+    fully masked tile; an all-true one gives the unmasked distances bit
+    for bit."""
+    x, q = _pair(6, 2048, 8, 32)
+    jall = np.asarray(PK.l2_distance_sq_masked_pallas(
+        jnp.asarray(x), jnp.asarray(q), jnp.zeros(2048, bool), tile_m=512,
+        interpret=True))
+    xt, qt = torch.from_numpy(x), torch.from_numpy(q)
+    none = TK.l2_distance_sq_masked_exact(xt, qt, torch.zeros(2048,
+                                                            dtype=torch.bool))
+    assert np.isinf(jall).all() and bool(torch.isinf(none).all())
+    every = TK.l2_distance_sq_masked_exact(xt, qt, torch.ones(2048,
+                                                             dtype=torch.bool))
+    assert torch.equal(every, TK.l2_distance_sq_exact(xt, qt))
+
+
+def test_masked_wrapper_refuses_cpu_tensors():
+    x, q = _pair(2, 4, 2, 8)
+    xt, qt = torch.from_numpy(x), torch.from_numpy(q)
+    before = CK.LAUNCHES.get("l2_distance_sq_masked")
+    with pytest.raises(ValueError, match="CUDA"):
+        CK.l2_distance_sq_masked(xt, qt, (qt * qt).sum(1),
+                                 torch.ones(4, dtype=torch.bool))
+    assert CK.LAUNCHES.get("l2_distance_sq_masked") == before

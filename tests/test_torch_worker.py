@@ -6,6 +6,7 @@ import threading
 
 import numpy as np
 import pytest
+import torch
 
 from matrixone_tpu.worker.server import WorkerCore as JaxWorkerCore
 from matrixone_tpu_torch.vectorindex.recall import recall_at_k
@@ -31,7 +32,6 @@ def test_index_lifecycle(worker):
     data = _data(0, 3000, 24)
     q = data[:5] + 0.001
     dists, ids = worker.search_index("ix1", q, k=3, nprobe=12)
-    assert worker.indexes["ix1"]["index"].vectors_lo is not None
     assert ids.shape == (5, 3) and ids.dtype == np.int64
     assert dists.dtype == np.float32
     np.testing.assert_array_equal(ids[:, 0], np.arange(5))   # self-hit
@@ -132,3 +132,46 @@ def test_health(worker):
     assert h["uptime_s"] >= 0
     assert h["batch_requests"] >= h["batch_dispatches"] >= 0
     assert set(h) >= {"indexes", "batch_requests", "batch_dispatches"}
+
+
+def test_worker_index_is_the_references_kind():
+    """The worker builds as the JAX worker does (bf16 residuals, nothing
+    beside them): no index type of the port keeps a second copy of its
+    vectors."""
+    import dataclasses
+
+    from matrixone_tpu_torch.vectorindex import IvfFlatIndex, IvfPqIndex
+    w = WorkerCore(device="cpu")
+    w.load_index("ix", _data(4, 2000, 16), nlist=8)
+    idx = w.indexes["ix"]["index"]
+    assert isinstance(idx, IvfFlatIndex)
+    assert idx.vectors.dtype == torch.bfloat16
+    for cls in (IvfFlatIndex, IvfPqIndex):
+        assert "vectors_lo" not in {f.name for f in dataclasses.fields(cls)}
+    assert not hasattr(idx, "vectors_lo")
+
+
+def test_worker_serves_a_converted_jax_index_as_the_jax_worker():
+    """The JAX worker builds its bf16 index; the port's worker serves the
+    same index, carried across by `convert`: per-query id sets equal on
+    >= 99% of queries, through both workers' search_index."""
+    from matrixone_tpu_torch import convert
+    data = _data(3, 4000, 32)
+    q = data[::53][:64] + 0.05
+    jw = JaxWorkerCore()
+    jw.load_index("a", data, nlist=16)
+    jidx = jw.indexes["a"]["index"]
+    fields = {f: np.asarray(getattr(jidx, f))
+              for f in convert.IVF_FLAT_FIELDS}
+    fields.update(metric=jidx.metric, n=jidx.n,
+                  max_cluster_size=jidx.max_cluster_size)
+    tw = WorkerCore(device="cpu")
+    tw.indexes["a"] = {"mode": "single", "n": len(data),
+                       "index": convert.ivf_flat_from_numpy(fields,
+                                                            device="cpu")}
+    assert tw.indexes["a"]["index"].vectors.dtype == torch.bfloat16
+    _, ji = jw.search_index("a", q, k=10, nprobe=4)
+    _, ti = tw.search_index("a", q, k=10, nprobe=4)
+    same = np.mean([set(a) == set(b) for a, b in
+                    zip(np.asarray(ji).tolist(), ti.tolist())])
+    assert same >= 0.99, same
