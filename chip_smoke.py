@@ -37,6 +37,25 @@ Phases, each of which raises on failure:
     configuration; warm QPS, build seconds by stage, index bytes and
     peak device memory.
 
+ 5. the relational path at TPC-H scale factor 1, through the SQL
+    executor (`Session.execute`, the reference's per-operator path):
+    a. load lineitem (6,000,000 rows), orders (1,500,000) and customer
+       (150,000) with the repository's generator, and a table v (id,
+       grp = id % 1000, xi integer-valued in [0, 16), xn N(0,1), all
+       float32) of 6,000,000 rows; load seconds and host bytes;
+    b. TPC-H Q3 from SQL text: rows exactly `q3_oracle`'s; the sorted-
+       search kernel (every hash-join probe) must launch on the counted
+       warm run; cold time, best of 3 warm runs as lineitem rows/s, one
+       profiled run;
+    c. `select grp, sum(xi), sum(xn) from v group by grp order by grp`:
+       1000 rows, sum(xi) exact, sum(xn) within rtol 1e-4 / atol 1e-3 of
+       an f64 sum; the segment-sum kernel must launch at G = 4096 on the
+       counted warm run; times and a profile as in b;
+    d. both kernels re-checked and timed at every shape b and c launched
+       them with, on the inputs those paths handed them.
+   Phase 2 also holds the two relational kernels against their plain
+   versions at edge shapes (bit for bit for the search).
+
 The second-to-last line of output is the kernels' JSON record and the
 last is {"ok": true, "device": {...}}.  Without CUDA, or outside a
 checkout of the repository, it exits non-zero and prints no result.
@@ -774,12 +793,334 @@ def pq_reference_bar(torch, CK) -> dict:
     return out
 
 
+def search_bound(n: int, m: int):
+    """(ms, 'bytes'|'operations'): the least time of one sorted search:
+    the sorted array read once (8 n bytes), each query read and each
+    position written once (12 m bytes); ceil(log2(n + 1)) 64-bit
+    compares a query, each counted as two 32-bit operations at the f32
+    CUDA-core rate."""
+    t_ops = 2.0 * m * max(n, 1).bit_length() / H100_F32_FLOPS
+    t_bytes = (8.0 * n + 12.0 * m) / H100_HBM_BYTES_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def segsum_bound(n: int, g: int):
+    """(ms, 'bytes'|'operations'): the least time of one segment sum:
+    each value, gid and mask byte read once (9 n), each output written
+    once (4 G); n f32 adds."""
+    t_ops = float(n) / H100_F32_FLOPS
+    t_bytes = (9.0 * n + 4.0 * g) / H100_HBM_BYTES_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def check_sorted_search(torch, CK, name: str, srt, q) -> dict:
+    """The sorted-search kernel against its plain version, bit for bit
+    (`torch.equal`), timed beside the plain version and
+    `torch.searchsorted` on pre-flipped int64."""
+    n, m = srt.shape[0], q.shape[0]
+    got = CK.sorted_search(srt, q)
+    torch.cuda.synchronize()
+    want = CK.sorted_search_plain(srt, q)
+    if got.shape != (m,) or got.dtype != torch.int32 \
+            or not torch.equal(got, want):
+        bad = int((got.long() - want.long()).abs().max()) if m else 0
+        raise AssertionError(f"sorted_search {name} n={n} m={m}: differs "
+                             f"from its plain version (max |diff| {bad})")
+    ms = cuda_time_ms(lambda: CK.sorted_search(srt, q))
+    plain_ms = cuda_time_ms(lambda: CK.sorted_search_plain(srt, q))
+    from matrixone_tpu_torch.ops.hash import unsigned_order
+    sf, qf = unsigned_order(srt), unsigned_order(q)
+    lib_ms = cuda_time_ms(lambda: torch.searchsorted(sf, qf,
+                                                     out_int32=True))
+    bound_ms, bound_by = search_bound(n, m)
+    row = {"shape": name, "n": n, "m": m, "max_abs_err": 0.0, "ms": ms,
+           "plain_ms": plain_ms, "library_ms": lib_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    log(f"[kernel] sorted_search {name:22s} n={n} m={m} bit-identical "
+        f"ms={ms:.4f} plain_ms={plain_ms:.4f} searchsorted_ms={lib_ms:.4f} "
+        f"bound_ms={bound_ms:.4f} ({bound_by})")
+    return row
+
+
+def check_segment_sum(torch, CK, name: str, values, gids, mask,
+                      g: int) -> dict:
+    """The segment-sum kernel against its plain version in f64: exact
+    when the values are integer-valued and every group sum stays below
+    2^24, else |err| <= 1e-4 |want| + 1e-3 (the reference's tolerance);
+    timed beside the plain version in f32 and `index_add_` into G + 1
+    slots (the masked rows' slot precomputed)."""
+    n = values.shape[0]
+    got = CK.segment_sum(values, gids, mask, g)
+    torch.cuda.synchronize()
+    want = CK.segment_sum_plain(values.double(), gids, mask, g)
+    err = (got.double() - want).abs()
+    max_err = float(err.max()) if g else 0.0
+    exact = bool(torch.equal(values, values.round())) \
+        and float(CK.segment_sum_plain(values.double().abs(), gids, mask,
+                                       g).max()) < (1 << 24)
+    ok = (torch.equal(got.double(), want) if exact
+          else bool((err <= 1e-4 * want.abs() + 1e-3).all()))
+    if got.shape != (g,) or got.dtype != torch.float32 or not ok:
+        raise AssertionError(f"segment_sum {name} n={n} G={g}: max err "
+                             f"{max_err} ({'exact' if exact else 'tol'})")
+    ms = cuda_time_ms(lambda: CK.segment_sum(values, gids, mask, g))
+    plain_ms = cuda_time_ms(
+        lambda: CK.segment_sum_plain(values, gids, mask, g))
+    slot = torch.where(mask, gids.long(), g)
+    lib_ms = cuda_time_ms(lambda: torch.zeros(
+        g + 1, device=values.device).index_add_(0, slot, values))
+    bound_ms, bound_by = segsum_bound(n, g)
+    row = {"shape": name, "n": n, "G": g, "exact": exact,
+           "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+           "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+    log(f"[kernel] segment_sum {name:22s} n={n} G={g} "
+        f"{'exact' if exact else f'err={max_err:.3e}'} ms={ms:.4f} "
+        f"plain_ms={plain_ms:.4f} index_add_ms={lib_ms:.4f} "
+        f"bound_ms={bound_ms:.4f} ({bound_by})")
+    return row
+
+
+def phase_relational_edges(torch, CK, seed: int):
+    """Phase 2 for the relational kernels: the sorted search bit for bit
+    on sorted uint64 hashes with a duplicate run and UINT64_MAX (NULL)
+    sentinels, queries drawn from them plus random ones plus 0, 1 and
+    2^64 - 1; the segment sum on integer-valued and N(0,1) values with a
+    0.8 Bernoulli mask (masked rows keep gids of live groups)."""
+    from matrixone_tpu_torch.ops.hash import unsigned_order
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    top = (1 << 63) - 1
+    search = []
+    for n in (0, 1, 2500, (1 << 20) + 3, 4_000_000):
+        srt = torch.randint(-top - 1, top, (n,), generator=g, device="cuda")
+        if n:
+            srt[: n // 5] = srt[0]
+            srt[-min(4, n):] = -1                  # UINT64_MAX
+        srt = srt[torch.argsort(unsigned_order(srt), stable=True)]
+        for m in (1, 1000, 1 << 20):
+            q = torch.randint(-top - 1, top, (m,), generator=g,
+                              device="cuda")
+            if n:
+                pick = torch.randint(0, n, (m,), generator=g, device="cuda")
+                take = torch.rand(m, generator=g, device="cuda") < 0.7
+                q = torch.where(take, srt[pick], q)
+            q[: min(3, m)] = torch.tensor([0, 1, -1], device="cuda")[
+                : min(3, m)]
+            search.append(check_sorted_search(torch, CK, f"edge_n{n}_m{m}",
+                                              srt, q.contiguous()))
+    segsum = []
+    for n in (1, 4000, 4096, 1 << 20, 6_000_000):
+        mask = torch.rand(n, generator=g, device="cuda") < 0.8
+        for gs in (1, 19, 1000, 4096):
+            gids = torch.randint(0, gs, (n,), generator=g, device="cuda",
+                                 dtype=torch.int32)
+            ints = torch.randint(0, 16, (n,), generator=g,
+                                 device="cuda").float()
+            normal = torch.randn(n, generator=g, device="cuda")
+            for kind, vals in (("int", ints), ("normal", normal)):
+                segsum.append(check_segment_sum(
+                    torch, CK, f"edge_{kind}_n{n}_G{gs}", vals, gids, mask,
+                    gs))
+    torch.cuda.empty_cache()
+    return search, segsum
+
+
+class PathInputs:
+    """Records, for one run of a path, the inputs the path hands the
+    sorted-search and segment-sum kernels: one capture per launch shape,
+    keyed as `LAUNCHES` keys them.  It wraps the two seam functions and
+    calls the real ones, so the path's launches are unchanged."""
+
+    def __init__(self, torch, TK):
+        self.torch, self.TK = torch, TK
+        self.search, self.segsum = {}, {}
+
+    def __enter__(self):
+        torch, TK = self.torch, self.TK
+        self._real = (TK.sorted_lookup, TK.grouped_scatter_add)
+        real_lookup, real_scatter = self._real
+
+        def lookup(sorted_hash, queries):
+            key = (sorted_hash.shape[0], queries.shape[0])
+            if key not in self.search:
+                self.search[key] = (sorted_hash.contiguous().clone(),
+                                    queries.contiguous().clone())
+            return real_lookup(sorted_hash, queries)
+
+        def scatter(values, gids, mask, max_groups, use_pallas=False):
+            key = (values.shape[0], max_groups)
+            if use_pallas and values.dtype == torch.float32 \
+                    and max_groups <= 4096 and values.shape[0] \
+                    and key not in self.segsum:
+                self.segsum[key] = (values.contiguous().clone(),
+                                    gids.to(torch.int32).contiguous(),
+                                    mask.contiguous().clone())
+            return real_scatter(values, gids, mask, max_groups,
+                                use_pallas=use_pallas)
+
+        TK.sorted_lookup, TK.grouped_scatter_add = lookup, scatter
+        return self
+
+    def __exit__(self, *exc):
+        self.TK.sorted_lookup, self.TK.grouped_scatter_add = self._real
+        return False
+
+
+def table_host_bytes(table) -> int:
+    return sum(a.nbytes for seg in table.segments
+               for a in list(seg.arrays.values())
+               + list(seg.validity.values()))
+
+
+def run_sql(torch, session, sql: str):
+    t0 = time.perf_counter()
+    rows = session.execute(sql).rows()
+    torch.cuda.synchronize()
+    return rows, time.perf_counter() - t0
+
+
+def sql_path(torch, CK, TK, label: str, session, sql: str, n_rows: int,
+             check, kernel: str):
+    """One query on the card: the cold run (checked), the counted warm
+    run with its kernel inputs captured (checked; `kernel` must launch),
+    the best of 3 warm runs as rows/s of `n_rows`, and one profiled run."""
+    rows, cold_s = run_sql(torch, session, sql)
+    check(rows)
+    CK.LAUNCHES.reset()
+    with PathInputs(torch, TK) as cap:
+        rows, _ = run_sql(torch, session, sql)
+    launches = kernel_launches(
+        CK, label, ("sorted_search", "segment_sum", "l2_distance_sq",
+                    "adc_score"), required=(kernel,))
+    check(rows)
+    warm = [run_sql(torch, session, sql)[1] for _ in range(3)]
+    prof = profile_run(torch, lambda: session.execute(sql), label)
+    out = {"cold_seconds": cold_s, "warm_seconds": warm,
+           "rows_per_sec_best": n_rows / min(warm),
+           "launches": launches, "profile": prof}
+    log(f"[{label}] cold {cold_s:.3f}s warm {['%.3f' % w for w in warm]} "
+        f"best {out['rows_per_sec_best']:.0f} rows/s")
+    return out, cap
+
+
+def phase_sql(torch, CK, args):
+    """Phase 5: TPC-H Q3 and the float GROUP BY at scale factor 1."""
+    from matrixone_tpu_torch.container import dtypes as dt
+    from matrixone_tpu_torch.frontend import Session
+    from matrixone_tpu_torch.ops import kernels as TK
+    from matrixone_tpu_torch.sql import plan as P
+    from matrixone_tpu_torch.storage.engine import Engine, TableMeta
+    from matrixone_tpu_torch.utils import tpch
+
+    report = {}
+    eng = Engine()
+    t0 = time.perf_counter()
+    lineitem = tpch.load_lineitem(eng, args.sf1_lineitem, seed=args.seed)
+    q3data = tpch.load_tpch_q3(eng, args.sf1_lineitem // 4, seed=args.seed)
+    load_q3 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    n_v = args.sf1_lineitem
+    rng = np.random.default_rng(args.seed)
+    ids = np.arange(n_v, dtype=np.int64)
+    v = {"id": ids, "grp": ids % 1000,
+         "xi": rng.integers(0, 16, n_v).astype(np.float32),
+         "xn": rng.standard_normal(n_v).astype(np.float32)}
+    eng.create_table(TableMeta("v", [("id", dt.INT64), ("grp", dt.INT64),
+                                     ("xi", dt.FLOAT32), ("xn", dt.FLOAT32)],
+                               ["id"]))
+    eng.get_table("v").insert_numpy(v)
+    load_v = time.perf_counter() - t0
+    report["load"] = {
+        "q3_tables_seconds": load_q3, "v_seconds": load_v,
+        "rows": {t: eng.get_table(t).n_rows for t in eng.tables},
+        "host_bytes": {t: table_host_bytes(eng.get_table(t))
+                       for t in eng.tables}}
+    log(f"[5a] loaded {report['load']['rows']} in {load_q3:.2f}s (Q3 "
+        f"tables) + {load_v:.2f}s (v); host bytes "
+        f"{report['load']['host_bytes']}")
+
+    session = Session(catalog=eng, device="cuda")
+    plan = P.explain(session.plan(tpch.Q3_SQL))
+    log("[5b] the port's Q3 plan:\n" + plan)
+    oracle = tpch.q3_oracle(lineitem, q3data)
+    epoch = __import__("datetime").date(1970, 1, 1)
+
+    def check_q3(rows):
+        got = [(r[0], round(r[1] * 10000), (r[2] - epoch).days)
+               for r in rows]
+        if len(rows) != 10 or got != oracle:
+            raise AssertionError(f"5b Q3 rows differ from q3_oracle: "
+                                 f"{got[:3]} vs {oracle[:3]}")
+
+    report["q3"], q3cap = sql_path(torch, CK, TK, "5b Q3", session,
+                                   tpch.Q3_SQL, args.sf1_lineitem,
+                                   check_q3, "sorted_search")
+    report["q3"]["plan"] = plan
+    log(f"[5b] Q3 rows exactly q3_oracle's; top row {oracle[0]}")
+
+    grp = v["grp"]
+    xi_exact = np.bincount(grp, weights=v["xi"].astype(np.int64),
+                           minlength=1000)
+    xn_f64 = np.bincount(grp, weights=v["xn"].astype(np.float64),
+                         minlength=1000)
+    gb_err = {}
+
+    def check_group_by(rows):
+        if [r[0] for r in rows] != list(range(1000)):
+            raise AssertionError("5c GROUP BY: wrong groups")
+        if [r[1] for r in rows] != xi_exact.tolist():
+            raise AssertionError("5c sum(xi) is not the exact integer sum")
+        got = np.asarray([r[2] for r in rows], np.float64)
+        err = np.abs(got - xn_f64)
+        gb_err["sum_xn_max_abs_err"] = float(err.max())
+        if (err > 1e-4 * np.abs(xn_f64) + 1e-3).any():
+            raise AssertionError(f"5c sum(xn) max err {err.max()} past "
+                                 f"rtol 1e-4 / atol 1e-3")
+
+    report["group_by"], gbcap = sql_path(
+        torch, CK, TK, "5c GROUP BY", session, GROUP_BY_SQL, n_v,
+        check_group_by, "segment_sum")
+    report["group_by"].update(gb_err)
+    if {g for _, g in CK.LAUNCHES.shapes("segment_sum")} != {4096}:
+        raise AssertionError("5c: the segment-sum kernel ran at "
+                             f"{CK.LAUNCHES.shapes('segment_sum')}, not "
+                             f"only at G = 4096")
+    log(f"[5c] 1000 groups, sum(xi) exact, sum(xn) max err "
+        f"{gb_err['sum_xn_max_abs_err']:.3e} of the f64 sum")
+
+    # 5d: each kernel at each shape its path launched it with
+    q3_counts = {tuple(r[:-1]): r[-1] for r in
+                 report["q3"]["launches"]["sorted_search"]["by_shape"]}
+    gb_counts = {tuple(r[:-1]): r[-1] for r in
+                 report["group_by"]["launches"]["segment_sum"]["by_shape"]}
+    search_rows = [dict(check_sorted_search(torch, CK, f"5b_q3_n{n}_m{m}",
+                                            *q3cap.search[(n, m)]),
+                        path="5b_q3", path_launches=c)
+                   for (n, m), c in sorted(q3_counts.items())]
+    segsum_rows = [dict(check_segment_sum(torch, CK, f"5c_n{n}_G{g}",
+                                          *gbcap.segsum[(n, g)], g),
+                        path="5c_group_by", path_launches=c)
+                   for (n, g), c in sorted(gb_counts.items())]
+    del q3cap, gbcap
+    torch.cuda.empty_cache()
+    return report, search_rows, segsum_rows
+
+
+GROUP_BY_SQL = ("select grp, sum(xi), sum(xn) from v group by grp "
+                "order by grp")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=1_000_000)
     ap.add_argument("--d", type=int, default=768)
     ap.add_argument("--nq", type=int, default=1024)
     ap.add_argument("--seed", type=int, default=1234)
+    ap.add_argument("--sf1-lineitem", type=int, default=6_000_000,
+                    help="lineitem rows of phase 5 (TPC-H SF1: 6M); "
+                         "orders get a quarter, customer a fortieth")
     args = ap.parse_args(argv)
 
     import torch
@@ -807,8 +1148,12 @@ def main(argv=None) -> int:
         f"{time.perf_counter() - t0:.1f}s")
 
     rows, masked_rows, adc_rows = phase_edges(torch, CK, args.seed)
+    search_rows, segsum_rows = phase_relational_edges(torch, CK, args.seed)
     report, path_rows, ctx = phase_path(torch, CK, args)
     report["ivf_pq"], pq_rows, pq_adc_rows = phase_pq(torch, CK, args, ctx)
+    report["sql"], search_path, segsum_path = phase_sql(torch, CK, args)
+    search_rows += search_path
+    segsum_rows += segsum_path
     rows += path_rows + pq_rows
     adc_rows += pq_adc_rows
     pq_build = report["ivf_pq"]["build_launches"]
@@ -822,6 +1167,11 @@ def main(argv=None) -> int:
     adc_row = max(pq_adc_rows, key=lambda r: r["path_launches"])
     masked_row = next(r for r in masked_rows
                       if r["shape"] == "truth_chunk_p0.7")
+    # the relational kernels speak at their path's most launched shape
+    search_row = max(search_path, key=lambda r: r["path_launches"])
+    segsum_row = max(segsum_path, key=lambda r: r["path_launches"])
+    sql_launches = {p: report["sql"][k]["launches"] for p, k in
+                    (("5b_q3", "q3"), ("5c_group_by", "group_by"))}
     record = {"kernels": [{
         "name": "l2_distance_sq", "route": "cuda",
         "source": "matrixone_tpu_torch/csrc/l2_distance.cu",
@@ -857,7 +1207,27 @@ def main(argv=None) -> int:
         **{key: masked_row[key] for key in timed},
         "library_call": "torch.mm(x, q.T).masked_fill_(~mask, inf): "
                         "two calls",
-        "shapes": masked_rows}]}
+        "shapes": masked_rows}, {
+        "name": "sorted_search", "route": "cuda",
+        "source": "matrixone_tpu_torch/csrc/sorted_search.cu",
+        "replaces": "matrixone_tpu/ops/pallas_kernels.py:250",
+        "launches": sql_launches["5b_q3"]["sorted_search"]["launches"],
+        "launches_by_path": {p: v["sorted_search"]["launches"]
+                             for p, v in sql_launches.items()},
+        "max_abs_err": max(r["max_abs_err"] for r in search_rows),
+        **{key: search_row[key] for key in timed},
+        "library_call": "torch.searchsorted on pre-flipped int64",
+        "shapes": search_rows}, {
+        "name": "segment_sum", "route": "cuda",
+        "source": "matrixone_tpu_torch/csrc/segment_sum.cu",
+        "replaces": "matrixone_tpu/ops/pallas_kernels.py:177",
+        "launches": sql_launches["5c_group_by"]["segment_sum"]["launches"],
+        "launches_by_path": {p: v["segment_sum"]["launches"]
+                             for p, v in sql_launches.items()},
+        "max_abs_err": max(r["max_abs_err"] for r in segsum_rows),
+        **{key: segsum_row[key] for key in timed},
+        "library_call": "index_add_ into G + 1 slots",
+        "shapes": segsum_rows}]}
     log(json.dumps({"path": report}))
     log(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,14 @@
 """matrixone_tpu_torch — the PyTorch/CUDA port of `matrixone_tpu`.
 
 A second package beside the JAX one, written for one NVIDIA H100.  Its
-slices so far are vector search: IVF-Flat served by `WorkerCore`, and
-IVF-PQ (`vectorindex/ivf_pq.py`).  It mirrors the JAX package's layout
-(`ops/`, `vectorindex/`, `worker/`, `utils/`) so each module's
+slices so far are vector search — IVF-Flat served by `WorkerCore`, and
+IVF-PQ (`vectorindex/ivf_pq.py`) — and the relational path from SQL
+text to the device: `frontend.Session.execute` over the SQL front end
+(`sql/`), an in-memory MVCC engine (`storage/engine.py`) and the
+per-operator executor (`vm/`: scans, filters, projections, hash joins,
+grouped aggregates, sort, top-k, limit), as TPC-H Q3 runs it.  It
+mirrors the JAX package's layout (`container/`, `ops/`, `sql/`, `vm/`,
+`frontend/`, `vectorindex/`, `worker/`, `utils/`) so each module's
 counterpart is easy to find, and it is held against that package on
 the same inputs by the `tests/test_torch_*.py` suite.  It imports
 `torch` and numpy only: never `jax` and nothing of `matrixone_tpu`,
@@ -11,7 +16,8 @@ whose host-only helpers it keeps its own copies of.
 
 Device rule: functions run where their input tensors live.  Entry
 points that take numpy (`WorkerCore`, `ivf_flat.build`,
-`ivf_pq.build`, the data generator) resolve their `device` argument
+`ivf_pq.build`, the data generator, `Session` and the executor's
+`ExecContext`) resolve their `device` argument
 with `resolve_device`, which defaults to CUDA and raises when CUDA is
 missing unless the caller asks for the CPU.  A CUDA tensor always runs the hand-written CUDA kernel
 (`ops/cuda_kernels.py`); a CPU tensor runs its plain PyTorch version.

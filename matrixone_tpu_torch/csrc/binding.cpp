@@ -7,6 +7,7 @@
 
 #include <ATen/core/Tensor.h>
 #include <ATen/ops/empty.h>
+#include <ATen/ops/zeros.h>
 #include <c10/cuda/CUDAException.h>
 #include <c10/cuda/CUDAGuard.h>
 #include <c10/cuda/CUDAStream.h>
@@ -19,6 +20,12 @@ void mo_l2_distance_sq_launch(const float* x, const float* q,
 cudaError_t mo_adc_score_launch(const void* codes, bool codes_i32,
                                 const float* lut, float* out, int64_t G,
                                 int64_t P, int64_t M, cudaStream_t stream);
+void mo_sorted_search_launch(const int64_t* sorted, int64_t n,
+                             const int64_t* queries, int64_t m,
+                             int32_t* out, cudaStream_t stream);
+void mo_segment_sum_launch(const float* values, const int32_t* gids,
+                           const bool* mask, int64_t n, int64_t G,
+                           float* out, cudaStream_t stream);
 
 namespace {
 
@@ -99,6 +106,64 @@ at::Tensor adc_score(const at::Tensor& codes, const at::Tensor& lut) {
   return out;
 }
 
+at::Tensor sorted_search(const at::Tensor& sorted,
+                         const at::Tensor& queries) {
+  TORCH_CHECK(sorted.is_cuda() && queries.is_cuda(),
+              "sorted and queries must be CUDA tensors");
+  TORCH_CHECK(sorted.device() == queries.device(),
+              "sorted and queries must be on one device");
+  TORCH_CHECK(sorted.scalar_type() == at::kLong &&
+                  queries.scalar_type() == at::kLong,
+              "sorted and queries must be int64 (uint64 bit patterns)");
+  TORCH_CHECK(sorted.dim() == 1 && queries.dim() == 1,
+              "expected sorted [n] and queries [m]");
+  TORCH_CHECK(sorted.is_contiguous() && queries.is_contiguous(),
+              "sorted and queries must be contiguous");
+  TORCH_CHECK(sorted.size(0) < 2147483647LL,
+              "sorted_search: n must fit an int32 position");
+  const c10::cuda::CUDAGuard guard(queries.device());
+  const int64_t n = sorted.size(0), m = queries.size(0);
+  at::Tensor out = at::empty({m}, queries.options().dtype(at::kInt));
+  if (m == 0) return out;
+  mo_sorted_search_launch(sorted.data_ptr<int64_t>(), n,
+                          queries.data_ptr<int64_t>(), m,
+                          out.data_ptr<int32_t>(),
+                          c10::cuda::getCurrentCUDAStream().stream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  return out;
+}
+
+at::Tensor segment_sum(const at::Tensor& values, const at::Tensor& gids,
+                       const at::Tensor& mask, int64_t num_segments) {
+  TORCH_CHECK(values.is_cuda() && gids.is_cuda() && mask.is_cuda(),
+              "values, gids and mask must be CUDA tensors");
+  TORCH_CHECK(values.device() == gids.device() &&
+                  gids.device() == mask.device(),
+              "values, gids and mask must be on one device");
+  TORCH_CHECK(values.scalar_type() == at::kFloat, "values must be float32");
+  TORCH_CHECK(gids.scalar_type() == at::kInt, "gids must be int32");
+  TORCH_CHECK(mask.scalar_type() == at::kBool, "mask must be bool");
+  TORCH_CHECK(values.dim() == 1 && gids.dim() == 1 && mask.dim() == 1 &&
+                  gids.size(0) == values.size(0) &&
+                  mask.size(0) == values.size(0),
+              "expected values, gids and mask of one length [n]");
+  TORCH_CHECK(values.is_contiguous() && gids.is_contiguous() &&
+                  mask.is_contiguous(),
+              "values, gids and mask must be contiguous");
+  TORCH_CHECK(num_segments >= 1 && num_segments <= 4096,
+              "segment_sum takes 1 <= num_segments <= 4096");
+  const c10::cuda::CUDAGuard guard(values.device());
+  at::Tensor out = at::zeros({num_segments}, values.options());
+  const int64_t n = values.size(0);
+  if (n == 0) return out;
+  mo_segment_sum_launch(values.data_ptr<float>(), gids.data_ptr<int32_t>(),
+                        mask.data_ptr<bool>(), n, num_segments,
+                        out.data_ptr<float>(),
+                        c10::cuda::getCurrentCUDAStream().stream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  return out;
+}
+
 }  // namespace
 
 TORCH_LIBRARY(mo_torch, m) {
@@ -106,10 +171,15 @@ TORCH_LIBRARY(mo_torch, m) {
   m.def("l2_distance_sq_masked(Tensor x, Tensor q, Tensor q2, Tensor mask)"
         " -> Tensor");
   m.def("adc_score(Tensor codes, Tensor lut) -> Tensor");
+  m.def("sorted_search(Tensor sorted, Tensor queries) -> Tensor");
+  m.def("segment_sum(Tensor values, Tensor gids, Tensor mask,"
+        " int num_segments) -> Tensor");
 }
 
 TORCH_LIBRARY_IMPL(mo_torch, CUDA, m) {
   m.impl("l2_distance_sq", &l2_distance_sq);
   m.impl("l2_distance_sq_masked", &l2_distance_sq_masked);
   m.impl("adc_score", &adc_score);
+  m.impl("sorted_search", &sorted_search);
+  m.impl("segment_sum", &segment_sum);
 }

@@ -20,6 +20,8 @@ Kernels (the TPU kernel each replaces in brackets):
   * `l2_distance_sq_masked`  [`l2_distance_sq_masked_pallas`, :121], the
     same tile as `l2_distance_sq` (csrc/l2_distance.cu) with a row mask
   * `adc_score`              [`adc_score_pallas`, :313]
+  * `sorted_search`          [`sorted_search_pallas`, :250]
+  * `segment_sum`            [`segment_sum_pallas`, :177]
 """
 
 from __future__ import annotations
@@ -29,12 +31,15 @@ import threading
 
 import torch
 
+from matrixone_tpu_torch.ops.hash import unsigned_order
+
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 BUILD_DIR = os.path.join(_REPO, "build", "torch_kernels")
-SOURCES = ("binding.cpp", "l2_distance.cu", "adc_score.cu")
+SOURCES = ("binding.cpp", "l2_distance.cu", "adc_score.cu",
+           "sorted_search.cu", "segment_sum.cu")
 CUDA_CFLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a"]
 
 
@@ -201,4 +206,86 @@ def adc_score(codes: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
     out = build().adc_score(codes, lut)
     if out.numel():
         LAUNCHES.add("adc_score", tuple(codes.shape))
+    return out
+
+
+# ------------------------------------------- hash-join probe sorted search
+def sorted_search_plain(sorted_vals: torch.Tensor,
+                        queries: torch.Tensor) -> torch.Tensor:
+    """Plain version of the sorted-search kernel: searchsorted-left
+    positions [m] int32 of queries [m] in sorted_vals [n], both int64
+    bit patterns of uint64 hashes compared in UNSIGNED order (the sign
+    bit flipped on both sides makes signed order equal unsigned order)."""
+    return torch.searchsorted(unsigned_order(sorted_vals),
+                              unsigned_order(queries), side="left",
+                              out_int32=True)
+
+
+def sorted_search(sorted_vals: torch.Tensor,
+                  queries: torch.Tensor) -> torch.Tensor:
+    """Launch the sorted-search kernel (csrc/sorted_search.cu) on CUDA
+    int64 sorted_vals [n] (ascending as uint64) and queries [m] -> [m]
+    int32 positions.  Any n < 2^31 and m; m = 0 launches nothing."""
+    if not (sorted_vals.is_cuda and queries.is_cuda):
+        raise ValueError("sorted_search launches on CUDA tensors only")
+    if sorted_vals.dtype != torch.int64 or queries.dtype != torch.int64:
+        raise TypeError("sorted_search takes int64 (uint64 bit pattern) "
+                        "sorted values and queries")
+    if sorted_vals.dim() != 1 or queries.dim() != 1:
+        raise ValueError(f"sorted_search: bad shapes sorted "
+                         f"{tuple(sorted_vals.shape)} queries "
+                         f"{tuple(queries.shape)}")
+    if not (sorted_vals.is_contiguous() and queries.is_contiguous()):
+        raise ValueError("sorted_search takes contiguous tensors")
+    out = build().sorted_search(sorted_vals, queries)
+    if out.numel():
+        LAUNCHES.add("sorted_search",
+                     (sorted_vals.shape[0], queries.shape[0]))
+    return out
+
+
+# --------------------------------------------- GROUP BY float segment sum
+SEGMENT_SUM_MAX_GROUPS = 4096
+
+
+def segment_sum_plain(values: torch.Tensor, gids: torch.Tensor,
+                      mask: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """Plain version of the segment-sum kernel: out[g] = sum of values
+    over the rows with mask and gid g, for g < num_segments, in the
+    values' dtype.  Masked rows and gids outside [0, num_segments) go to
+    one extra slot that is dropped."""
+    g = gids.to(torch.int64)
+    slot = torch.where(mask & (g >= 0) & (g < num_segments), g,
+                       num_segments)
+    out = torch.zeros(num_segments + 1, dtype=values.dtype,
+                      device=values.device)
+    out.index_add_(0, slot, values)
+    return out[:num_segments]
+
+
+def segment_sum(values: torch.Tensor, gids: torch.Tensor,
+                mask: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """Launch the segment-sum kernel (csrc/segment_sum.cu) on CUDA f32
+    values [n], int32 gids [n] and bool mask [n] -> [num_segments] f32,
+    for 1 <= num_segments <= 4096.  n = 0 launches nothing."""
+    if not (values.is_cuda and gids.is_cuda and mask.is_cuda):
+        raise ValueError("segment_sum launches on CUDA tensors only")
+    if values.dtype != torch.float32 or gids.dtype != torch.int32 \
+            or mask.dtype != torch.bool:
+        raise TypeError("segment_sum takes float32 values, int32 gids and "
+                        "a bool mask")
+    n = values.shape[0]
+    if values.dim() != 1 or gids.shape != (n,) or mask.shape != (n,):
+        raise ValueError(f"segment_sum: bad shapes values "
+                         f"{tuple(values.shape)} gids {tuple(gids.shape)} "
+                         f"mask {tuple(mask.shape)}")
+    if not 1 <= num_segments <= SEGMENT_SUM_MAX_GROUPS:
+        raise ValueError(f"segment_sum takes 1 <= num_segments <= "
+                         f"{SEGMENT_SUM_MAX_GROUPS}, got {num_segments}")
+    if not (values.is_contiguous() and gids.is_contiguous()
+            and mask.is_contiguous()):
+        raise ValueError("segment_sum takes contiguous tensors")
+    out = build().segment_sum(values, gids, mask, int(num_segments))
+    if n:
+        LAUNCHES.add("segment_sum", (n, int(num_segments)))
     return out

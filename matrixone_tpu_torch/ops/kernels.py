@@ -51,3 +51,38 @@ def adc_score(codes: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
     if codes.is_cuda:
         return CK.adc_score(codes.contiguous(), lf)
     return CK.adc_score_plain(codes, lf)
+
+
+def sorted_lookup(sorted_hash: torch.Tensor,
+                  queries: torch.Tensor) -> torch.Tensor:
+    """searchsorted-left positions [m] int32 of the probe hashes in the
+    sorted build-side hashes: the hash-join probe's entry into each
+    hash run.  Both are int64 bit patterns of uint64 hashes, ordered
+    as unsigned."""
+    s = sorted_hash.contiguous()
+    q = queries.contiguous()
+    if q.is_cuda:
+        return CK.sorted_search(s, q)
+    return CK.sorted_search_plain(s, q)
+
+
+def grouped_scatter_add(values: torch.Tensor, gids: torch.Tensor,
+                        mask: torch.Tensor, max_groups: int,
+                        use_pallas: bool = False) -> torch.Tensor:
+    """Masked segment sum [max_groups], the grouped aggregate's
+    group-scatter.  As in the reference, the call site decides: with
+    `use_pallas`, float32 values into at most 4096 groups take the
+    segment-sum kernel; every other call (int64 counts and decimals,
+    f64, the merge of partial tables) is a plain scatter-add, the
+    counterpart of XLA's segment_sum.  Rows that are masked, or whose
+    gid lies outside [0, max_groups), add nothing."""
+    if (use_pallas and values.dtype == torch.float32
+            and max_groups <= CK.SEGMENT_SUM_MAX_GROUPS
+            and values.shape[0] > 0):
+        v = values.contiguous()
+        g = gids.to(torch.int32).contiguous()
+        m = mask.contiguous()
+        if v.is_cuda:
+            return CK.segment_sum(v, g, m, max_groups)
+        return CK.segment_sum_plain(v, g, m, max_groups)
+    return CK.segment_sum_plain(values, gids, mask, max_groups)

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from matrixone_tpu_torch.ops import cuda_kernels as CK
+from matrixone_tpu_torch.ops.hash import unsigned_order
 from matrixone_tpu_torch.ops import kernels as TK
 
 pytestmark = pytest.mark.cuda
@@ -217,3 +218,158 @@ def test_cuda_ivf_pq_search_matches_cpu_search(cuda):
     assert same >= 0.99, same
     np.testing.assert_allclose(dg.cpu().numpy(), dc.numpy(), rtol=1e-5,
                                atol=1e-4)
+
+
+# ------------------------------------------------- the relational kernels
+def _hashes(gen, n: int) -> torch.Tensor:
+    """Sorted uint64 hashes as int64 bit patterns: a duplicate run and
+    UINT64_MAX (NULL-hash) sentinels, in unsigned order."""
+    a = torch.randint(-(1 << 63), (1 << 63) - 1, (n,), generator=gen,
+                      device=gen.device, dtype=torch.int64)
+    if n:
+        a[: n // 5] = a[0]
+        a[-min(4, n):] = -1
+    return a[torch.argsort(unsigned_order(a), stable=True)]
+
+
+@pytest.mark.parametrize("n", [0, 1, 2500, (1 << 20) + 3])
+@pytest.mark.parametrize("m", [1, 1000, 1 << 20])
+def test_sorted_search_kernel_bit_identical(cuda, n, m):
+    """Kernel 4 against its plain version, bit for bit (`torch.equal`):
+    queries drawn from the sorted values, random ones, and 0, 1 and
+    2^64 - 1."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(n + 7 * m)
+    srt = _hashes(gen, n)
+    special = torch.tensor([0, 1, -1], dtype=torch.int64, device=cuda)
+    rand = torch.randint(-(1 << 63), (1 << 63) - 1, (m,), generator=gen,
+                         device=cuda, dtype=torch.int64)
+    if n:
+        pick = torch.randint(0, n, (m,), generator=gen, device=cuda)
+        rand = torch.where(torch.rand(m, generator=gen, device=cuda) < 0.7,
+                           srt[pick], rand)
+    q = torch.cat([special, rand])[:m].contiguous()
+    before = CK.LAUNCHES.get("sorted_search")
+    got = TK.sorted_lookup(srt, q)
+    torch.cuda.synchronize()
+    assert CK.LAUNCHES.get("sorted_search") == before + 1
+    assert CK.LAUNCHES.shapes("sorted_search")[(n, m)] >= 1
+    assert got.dtype == torch.int32 and got.shape == (m,)
+    assert torch.equal(got, CK.sorted_search_plain(srt, q))
+
+
+def test_sorted_search_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    s = torch.arange(10, device=cuda)
+    with pytest.raises(ValueError, match="CUDA"):
+        CK.sorted_search(s.cpu(), s.cpu())
+    with pytest.raises(TypeError):
+        CK.sorted_search(s.to(torch.int32), s)
+    with pytest.raises(ValueError, match="contiguous"):
+        CK.sorted_search(s, torch.arange(20, device=cuda)[::2])
+    before = CK.LAUNCHES.get("sorted_search")
+    assert CK.sorted_search(s, s[:0]).shape == (0,)
+    assert CK.LAUNCHES.get("sorted_search") == before   # m = 0: no launch
+
+
+@pytest.mark.parametrize("n", [1, 4000, 4096, 1 << 20, 6_000_000])
+@pytest.mark.parametrize("g", [1, 19, 1000, 4096])
+def test_segment_sum_kernel_matches_plain_version(cuda, n, g):
+    """Kernel 3 against its plain version: exact on integer-valued
+    values (every partial stays below 2^24), within the reference's
+    rtol 1e-4 / atol 1e-3 of an f64 sum on N(0,1) values; masked rows
+    whose gids collide with live groups never land."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(n + g)
+    gids = torch.randint(0, g, (n,), generator=gen, device=cuda,
+                         dtype=torch.int32)
+    mask = torch.rand(n, generator=gen, device=cuda) < 0.8
+    ints = torch.randint(0, 16, (n,), generator=gen,
+                         device=cuda).to(torch.float32)
+    before = CK.LAUNCHES.get("segment_sum")
+    got = TK.grouped_scatter_add(ints, gids, mask, g, use_pallas=True)
+    torch.cuda.synchronize()
+    assert CK.LAUNCHES.get("segment_sum") == before + 1
+    assert got.dtype == torch.float32 and got.shape == (g,)
+    want = CK.segment_sum_plain(ints.double(), gids, mask, g)
+    if float(want.max()) < (1 << 24):
+        assert torch.equal(got.double(), want)
+    normal = torch.randn(n, generator=gen, device=cuda)
+    got = CK.segment_sum(normal, gids, mask, g)
+    want = CK.segment_sum_plain(normal.double(), gids, mask, g)
+    assert bool(((got.double() - want).abs()
+                 <= 1e-4 * want.abs() + 1e-3).all())
+    # a masked row never lands, whatever its gid
+    dead = torch.full_like(normal, 1e6)
+    assert bool((CK.segment_sum(dead, gids, torch.zeros_like(mask), g)
+                 == 0).all())
+
+
+def test_segment_sum_never_takes_what_the_kernel_does_not_take(cuda):
+    """G > 4096, exact dtypes and the merge route (no use_pallas) stay
+    on the plain scatter: no launch; the wrapper itself refuses them."""
+    v = torch.ones(5000, device=cuda)
+    gids = torch.arange(5000, device=cuda, dtype=torch.int32)
+    mask = torch.ones(5000, dtype=torch.bool, device=cuda)
+    before = CK.LAUNCHES.get("segment_sum")
+    wide = TK.grouped_scatter_add(v, gids, mask, 5000, use_pallas=True)
+    exact = TK.grouped_scatter_add(v.to(torch.int64), gids, mask, 64,
+                                   use_pallas=True)
+    f64 = TK.grouped_scatter_add(v.double(), gids, mask, 64,
+                                 use_pallas=True)
+    merge = TK.grouped_scatter_add(v, gids, mask, 64)
+    torch.cuda.synchronize()
+    assert CK.LAUNCHES.get("segment_sum") == before
+    assert wide.shape == (5000,) and bool((wide == 1).all())
+    assert exact.dtype == torch.int64 and f64.dtype == torch.float64
+    assert merge.dtype == torch.float32
+    with pytest.raises(ValueError, match="4096"):
+        CK.segment_sum(v, gids, mask, 5000)
+    with pytest.raises(TypeError):
+        CK.segment_sum(v.double(), gids, mask, 64)
+    with pytest.raises(TypeError):
+        CK.segment_sum(v, gids.to(torch.int64), mask, 64)
+    with pytest.raises(ValueError, match="CUDA"):
+        CK.segment_sum(v.cpu(), gids.cpu(), mask.cpu(), 64)
+
+
+def test_sql_on_the_card_matches_the_cpu(cuda):
+    """TPC-H Q3 and the float GROUP BY on the card (both kernels on the
+    path) give the CPU session's rows: Q3 exactly, with the oracle; the
+    integer-valued float sums exactly, the N(0,1) ones within rtol 1e-4
+    / atol 1e-3."""
+    from matrixone_tpu_torch.container import dtypes as dt
+    from matrixone_tpu_torch.frontend import Session
+    from matrixone_tpu_torch.storage.engine import Engine, TableMeta
+    from matrixone_tpu_torch.utils import tpch
+    eng = Engine()
+    lineitem = tpch.load_lineitem(eng, 40_000, seed=1)
+    q3data = tpch.load_tpch_q3(eng, 10_000, seed=1)
+    rng = np.random.default_rng(3)
+    ids = np.arange(30_000, dtype=np.int64)
+    eng.create_table(TableMeta("v", [("id", dt.INT64), ("grp", dt.INT64),
+                                     ("xi", dt.FLOAT32), ("xn", dt.FLOAT32)],
+                               ["id"]))
+    eng.get_table("v").insert_numpy({
+        "id": ids, "grp": ids % 1000,
+        "xi": rng.integers(0, 16, len(ids)).astype(np.float32),
+        "xn": rng.standard_normal(len(ids)).astype(np.float32)})
+    card, host = Session(catalog=eng), Session(catalog=eng, device="cpu")
+    assert card.device.type == "cuda"
+    card.variables["batch_rows"] = host.variables["batch_rows"] = 8192
+    CK.LAUNCHES.reset()
+    rows = card.execute(tpch.Q3_SQL).rows()
+    assert CK.LAUNCHES.get("sorted_search") > 0
+    assert rows == host.execute(tpch.Q3_SQL).rows()
+    epoch = __import__("datetime").date(1970, 1, 1)
+    want = tpch.q3_oracle(lineitem, q3data)
+    assert [(r[0], round(r[1] * 10000), (r[2] - epoch).days)
+            for r in rows] == want
+    sql = "select grp, sum(xi), sum(xn) from v group by grp order by grp"
+    CK.LAUNCHES.reset()
+    got = card.execute(sql).rows()
+    assert CK.LAUNCHES.shapes("segment_sum")
+    assert {s[1] for s in CK.LAUNCHES.shapes("segment_sum")} == {4096}
+    ref = host.execute(sql).rows()
+    assert [r[:2] for r in got] == [r[:2] for r in ref]
+    np.testing.assert_allclose([r[2] for r in got], [r[2] for r in ref],
+                               rtol=1e-4, atol=1e-3)

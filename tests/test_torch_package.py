@@ -59,15 +59,26 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     if torch.cuda.is_available():
         pytest.skip("this host has CUDA: the default resolves to it")
     from matrixone_tpu_torch import convert, resolve_device
+    from matrixone_tpu_torch.frontend import Session
+    from matrixone_tpu_torch.storage.engine import Engine
     from matrixone_tpu_torch.utils import datagen
     from matrixone_tpu_torch.vectorindex import ivf_flat
+    from matrixone_tpu_torch.vm.compile import compile_plan
+    from matrixone_tpu_torch.vm.process import ExecContext
     from matrixone_tpu_torch.worker import WorkerCore
     x = np.zeros((300, 8), np.float32)
+    engine = Engine()
     calls = [lambda: resolve_device(),
              lambda: WorkerCore(),
              lambda: ivf_flat.build(x, nlist=4),
              lambda: datagen.make_clustered(100, 8, 4),
-             lambda: convert.tensor_from_numpy(x)]
+             lambda: convert.tensor_from_numpy(x),
+             lambda: Session(),
+             lambda: Session(catalog=engine),
+             # the engine's scans run in an execution context, which
+             # resolves its device the same way
+             lambda: ExecContext(catalog=engine),
+             lambda: compile_plan(None, engine)]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
@@ -77,6 +88,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     data, q = datagen.make_clustered(100, 8, 4, device="cpu")
     assert data.shape == (100, 8) and q.shape == (4, 8)
     assert data.device.type == "cpu"
+    assert Session(device="cpu").device.type == "cpu"
+    assert ExecContext(catalog=engine, device="cpu").device.type == "cpu"
 
 
 def test_import_builds_nothing():
