@@ -11,7 +11,10 @@ Phases, each of which raises on failure:
     shapes (the L2 kernel, its masked form, the ADC kernel), then, in
     phases 3 and 4, at every shape each path launched it with, on that
     path's own inputs; each timed with CUDA events beside the plain
-    version, one library call and the bound;
+    version, one library call and the bound (for the L2 kernels two
+    bounds: three TF32 products on the tensor cores, as the kernel runs
+    them, and f32 on the CUDA cores), the L2 kernels also launched twice
+    on the same inputs for the same bits;
  3. the serving path at the full shape of the IVF-Flat benchmark.  The
     exact truth and each path below get their own launch counts, set to
     0 just before and read just after; a path that launched no kernel
@@ -75,6 +78,7 @@ import numpy as np
 
 # published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet)
 H100_F32_FLOPS = 67e12          # f32 outside the tensor cores
+H100_TF32_FLOPS = 495e12        # TF32 on the tensor cores, dense
 H100_HBM_BYTES_S = 3.35e12
 
 K = 20
@@ -104,13 +108,36 @@ def cuda_time_ms(fn, warm: int = 3, iters: int = 20) -> float:
 
 
 def l2_bound(n: int, b: int, d: int, extra_bytes: int = 0):
-    """(ms, 'bytes'|'operations'): the least time of one fused L2 call
-    (`extra_bytes`: a mask's)."""
-    t_ops = 2.0 * n * b * d / H100_F32_FLOPS
+    """The least time of one fused L2 call (`extra_bytes`: a mask's) ->
+    (ms, 'bytes'|'operations', f32_ms, f32_by): first for the f32-
+    accurate product as the kernel runs it, three TF32 products on the
+    tensor cores; then for IEEE f32 on the CUDA cores."""
     t_bytes = (4.0 * (n * d + b * d + n * b) + extra_bytes) \
         / H100_HBM_BYTES_S
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
-                                       else "bytes")
+    out = ()
+    for ops in (3 * 2.0 * n * b * d / H100_TF32_FLOPS,
+                2.0 * n * b * d / H100_F32_FLOPS):
+        out += (max(ops, t_bytes) * 1e3,
+                "operations" if ops >= t_bytes else "bytes")
+    return out
+
+
+def l2_timing(row: dict) -> str:
+    """The [kernel] line's tail: the share of each bound reached, and
+    the ratio to the library call."""
+    return (f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}, 3xTF32, "
+            f"{row['bound_ms'] / row['ms']:.0%}) "
+            f"f32_cores_bound_ms={row['bound_f32_cores_ms']:.4f} "
+            f"({row['bound_f32_cores_by']}, "
+            f"{row['bound_f32_cores_ms'] / row['ms']:.0%}) "
+            f"x_library={row['ms'] / row['library_ms']:.2f}")
+
+
+def l2_bits_repeat(torch, CK, name: str, first, launch) -> None:
+    """A second launch on the same inputs must give the same bits."""
+    if not torch.equal(first, launch()):
+        raise AssertionError(f"{name}: two launches on the same inputs "
+                             f"differ")
 
 
 def check_kernel(torch, CK, name: str, x, q) -> dict:
@@ -134,18 +161,23 @@ def check_kernel(torch, CK, name: str, x, q) -> dict:
         raise AssertionError(
             f"l2_distance_sq {name} {n}x{b}x{d}: max err "
             f"{float(err.max())} exceeds 1e-5*(x2+q2)+1e-4")
+    l2_bits_repeat(torch, CK, f"l2_distance_sq {name}", got,
+                   lambda: CK.l2_distance_sq(x, q, q2))
     ms = cuda_time_ms(lambda: CK.l2_distance_sq(x, q, q2))
     plain_ms = cuda_time_ms(lambda: CK.l2_distance_sq_plain(x, q, q2))
     lib_ms = cuda_time_ms(lambda: torch.mm(x, q.T))
-    bound_ms, bound_by = l2_bound(n, b, d)
+    bound_ms, bound_by, f32_ms, f32_by = l2_bound(n, b, d)
     row = {"shape": name, "n": n, "b": b, "d": d,
-           "max_abs_err": float(err.max()), "ms": ms,
+           "max_abs_err": float(err.max()),
+           "max_err_over_tol": float((err / tol).max()), "ms": ms,
            "plain_ms": plain_ms, "library_ms": lib_ms,
-           "bound_ms": bound_ms, "bound_by": bound_by}
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "bound_f32_cores_ms": f32_ms, "bound_f32_cores_by": f32_by}
     log(f"[kernel] l2_distance_sq {name:14s} n={n} b={b} d={d} "
-        f"err={row['max_abs_err']:.3e} ms={ms:.4f} "
+        f"err={row['max_abs_err']:.3e} "
+        f"(tol share {row['max_err_over_tol']:.3f}) ms={ms:.4f} "
         f"plain_ms={plain_ms:.4f} cublas_mm_ms={lib_ms:.4f} "
-        f"bound_ms={bound_ms:.4f} ({bound_by})")
+        f"{l2_timing(row)}")
     return row
 
 
@@ -174,20 +206,23 @@ def check_masked(torch, CK, name: str, x, q, mask) -> dict:
                                             CK.l2_distance_sq(x, q, q2)):
         raise AssertionError(f"l2_distance_sq_masked {name}: an all-true "
                              f"mask differs from the unmasked kernel")
+    l2_bits_repeat(torch, CK, f"l2_distance_sq_masked {name}", got,
+                   lambda: CK.l2_distance_sq_masked(x, q, q2, mask))
     ms = cuda_time_ms(lambda: CK.l2_distance_sq_masked(x, q, q2, mask))
     plain_ms = cuda_time_ms(
         lambda: CK.l2_distance_sq_masked_plain(x, q, q2, mask))
     drop = ~mask[:, None]
     lib_ms = cuda_time_ms(lambda: torch.mm(x, q.T).masked_fill_(drop, INF))
-    bound_ms, bound_by = l2_bound(n, b, d, extra_bytes=n)
+    bound_ms, bound_by, f32_ms, f32_by = l2_bound(n, b, d, extra_bytes=n)
     row = {"shape": name, "n": n, "b": b, "d": d,
            "kept": int(mask.sum()), "max_abs_err": max_err, "ms": ms,
            "plain_ms": plain_ms, "library_ms": lib_ms,
-           "bound_ms": bound_ms, "bound_by": bound_by}
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "bound_f32_cores_ms": f32_ms, "bound_f32_cores_by": f32_by}
     log(f"[kernel] l2_distance_sq_masked {name:18s} n={n} b={b} d={d} "
         f"kept={row['kept']} err={max_err:.3e} ms={ms:.4f} "
         f"plain_ms={plain_ms:.4f} cublas_mm+masked_fill_ms={lib_ms:.4f} "
-        f"bound_ms={bound_ms:.4f} ({bound_by})")
+        f"{l2_timing(row)}")
     return row
 
 
@@ -244,13 +279,22 @@ def check_adc(torch, CK, name: str, codes, lut) -> dict:
 def phase_edges(torch, CK, seed: int):
     """Each kernel vs its plain version at edge shapes, on seeded random
     input -> (L2 rows, masked L2 rows, ADC rows)."""
-    shapes = [("n1", 1, 256, 768), ("b1", 4480, 1, 768),
-              ("d100", 4480, 256, 100), ("n1000", 1000, 256, 768)]
+    # the L2 tile's edges: one row, one query, d % 4 != 0 and d past a
+    # depth tile (the 4-byte load path), b past 256 (a third column
+    # tile, ragged), rows whose base is off 16 bytes (a storage offset of
+    # 1 float at d = 768, a slice x[3:] at d = 65: the 4-byte path again)
+    shapes = [("n1", 1, 256, 768, 0), ("b1", 4480, 1, 768, 0),
+              ("d100", 4480, 256, 100, 0), ("n1000", 1000, 256, 768, 0),
+              ("d65_b257", 5226, 257, 65, 0), ("d769", 1000, 256, 769, 0),
+              ("b300", 4480, 300, 768, 0), ("off1_d768", 4480, 256, 768, 1),
+              ("slice3_d65", 1000, 32, 65, 3 * 65)]
     g = torch.Generator(device="cuda")
     g.manual_seed(seed)
     rows, masked = [], []
-    for name, n, b, d in shapes + [("truth_chunk", TRUTH_CHUNK, 256, 768)]:
-        x = torch.randn(n, d, generator=g, device="cuda")
+    for name, n, b, d, off in shapes + [
+            ("truth_chunk", TRUTH_CHUNK, 256, 768, 0)]:
+        x = torch.randn(n * d + off, generator=g,
+                        device="cuda")[off:].view(n, d)
         q = torch.randn(b, d, generator=g, device="cuda")
         if name != "truth_chunk":
             rows.append(check_kernel(torch, CK, name, x, q))
@@ -1146,6 +1190,12 @@ def main(argv=None) -> int:
     CK.build()
     log(f"[env] built {', '.join(CK.SOURCES)} in "
         f"{time.perf_counter() - t0:.1f}s")
+    for a in CK.l2_kernel_attributes():
+        log(f"[env] l2 tile kernel "
+            f"{'deep (wgmma)' if a['deep'] else 'shallow (mma.sync)'} "
+            f"{'16-byte' if a['vec16'] else '4-byte'} loads: "
+            f"registers {a['registers']} static shared "
+            f"{a['shared_bytes']} B local (spill) {a['local_bytes']} B")
 
     rows, masked_rows, adc_rows = phase_edges(torch, CK, args.seed)
     search_rows, segsum_rows = phase_relational_edges(torch, CK, args.seed)

@@ -13,10 +13,13 @@
 #include <c10/cuda/CUDAStream.h>
 #include <torch/library.h>
 
-void mo_l2_distance_sq_launch(const float* x, const float* q,
-                              const float* q2, const bool* mask,
-                              float* out, int64_t n, int64_t b, int64_t d,
-                              cudaStream_t stream);
+int64_t mo_l2_distance_sq_workspace(int64_t n, int64_t b, int64_t d);
+cudaError_t mo_l2_distance_sq_launch(const float* x, const float* q,
+                                     const float* q2, const bool* mask,
+                                     float* out, float* workspace, int64_t n,
+                                     int64_t b, int64_t d,
+                                     cudaStream_t stream);
+int mo_l2_kernel_attributes(int64_t* rows, int cap);
 cudaError_t mo_adc_score_launch(const void* codes, bool codes_i32,
                                 const float* lut, float* out, int64_t G,
                                 int64_t P, int64_t M, cudaStream_t stream);
@@ -50,12 +53,26 @@ at::Tensor l2_distance_sq_impl(const at::Tensor& x, const at::Tensor& q,
   const int64_t n = x.size(0), b = q.size(0), d = x.size(1);
   at::Tensor out = at::empty({n, b}, x.options());
   if (n == 0 || b == 0) return out;
-  mo_l2_distance_sq_launch(x.data_ptr<float>(), q.data_ptr<float>(),
-                           q2.data_ptr<float>(), mask,
-                           out.data_ptr<float>(), n, b, d,
-                           c10::cuda::getCurrentCUDAStream().stream());
+  // the split-K parts and their partial norms, when the depth is split
+  const int64_t ws_floats = mo_l2_distance_sq_workspace(n, b, d);
+  at::Tensor ws = at::empty({ws_floats}, x.options());
+  C10_CUDA_CHECK(mo_l2_distance_sq_launch(
+      x.data_ptr<float>(), q.data_ptr<float>(), q2.data_ptr<float>(), mask,
+      out.data_ptr<float>(), ws_floats ? ws.data_ptr<float>() : nullptr, n,
+      b, d, c10::cuda::getCurrentCUDAStream().stream()));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
   return out;
+}
+
+// [kernels, 6] int64 on the CPU: deep, 16-byte loads,
+// registers, static shared bytes, local (spill) bytes, max threads of
+// each L2 tile kernel
+at::Tensor l2_kernel_attributes() {
+  constexpr int kCap = 16;
+  at::Tensor rows = at::zeros({kCap, 6}, at::dtype(at::kLong));
+  const int k = mo_l2_kernel_attributes(rows.data_ptr<int64_t>(), kCap);
+  TORCH_CHECK(k >= 0, "cudaFuncGetAttributes failed on an L2 kernel");
+  return rows.narrow(0, 0, k).clone();
 }
 
 at::Tensor l2_distance_sq(const at::Tensor& x, const at::Tensor& q,
@@ -170,6 +187,7 @@ TORCH_LIBRARY(mo_torch, m) {
   m.def("l2_distance_sq(Tensor x, Tensor q, Tensor q2) -> Tensor");
   m.def("l2_distance_sq_masked(Tensor x, Tensor q, Tensor q2, Tensor mask)"
         " -> Tensor");
+  m.def("l2_kernel_attributes() -> Tensor", &l2_kernel_attributes);
   m.def("adc_score(Tensor codes, Tensor lut) -> Tensor");
   m.def("sorted_search(Tensor sorted, Tensor queries) -> Tensor");
   m.def("segment_sum(Tensor values, Tensor gids, Tensor mask,"

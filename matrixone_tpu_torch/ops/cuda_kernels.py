@@ -140,6 +140,17 @@ def l2_distance_sq(x: torch.Tensor, q: torch.Tensor,
     return out
 
 
+def l2_kernel_attributes() -> list:
+    """What the compiler made of each L2 tile kernel: one dict per
+    kernel with its variant (deep: the `wgmma` tile for d > 32, else the
+    `mma.sync` tile; vec16: 16-byte loads, else 4-byte), registers,
+    static shared bytes, local (spill) bytes and max threads."""
+    keys = ("deep", "vec16", "registers", "shared_bytes", "local_bytes",
+            "max_threads")
+    return [dict(zip(keys, row))
+            for row in build().l2_kernel_attributes().tolist()]
+
+
 # ---------------------------------------- pairwise L2 with a row mask
 def l2_distance_sq_masked_plain(x: torch.Tensor, q: torch.Tensor,
                                 q2: torch.Tensor,

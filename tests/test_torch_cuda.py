@@ -38,8 +38,26 @@ def cuda():
     return torch.device("cuda")
 
 
+# every tile shape (b <= 32, b <= 256, b > 256), load path (d % 4 == 0
+# or not), depth split (small n) and ragged edge of the L2 kernel
+L2_EDGE_SHAPES = [(n, b, d) for n in (1, 63, 65, 5226)
+                  for b in (1, 32, 255, 256, 257)
+                  for d in (1, 8, 65, 100, 768, 769)]
+
+
+def _l2_check(x, q, got):
+    """|got - f64| <= 1e-5 * (x2 + q2) + 1e-4 (chip_smoke.py's bound)."""
+    x64, q64 = x.double(), q.double()
+    x2, q2 = (x64 * x64).sum(1, keepdim=True), (q64 * q64).sum(1)
+    ref = CK.l2_distance_sq_plain(x64, q64, q2)
+    tol = 1e-5 * (x2 + q2[None, :]) + 1e-4
+    assert got.shape == ref.shape and got.dtype == torch.float32
+    assert bool(((got.double() - ref).abs() <= tol).all())
+
+
 @pytest.mark.parametrize("n,b,d", [(4480, 256, 768), (1, 1, 100),
-                                   (1000, 3, 65), (130, 64, 16)])
+                                   (1000, 3, 65), (130, 64, 16)]
+                         + L2_EDGE_SHAPES)
 def test_kernel_matches_plain_version(cuda, n, b, d):
     """The fused kernel against its plain version in f64, at unaligned
     shapes, with chip_smoke.py's bound 1e-5 * (x2 + q2) + 1e-4."""
@@ -53,12 +71,63 @@ def test_kernel_matches_plain_version(cuda, n, b, d):
     torch.cuda.synchronize()
     assert CK.LAUNCHES.get("l2_distance_sq") == before + 1
     assert CK.LAUNCHES.shapes("l2_distance_sq")[(n, b, d)] == at_shape + 1
-    x64, q64 = x.double(), q.double()
-    x2, q2 = (x64 * x64).sum(1, keepdim=True), (q64 * q64).sum(1)
-    ref = CK.l2_distance_sq_plain(x64, q64, q2)
-    tol = 1e-5 * (x2 + q2[None, :]) + 1e-4
-    assert got.shape == (n, b) and got.dtype == torch.float32
-    assert bool(((got.double() - ref).abs() <= tol).all())
+    assert got.shape == (n, b)
+    _l2_check(x, q, got)
+
+
+@pytest.mark.parametrize("n,b,d,offset", [
+    (5226, 256, 8, 1), (1000, 256, 768, 1), (63, 32, 100, 3),
+    (4480, 257, 65, 3), (1024, 256, 768, 5)])
+def test_kernel_at_unaligned_bases(cuda, n, b, d, offset):
+    """Rows that start `offset` floats into their storage (a slice
+    x[s:] of a contiguous array): the kernel's 4-byte load path where
+    the base is not on 16 bytes, whatever d is."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(n + b + d + offset)
+    flat = torch.randn(n * d + offset, generator=g, device=cuda)
+    x = flat[offset:].view(n, d)
+    q = torch.randn(b + 1, d, generator=g, device=cuda)[1:]
+    assert x.is_contiguous() and q.is_contiguous()
+    _l2_check(x, q, TK.l2_distance_sq_exact(x, q))
+    slice_rows = torch.randn(n + 3, d, generator=g, device=cuda)[3:]
+    _l2_check(slice_rows, q, TK.l2_distance_sq_exact(slice_rows, q))
+
+
+@pytest.mark.parametrize("n,b,d", [(1024, 256, 768), (1024, 32, 768),
+                                   (5226, 256, 768), (65536, 256, 768),
+                                   (131072, 256, 8), (1000, 3, 65)])
+def test_kernel_is_deterministic(cuda, n, b, d):
+    """Two launches on the same inputs give the same bits, where the
+    depth is split over blocks (small n) and where it is not."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(n * 7 + b + d)
+    x = torch.randn(n, d, generator=g, device=cuda)
+    q = torch.randn(b, d, generator=g, device=cuda)
+    first = TK.l2_distance_sq_exact(x, q)
+    second = TK.l2_distance_sq_exact(x, q)
+    assert torch.equal(first, second)
+    _l2_check(x[:2048], q, first[:2048])
+
+
+@pytest.mark.parametrize("n,d", [(65536, 768), (5226, 768), (4096, 8)])
+def test_kernel_at_near_duplicates(cuda, n, d):
+    """Queries that are rows of x plus noise of 1e-3, as the exact
+    truth's nearest rows are: x.q ~ ||x||^2, the largest the product
+    gets, and distances near 0."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(n + d)
+    centres = torch.randn(64, d, generator=g, device=cuda)
+    x = centres[torch.randint(0, 64, (n,), generator=g, device=cuda)] \
+        + 0.35 * torch.randn(n, d, generator=g, device=cuda)
+    q = x[:256] + 1e-3 * torch.randn(256, d, generator=g, device=cuda)
+    got = TK.l2_distance_sq_exact(x, q)
+    _l2_check(x[:4096], q, got[:4096])
+
+
+def test_l2_kernels_do_not_spill(cuda):
+    """Every L2 tile kernel compiles without local memory (spills)."""
+    rows = CK.l2_kernel_attributes()
+    assert rows and all(r["local_bytes"] == 0 for r in rows), rows
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
@@ -160,7 +229,9 @@ def test_adc_wrapper_refuses_what_the_kernel_does_not_take(cuda):
 
 
 @pytest.mark.parametrize("n,b,d", [(4480, 256, 768), (1000, 3, 65),
-                                   (130, 64, 16)])
+                                   (130, 64, 16), (1024, 256, 768),
+                                   (1024, 32, 768), (65, 257, 769),
+                                   (131072, 256, 8)])
 def test_masked_kernel_matches_plain_version(cuda, n, b, d):
     """The masked kernel against its plain version in f64 (+inf exactly
     on masked rows); an all-true mask gives the unmasked kernel's bits
