@@ -8,13 +8,16 @@ Phases, each of which raises on failure:
  1. environment: torch/CUDA versions, the card's name and power limit,
     and the build of every CUDA kernel from `matrixone_tpu_torch/csrc/`;
  2. every kernel against its plain PyTorch version (in float64) at edge
-    shapes (the L2 kernel, its masked form, the ADC kernel), then, in
-    phases 3 and 4, at every shape each path launched it with, on that
-    path's own inputs; each timed with CUDA events beside the plain
-    version, one library call and the bound (for the L2 kernels two
-    bounds: three TF32 products on the tensor cores, as the kernel runs
-    them, and f32 on the CUDA cores), the L2 kernels also launched twice
-    on the same inputs for the same bits;
+    shapes (the L2 kernel, its masked form, the ADC kernel's dense form,
+    and its list form against the dense form on the padded gather, bit
+    for bit), then, in phases 3 and 4, at every shape each path launched
+    it with, on that path's own inputs; each timed with CUDA events
+    (device time: the timed calls are queued behind a sleep so the card
+    runs them back to back) beside the plain version, one library call
+    and the bound (for the L2 kernels two bounds: three TF32 products on
+    the tensor cores, as the kernel runs them, and f32 on the CUDA
+    cores; for the ADC list form the bytes its lists hold), the L2
+    kernels also launched twice on the same inputs for the same bits;
  3. the serving path at the full shape of the IVF-Flat benchmark.  The
     exact truth and each path below get their own launch counts, set to
     0 just before and read just after; a path that launched no kernel
@@ -31,7 +34,12 @@ Phases, each of which raises on failure:
     c. `rerank_exact`, bit-identical to a numpy f64 left-fold oracle;
  4. IVF-PQ at `bench.py`'s IVF-PQ configuration, on the same data,
     queries and truth: the build and one search run of all queries each
-    counted (the search must launch the ADC and L2 kernels); probed-list
+    counted (the search must launch the ADC kernel's list form and the
+    L2 kernel, and never the dense form on a padded gather); the list
+    form at each path shape on the search's own inputs against the dense
+    form on the padded gather and f64, timed beside that padded path;
+    the search's ids and distances equal to its former padded-gather
+    path's, both run side by side and profiled; probed-list
     ADC recall against an f64 host oracle >= 0.99; recall@20 against the
     exact truth and after `rerank_exact` of a k = 100 pool, recorded
     without a gate (on this data the PQ error of the reference design
@@ -57,7 +65,9 @@ Phases, each of which raises on failure:
     d. both kernels re-checked and timed at every shape b and c launched
        them with, on the inputs those paths handed them.
    Phase 2 also holds the two relational kernels against their plain
-   versions at edge shapes (bit for bit for the search).
+   versions at edge shapes (bit for bit for the search, with its sample
+   tree's edges: n about the sample count, runs of equal keys across a
+   sample, 0 and 2^64 - 1, n = 2^22).
 
 The second-to-last line of output is the kernels' JSON record and the
 last is {"ok": true, "device": {...}}.  Without CUDA, or outside a
@@ -93,18 +103,55 @@ def log(*a):
     print(*a, flush=True)
 
 
-def cuda_time_ms(fn, warm: int = 3, iters: int = 20) -> float:
+class DeviceMs(float):
+    """A time in milliseconds, with `queued`: whether the timed calls ran
+    back to back on the card (True) or the reading includes the host's
+    gaps between them (False)."""
+    queued = True
+
+
+def cuda_time_ms(fn, warm: int = 3, iters: int = 20) -> DeviceMs:
+    """Device milliseconds a call of `fn`, the mean of `iters` warm calls
+    timed with CUDA events.  The calls are queued behind a sleep on the
+    stream, long enough for the host to enqueue them all, so the card runs
+    them back to back and the events time the card, not the host's
+    launches.  A call that synchronises the host defeats that: after four
+    ever longer sleeps the reading is returned with `queued` False, and
+    the rows that carry it say so."""
     import torch
     for _ in range(warm):
         fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    t0 = time.perf_counter()
+    for _ in range(warm):
+        fn()
+    host_s = (time.perf_counter() - t0) / warm
+    torch.cuda.synchronize()
+    for attempt in range(4):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        # about 2e9 sleep cycles a second on an H100
+        torch.cuda._sleep(int((1.5 * host_s * iters * 2 ** attempt
+                               + 50e-6) * 2e9))
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        queued = not start.query()      # the card was still asleep
+        torch.cuda.synchronize()
+        if queued:
+            break
+    out = DeviceMs(start.elapsed_time(end) / iters)
+    out.queued = queued
+    if not queued:
+        log(f"[timing] {out:.4f} ms: the calls were not queued, the "
+            f"reading includes the host's gaps")
+    return out
+
+
+def all_queued(row: dict) -> bool:
+    """Whether every time in a row was taken with its calls queued."""
+    return all(getattr(v, "queued", True) for v in row.values())
 
 
 def l2_bound(n: int, b: int, d: int, extra_bytes: int = 0):
@@ -276,6 +323,119 @@ def check_adc(torch, CK, name: str, codes, lut) -> dict:
     return row
 
 
+def adc_lists_bound(rows: int, g: int, pad: int, m: int, code_bytes: int):
+    """(ms, 'bytes'|'operations'): the least time of one list-form ADC
+    call on these inputs: the scored rows' codes (rows = sum of the list
+    lengths), the LUT and the output moved once; rows * M f32 adds."""
+    t_ops = float(rows) * m / H100_F32_FLOPS
+    t_bytes = (float(rows) * m * code_bytes + 4.0 * g * m * 256
+               + 4.0 * g * pad) / H100_HBM_BYTES_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def check_adc_lists(torch, CK, name: str, codes, starts, ends, lut,
+                    pad: int, timed: bool = True) -> dict:
+    """The ADC kernel's list form on codes [n, M] and the lists [starts,
+    ends) against its dense form on the padded candidate gather (the
+    search's path before the list form): the same bits on every valid
+    lane, +inf on every other; both forms within 1e-5*|want| + 1e-4 of
+    f64.  Timed beside its plain version, that padded path (the gather,
+    then the dense kernel), the gather alone, the gather with
+    `lut.gather(...).sum(-1)` (three calls: no single PyTorch call
+    computes it), and the list form on codes whose lookups never share a
+    bank (code % 32 = row % 32), the cost of the LUT's bank conflicts."""
+    g, m = lut.shape[0], lut.shape[1]
+    got = CK.adc_score_lists(codes, starts, ends, lut, pad)
+    torch.cuda.synchronize()
+    lane = torch.arange(pad, device=codes.device)
+    cand = starts.long()[:, None] + lane[None, :]
+    valid = cand < ends.long()[:, None]
+    cand = torch.where(valid, cand, torch.zeros_like(cand))
+    gathered = codes[cand]
+    dense = CK.adc_score(gathered, lut)
+    inf = torch.full_like(dense, INF)
+    if got.shape != (g, pad) or not torch.equal(got, torch.where(valid,
+                                                                 dense, inf)):
+        raise AssertionError(f"adc_score_lists {name}: differs from the "
+                             f"dense form on the padded gather")
+    want = CK.adc_score_plain(gathered, lut.double())
+    tol = 1e-5 * want.abs() + 1e-4
+    err = (got.double() - want).abs()[valid]
+    max_err = float(err.max()) if err.numel() else 0.0
+    if bool((err > tol[valid]).any()) \
+            or bool(((dense.double() - want).abs() > tol).any()):
+        raise AssertionError(f"adc_score_lists {name}: max err {max_err} "
+                             f"exceeds 1e-5*|want|+1e-4")
+    del want, tol, err, dense, inf
+    rows = int((ends.long() - starts.long()).clamp(min=0).sum())
+    bound_ms, bound_by = adc_lists_bound(rows, g, pad, m,
+                                         codes.element_size())
+    row = {"shape": name, "G": g, "pad": pad, "M": m, "rows": rows,
+           "codes": str(codes.dtype).replace("torch.", ""),
+           "max_abs_err": max_err, "bound_ms": bound_ms,
+           "bound_by": bound_by}
+    if timed:
+        row["ms"] = cuda_time_ms(
+            lambda: CK.adc_score_lists(codes, starts, ends, lut, pad))
+        row["plain_ms"] = cuda_time_ms(
+            lambda: CK.adc_score_lists_plain(codes, starts, ends, lut, pad),
+            warm=1, iters=3)
+        row["padded_path_ms"] = cuda_time_ms(
+            lambda: CK.adc_score(codes[cand], lut))
+        row["gather_ms"] = cuda_time_ms(lambda: codes[cand])
+        col = 256 * torch.arange(m, device=codes.device)
+        lut_flat = lut.reshape(g, m * 256)
+        row["library_ms"] = cuda_time_ms(lambda: lut_flat.gather(
+            1, (codes[cand].long() + col).reshape(g, pad * m)).reshape(
+                g, pad, m).sum(-1), warm=1, iters=5)
+        free = ((torch.arange(codes.shape[0], device=codes.device)[:, None]
+                 % 32) + 32 * (codes.long() % 8)).to(codes.dtype)
+        row["conflict_free_ms"] = cuda_time_ms(
+            lambda: CK.adc_score_lists(free, starts, ends, lut, pad))
+        del free
+        log(f"[kernel] adc_score_lists {name:18s} G={g} pad={pad} M={m} "
+            f"rows={rows} {row['codes']} bit-identical to the dense form "
+            f"err={max_err:.3e} ms={row['ms']:.4f} "
+            f"plain_ms={row['plain_ms']:.4f} "
+            f"padded_path_ms={row['padded_path_ms']:.4f} (gather "
+            f"{row['gather_ms']:.4f}) gather+lut_gather_sum_ms="
+            f"{row['library_ms']:.4f} conflict_free_ms="
+            f"{row['conflict_free_ms']:.4f} bound_ms={bound_ms:.4f} "
+            f"({bound_by}, {bound_ms / row['ms']:.0%})")
+    else:
+        log(f"[kernel] adc_score_lists {name:18s} G={g} pad={pad} M={m} "
+            f"rows={rows} {row['codes']} bit-identical to the dense form "
+            f"err={max_err:.3e}")
+    torch.cuda.empty_cache()
+    return row
+
+
+def adc_list_edges(torch, CK, g):
+    """The list form at its edges: empty lists, lists of 1 and of 255-257
+    and 511-513 rows (tiles' edges), one longer than a block's 2048
+    lanes, a pad that is a multiple of nothing; M = 1, 8, 96, 97 (rows
+    off 16 bytes), 300 and 304 (m-tiles, rows off and on 16 bytes);
+    uint8 and int32 codes; and a pad shorter than the long list, which
+    cuts it."""
+    rows = []
+    sizes = torch.tensor([0, 2500, 1, 255, 256, 257, 511, 512, 513, 0, 33])
+    offs = torch.cat([torch.zeros(1, dtype=torch.int64), sizes.cumsum(0)])
+    lists = torch.tensor([0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 1, 0, 6])
+    starts = offs[lists].to(torch.int32).cuda()
+    ends = offs[lists + 1].to(torch.int32).cuda()
+    for m in (1, 8, 96, 97, 300, 304):
+        for dt in (torch.uint8, torch.int32):
+            codes = torch.randint(0, 256, (int(offs[-1]), m), generator=g,
+                                  device="cuda").to(dt)
+            lut = torch.randn(len(lists), m, 256, generator=g, device="cuda")
+            for pad in (2507, 1000) if m == 96 else (2507,):
+                rows.append(check_adc_lists(
+                    torch, CK, f"edge_m{m}_{str(dt)[6:]}_pad{pad}", codes,
+                    starts, ends, lut, pad, timed=False))
+    return rows
+
+
 def phase_edges(torch, CK, seed: int):
     """Each kernel vs its plain version at edge shapes, on seeded random
     input -> (L2 rows, masked L2 rows, ADC rows)."""
@@ -323,6 +483,7 @@ def phase_edges(torch, CK, seed: int):
                               device="cuda").to(dt)
         lut = torch.randn(gs, m, 256, generator=g, device="cuda")
         adc.append(check_adc(torch, CK, name, codes, lut))
+    adc += adc_list_edges(torch, CK, g)
     torch.cuda.empty_cache()
     return rows, masked, adc
 
@@ -670,6 +831,41 @@ def phase_path(torch, CK, args):
     return report, rows, {"data": data, "queries": queries, "truth": truth}
 
 
+def padded_path_search(torch, index, queries, k: int, nprobe: int,
+                       query_chunk: int, compute_dtype):
+    """The IVF-PQ search as it ran before the list form, for comparison:
+    each chunk's candidate codes gathered into a padded [chunk, nprobe,
+    pad, M] tensor, scored by the ADC kernel's dense form, masked to +inf
+    past each list's end, then the search's own two-stage top-k."""
+    from matrixone_tpu_torch.ops import kernels as TK
+    from matrixone_tpu_torch.ops.topk import topk_smallest
+    from matrixone_tpu_torch.vectorindex import ivf_flat, ivf_pq
+    q, b, qc_eff = ivf_flat._prepare_queries(index, queries, query_chunk)
+    probes = ivf_pq._probe(index, q, nprobe)
+    pad, m = index.max_cluster_size, index.n_subspaces
+    dists, ids = [], []
+    for i in range(0, q.shape[0], qc_eff):
+        qc, pc = q[i:i + qc_eff], probes[i:i + qc_eff]
+        lut, cand, starts, ends = ivf_pq.adc_inputs(index, qc, pc,
+                                                    compute_dtype)
+        g = pc.shape[0] * nprobe
+        dist = TK.adc_score(index.codes[cand].reshape(g, pad, m),
+                            lut.reshape(g, m, 256)).reshape(pc.shape[0],
+                                                            nprobe, pad)
+        lane = torch.arange(pad, device=cand.device)
+        valid = lane < (ends - starts)[:, :, None]
+        dist = torch.where(valid, dist, torch.full_like(dist, INF))
+        kk = min(k, pad)
+        s1, p1 = topk_smallest(dist, kk)
+        c1 = cand.gather(2, p1)
+        s1f = s1.reshape(pc.shape[0], nprobe * kk)
+        c1f = c1.reshape(pc.shape[0], nprobe * kk)
+        top_s, top_pos = topk_smallest(s1f, min(k, nprobe * kk))
+        dists.append(top_s)
+        ids.append(index.ids[c1f.gather(1, top_pos)])
+    return torch.cat(dists)[:b], torch.cat(ids)[:b]
+
+
 def phase_pq(torch, CK, args, ctx: dict):
     """Phase 4: IVF-PQ at bench.py's configuration (MO_BENCH_INDEX=ivfpq)
     on phase 3's data, queries and truth.  The raw data is freed once
@@ -682,7 +878,7 @@ def phase_pq(torch, CK, args, ctx: dict):
     n, d = data.shape
     nq = queries.shape[0]
     m_sub = ivf_pq.pick_subspaces(d)
-    kernels = ("l2_distance_sq", "adc_score")
+    kernels = ("l2_distance_sq", "adc_score_lists")
     report = {}
 
     def run_all(k=K):
@@ -704,7 +900,8 @@ def phase_pq(torch, CK, args, ctx: dict):
                          compute_dtype=torch.bfloat16)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
-    report["build_launches"] = kernel_launches(CK, "4a build", kernels,
+    report["build_launches"] = kernel_launches(CK, "4a build",
+                                               kernels + ("adc_score",),
                                                required=("l2_distance_sq",))
     # the sub-k-means launched the L2 kernel at d = ds against 256
     # codewords: check it there on the path's rows and a codebook
@@ -728,27 +925,80 @@ def phase_pq(torch, CK, args, ctx: dict):
     del data, pool, rr
     torch.cuda.empty_cache()
 
-    # 4a: one search run of all queries, counted
+    # 4a: one search run of all queries, counted: the list form and the
+    # L2 kernel must launch, the dense form (the padded gather) never
     CK.LAUNCHES.reset()
     found = torch.cat(run_all()).cpu().numpy()
     report["search_launches"] = kernel_launches(
-        CK, "4a search", kernels, required=kernels)
+        CK, "4a search", kernels + ("adc_score",), required=kernels)
+    if report["search_launches"]["adc_score"]["launches"]:
+        raise AssertionError("4a: the search ran the ADC kernel's dense "
+                             "form on a padded gather")
     l2_shapes = CK.LAUNCHES.shapes("l2_distance_sq")
-    adc_shapes = CK.LAUNCHES.shapes("adc_score")
+    adc_shapes = CK.LAUNCHES.shapes("adc_score_lists")
     rows += check_path_shapes(torch, CK, "4_probe", l2_shapes,
                               index.centroids, queries)
+    # the list form at each shape the search launched it with, on the
+    # search's own inputs (its first query chunk)
     adc_rows = []
-    for (g, p, m), c in sorted(adc_shapes.items()):
+    for (g, pad, m), c in sorted(adc_shapes.items()):
         qn = g // NPROBE                    # the chunk's queries
         pc = ivf_pq._probe(index, queries[:qn], NPROBE)
-        lut, _, _, codes = ivf_pq.adc_inputs(index, queries[:qn], pc,
-                                             torch.bfloat16)
-        adc_rows.append(dict(check_adc(
-            torch, CK, f"4_search_G{g}", codes.reshape(g, p, m),
-            lut.reshape(g, m, 256).contiguous()),
+        lut, _, starts, ends = ivf_pq.adc_inputs(
+            index, queries[:qn], pc, torch.bfloat16)
+        adc_rows.append(dict(check_adc_lists(
+            torch, CK, f"4_search_G{g}", index.codes,
+            starts.reshape(g).contiguous(), ends.reshape(g).contiguous(),
+            lut.reshape(g, m, 256).contiguous(), pad),
             path="4_search", path_launches=c))
-        del lut, codes
+        del lut
     torch.cuda.empty_cache()
+
+    # the search's ids and distances against the path it replaced (the
+    # padded gather and the dense form), all queries, side by side
+    def run_padded():
+        outs = [padded_path_search(torch, index, queries[i:i + BATCH], K,
+                                   NPROBE, QUERY_CHUNK, torch.bfloat16)
+                for i in range(0, nq, BATCH)]
+        torch.cuda.synchronize()
+        return outs
+
+    def run_lists():
+        outs = [ivf_pq.search(index, queries[i:i + BATCH], k=K,
+                              nprobe=NPROBE, query_chunk=QUERY_CHUNK,
+                              compute_dtype=torch.bfloat16)
+                for i in range(0, nq, BATCH)]
+        torch.cuda.synchronize()
+        return outs
+
+    old, new = run_padded(), run_lists()
+    same_ids = all(torch.equal(a[1], b[1]) for a, b in zip(old, new))
+    same_d = all(torch.equal(a[0], b[0]) for a, b in zip(old, new))
+    log(f"[4a] search ids equal to the padded path's: {same_ids}; "
+        f"distances bit-identical: {same_d} ({nq} queries)")
+    if not (same_ids and same_d):
+        raise AssertionError("4a: the list-form search differs from the "
+                             "padded-gather path")
+    del old, new
+    side = {"padded": [], "lists": []}
+    for _ in range(3):                  # in turns: padded, lists, ...
+        for name, fn in (("padded", run_padded), ("lists", run_lists)):
+            t0 = time.perf_counter()
+            fn()
+            side[name].append(time.perf_counter() - t0)
+    torch.cuda.reset_peak_memory_stats()
+    run_padded()
+    padded_peak = torch.cuda.max_memory_allocated()
+    report["padded_path"] = {
+        "ids_equal": same_ids, "distances_equal": same_d,
+        "seconds_runs": side, "search_peak_device_bytes": padded_peak,
+        "profile": profile_run(torch, run_padded,
+                               f"4 IVF-PQ search through the padded "
+                               f"gather (the path replaced), {nq} queries")}
+    log(f"[4a] {nq} queries, seconds in turns: padded "
+        f"{['%.4f' % v for v in side['padded']]} lists "
+        f"{['%.4f' % v for v in side['lists']]}; padded-path peak "
+        f"{padded_peak / 1e9:.3f} GB")
 
     # 4b: the score stage against an f64 host oracle of the probed lists
     q_np = queries.cpu().numpy()
@@ -859,7 +1109,8 @@ def segsum_bound(n: int, g: int):
                                        else "bytes")
 
 
-def check_sorted_search(torch, CK, name: str, srt, q) -> dict:
+def check_sorted_search(torch, CK, name: str, srt, q,
+                        timed: bool = True) -> dict:
     """The sorted-search kernel against its plain version, bit for bit
     (`torch.equal`), timed beside the plain version and
     `torch.searchsorted` on pre-flipped int64."""
@@ -872,6 +1123,13 @@ def check_sorted_search(torch, CK, name: str, srt, q) -> dict:
         bad = int((got.long() - want.long()).abs().max()) if m else 0
         raise AssertionError(f"sorted_search {name} n={n} m={m}: differs "
                              f"from its plain version (max |diff| {bad})")
+    stride, samples, levels = CK.sorted_search_plan(n)
+    row = {"shape": name, "n": n, "m": m, "stride": stride,
+           "samples": samples, "levels": levels, "max_abs_err": 0.0}
+    if not timed:
+        log(f"[kernel] sorted_search {name:22s} n={n} m={m} stride={stride} "
+            f"levels={levels} bit-identical")
+        return row
     ms = cuda_time_ms(lambda: CK.sorted_search(srt, q))
     plain_ms = cuda_time_ms(lambda: CK.sorted_search_plain(srt, q))
     from matrixone_tpu_torch.ops.hash import unsigned_order
@@ -879,13 +1137,46 @@ def check_sorted_search(torch, CK, name: str, srt, q) -> dict:
     lib_ms = cuda_time_ms(lambda: torch.searchsorted(sf, qf,
                                                      out_int32=True))
     bound_ms, bound_by = search_bound(n, m)
-    row = {"shape": name, "n": n, "m": m, "max_abs_err": 0.0, "ms": ms,
-           "plain_ms": plain_ms, "library_ms": lib_ms,
-           "bound_ms": bound_ms, "bound_by": bound_by}
-    log(f"[kernel] sorted_search {name:22s} n={n} m={m} bit-identical "
-        f"ms={ms:.4f} plain_ms={plain_ms:.4f} searchsorted_ms={lib_ms:.4f} "
-        f"bound_ms={bound_ms:.4f} ({bound_by})")
+    row.update({"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by})
+    log(f"[kernel] sorted_search {name:22s} n={n} m={m} stride={stride} "
+        f"levels={levels} bit-identical ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        f"searchsorted_ms={lib_ms:.4f} bound_ms={bound_ms:.4f} "
+        f"({bound_by}, {bound_ms / ms:.0%}) x_library={ms / lib_ms:.2f}")
     return row
+
+
+def sorted_search_tree_edges(torch, CK, g) -> list:
+    """The sample tree's edges, bit for bit: n just below, at and above
+    k times the sample count S = 2^14 - 1 for k = 1, 2, 13 and 257 (where
+    the stride steps); a run of equal keys that starts just before, at
+    or after a sample and crosses several; keys at 0, 2^63 - 1, 2^63 and
+    2^64 - 1; n = 2^22, the join's build budget; m of no particular
+    size."""
+    rows = []
+    cap = (1 << CK.SORTED_SEARCH_LEVELS) - 1
+    for n in sorted({k * cap + o for k in (1, 2, 13, 257)
+                     for o in (-1, 0, 1)} | {1 << 22}):
+        srt = torch.randint(-(1 << 63), (1 << 63) - 1, (n,),
+                            generator=g, device="cuda")
+        srt = srt[torch.argsort(CK.unsigned_order(srt), stable=True)]
+        stride = CK.sorted_search_plan(n)[0]
+        for off in (-1, 0, 1):                  # runs across samples
+            at = (2 + 3 * (off + 1)) * stride + off
+            if at >= 0 and at + 2 * stride < n:
+                srt[at:at + 2 * stride + 1] = srt[at].item()
+        srt[:2] = 0
+        srt[-2:] = -1                           # UINT64_MAX
+        srt[2:4] = torch.tensor([(1 << 63) - 1, -(1 << 63)], device="cuda")
+        srt = srt[torch.argsort(CK.unsigned_order(srt),
+                                stable=True)].contiguous()
+        q = torch.cat([torch.tensor([0, 1, -1, (1 << 63) - 1, -(1 << 63)],
+                                    device="cuda"),
+                       srt[:100003], srt[:100003] + 1,
+                       srt[:100003] - 1]).contiguous()
+        rows.append(check_sorted_search(torch, CK, f"tree_n{n}", srt, q,
+                                        timed=False))
+    return rows
 
 
 def check_segment_sum(torch, CK, name: str, values, gids, mask,
@@ -954,6 +1245,7 @@ def phase_relational_edges(torch, CK, seed: int):
                 : min(3, m)]
             search.append(check_sorted_search(torch, CK, f"edge_n{n}_m{m}",
                                               srt, q.contiguous()))
+    search += sorted_search_tree_edges(torch, CK, g)
     segsum = []
     for n in (1, 4000, 4096, 1 << 20, 6_000_000):
         mask = torch.rand(n, generator=g, device="cuda") < 0.8
@@ -1139,6 +1431,11 @@ def phase_sql(torch, CK, args):
                  report["q3"]["launches"]["sorted_search"]["by_shape"]}
     gb_counts = {tuple(r[:-1]): r[-1] for r in
                  report["group_by"]["launches"]["segment_sum"]["by_shape"]}
+    if args.save_search_inputs:
+        torch.save({(n, m): tuple(t.cpu() for t in q3cap.search[(n, m)])
+                    for n, m in q3_counts}, args.save_search_inputs)
+        log(f"[5d] Q3's sorted-search inputs saved to "
+            f"{args.save_search_inputs}")
     search_rows = [dict(check_sorted_search(torch, CK, f"5b_q3_n{n}_m{m}",
                                             *q3cap.search[(n, m)]),
                         path="5b_q3", path_launches=c)
@@ -1165,6 +1462,10 @@ def main(argv=None) -> int:
     ap.add_argument("--sf1-lineitem", type=int, default=6_000_000,
                     help="lineitem rows of phase 5 (TPC-H SF1: 6M); "
                          "orders get a quarter, customer a fortieth")
+    ap.add_argument("--save-search-inputs", metavar="PATH",
+                    help="torch.save Q3's sorted-search inputs {(n, m): "
+                         "(sorted, queries)} here, for "
+                         "time_sorted_search.py")
     args = ap.parse_args(argv)
 
     import torch
@@ -1210,7 +1511,8 @@ def main(argv=None) -> int:
     pq_search = report["ivf_pq"]["search_launches"]
     timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # each kernel's main path speaks for it at its most launched shape:
-    # the served IVF-Flat path for L2, the IVF-PQ search for ADC; the
+    # the served IVF-Flat path for L2, the IVF-PQ search for ADC (its list
+    # form, the only form the search launches); the
     # masked kernel is on no path and speaks at the truth chunk
     l2_row = max((r for r in path_rows if r["path"] == "3b_probe"),
                  key=lambda r: r["path_launches"])
@@ -1240,13 +1542,20 @@ def main(argv=None) -> int:
         "name": "adc_score", "route": "cuda",
         "source": "matrixone_tpu_torch/csrc/adc_score.cu",
         "replaces": "matrixone_tpu/ops/pallas_kernels.py:313",
-        "launches": pq_search["adc_score"]["launches"],
+        "launches": pq_search["adc_score_lists"]["launches"],
+        "launches_by_form": {
+            "lists": pq_search["adc_score_lists"]["launches"],
+            "dense": pq_search["adc_score"]["launches"]},
         "launches_by_path": {
-            "4_pq_search": pq_search["adc_score"]["launches"],
-            "4_pq_build": pq_build["adc_score"]["launches"]},
+            "4_pq_search": pq_search["adc_score_lists"]["launches"],
+            "4_pq_build": pq_build["adc_score_lists"]["launches"]
+            + pq_build["adc_score"]["launches"]},
         "max_abs_err": max(r["max_abs_err"] for r in adc_rows),
         **{key: adc_row[key] for key in timed},
-        "library_call": "lut.gather(1, idx).sum(-1): two calls",
+        "padded_path_ms": adc_row["padded_path_ms"],
+        "conflict_free_ms": adc_row["conflict_free_ms"],
+        "library_call": "the padded gather codes[cand], then "
+                        "lut.gather(1, idx).sum(-1): three calls",
         "shapes": adc_rows}, {
         "name": "l2_distance_sq_masked", "route": "cuda",
         "source": "matrixone_tpu_torch/csrc/l2_distance.cu",
@@ -1278,6 +1587,11 @@ def main(argv=None) -> int:
         **{key: segsum_row[key] for key in timed},
         "library_call": "index_add_ into G + 1 slots",
         "shapes": segsum_rows}]}
+    # flag every row whose times include the host's gaps
+    for kernel in record["kernels"]:
+        for r in kernel["shapes"]:
+            r["queued"] = all_queued(r)
+        kernel["queued"] = all_queued(kernel)
     log(json.dumps({"path": report}))
     log(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

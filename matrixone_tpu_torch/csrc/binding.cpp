@@ -21,11 +21,15 @@ cudaError_t mo_l2_distance_sq_launch(const float* x, const float* q,
                                      cudaStream_t stream);
 int mo_l2_kernel_attributes(int64_t* rows, int cap);
 cudaError_t mo_adc_score_launch(const void* codes, bool codes_i32,
-                                const float* lut, float* out, int64_t G,
-                                int64_t P, int64_t M, cudaStream_t stream);
-void mo_sorted_search_launch(const int64_t* sorted, int64_t n,
-                             const int64_t* queries, int64_t m,
-                             int32_t* out, cudaStream_t stream);
+                                const int32_t* starts, const int32_t* ends,
+                                int64_t rows, const float* lut, float* out,
+                                int64_t G, int64_t pad, int64_t M,
+                                cudaStream_t stream);
+cudaError_t mo_sorted_search_launch(const int64_t* sorted, int64_t n,
+                                    const int64_t* queries, int64_t m,
+                                    int32_t* out, int64_t stride,
+                                    int64_t samples, int64_t levels,
+                                    int64_t* tree, cudaStream_t stream);
 void mo_segment_sum_launch(const float* values, const int32_t* gids,
                            const bool* mask, int64_t n, int64_t G,
                            float* out, cudaStream_t stream);
@@ -92,7 +96,8 @@ at::Tensor l2_distance_sq_masked(const at::Tensor& x, const at::Tensor& q,
   return l2_distance_sq_impl(x, q, q2, mask.data_ptr<bool>());
 }
 
-at::Tensor adc_score(const at::Tensor& codes, const at::Tensor& lut) {
+// codes' checks shared by both ADC forms
+void check_adc_inputs(const at::Tensor& codes, const at::Tensor& lut) {
   TORCH_CHECK(codes.is_cuda() && lut.is_cuda(),
               "codes and lut must be CUDA tensors");
   TORCH_CHECK(codes.device() == lut.device(),
@@ -103,28 +108,67 @@ at::Tensor adc_score(const at::Tensor& codes, const at::Tensor& lut) {
   TORCH_CHECK(lut.scalar_type() == at::kFloat, "lut must be float32");
   TORCH_CHECK(codes.is_contiguous() && lut.is_contiguous(),
               "codes and lut must be contiguous");
-  TORCH_CHECK(codes.dim() == 3 && lut.dim() == 3,
-              "expected codes [G, P, M], lut [G, M, 256]");
-  const int64_t G = codes.size(0), P = codes.size(1), M = codes.size(2);
-  TORCH_CHECK(M >= 1, "codes need at least one subspace");
-  TORCH_CHECK(lut.size(0) == G && lut.size(1) == M && lut.size(2) == 256,
-              "lut must be [G, M, 256] for codes [G, P, M]");
-  constexpr int64_t kMaxBlocks = 2147483647LL;  // the kernel's int grid
-  TORCH_CHECK(M <= kMaxBlocks && G * ((P + 1023) / 1024) <= kMaxBlocks,
+  TORCH_CHECK(lut.dim() == 3 && lut.size(2) == 256,
+              "lut must be [G, M, 256]");
+  TORCH_CHECK(lut.size(1) >= 1 && lut.size(1) <= 65535,
+              "adc_score takes 1 <= M <= 65535");
+}
+
+at::Tensor adc_launch(const at::Tensor& codes, const int32_t* starts,
+                      const int32_t* ends, int64_t rows, at::Tensor lut,
+                      int64_t pad) {
+  const int64_t G = lut.size(0), M = lut.size(1);
+  constexpr int64_t kMaxBlocks = 2147483647LL;  // the kernel's grid
+  TORCH_CHECK(G * ((pad + 2047) / 2048) <= kMaxBlocks,
               "adc_score: grid too large");
   const c10::cuda::CUDAGuard guard(codes.device());
-  at::Tensor out = at::empty({G, P}, lut.options());
-  if (G == 0 || P == 0) return out;
+  at::Tensor out = at::empty({G, pad}, lut.options());
+  if (G == 0 || pad == 0) return out;
+  // the kernel copies the LUT 16 bytes at a time
+  if (reinterpret_cast<uintptr_t>(lut.data_ptr()) % 16) lut = lut.clone();
   C10_CUDA_CHECK(mo_adc_score_launch(
-      codes.data_ptr(), codes.scalar_type() == at::kInt,
-      lut.data_ptr<float>(), out.data_ptr<float>(), G, P, M,
+      codes.data_ptr(), codes.scalar_type() == at::kInt, starts, ends, rows,
+      lut.data_ptr<float>(), out.data_ptr<float>(), G, pad, M,
       c10::cuda::getCurrentCUDAStream().stream()));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
   return out;
 }
 
-at::Tensor sorted_search(const at::Tensor& sorted,
-                         const at::Tensor& queries) {
+at::Tensor adc_score(const at::Tensor& codes, const at::Tensor& lut) {
+  check_adc_inputs(codes, lut);
+  TORCH_CHECK(codes.dim() == 3, "expected codes [G, P, M]");
+  TORCH_CHECK(lut.size(0) == codes.size(0) && lut.size(1) == codes.size(2),
+              "lut must be [G, M, 256] for codes [G, P, M]");
+  return adc_launch(codes, nullptr, nullptr, codes.size(1), lut,
+                    codes.size(1));
+}
+
+at::Tensor adc_score_lists(const at::Tensor& codes, const at::Tensor& starts,
+                           const at::Tensor& ends, const at::Tensor& lut,
+                           int64_t pad) {
+  check_adc_inputs(codes, lut);
+  TORCH_CHECK(codes.dim() == 2 && codes.size(1) == lut.size(1),
+              "expected codes [n, M] for lut [G, M, 256]");
+  TORCH_CHECK(starts.is_cuda() && ends.is_cuda() &&
+                  starts.device() == codes.device() &&
+                  ends.device() == codes.device(),
+              "starts and ends must be CUDA tensors on codes' device");
+  TORCH_CHECK(starts.scalar_type() == at::kInt &&
+                  ends.scalar_type() == at::kInt,
+              "starts and ends must be int32");
+  TORCH_CHECK(starts.dim() == 1 && ends.dim() == 1 &&
+                  starts.size(0) == lut.size(0) &&
+                  ends.size(0) == lut.size(0),
+              "starts and ends must be [G] for lut [G, M, 256]");
+  TORCH_CHECK(starts.is_contiguous() && ends.is_contiguous(),
+              "starts and ends must be contiguous");
+  TORCH_CHECK(pad >= 0, "pad must be >= 0");
+  return adc_launch(codes, starts.data_ptr<int32_t>(),
+                    ends.data_ptr<int32_t>(), codes.size(0), lut, pad);
+}
+
+at::Tensor sorted_search(const at::Tensor& sorted, const at::Tensor& queries,
+                         int64_t stride, int64_t samples, int64_t levels) {
   TORCH_CHECK(sorted.is_cuda() && queries.is_cuda(),
               "sorted and queries must be CUDA tensors");
   TORCH_CHECK(sorted.device() == queries.device(),
@@ -138,14 +182,23 @@ at::Tensor sorted_search(const at::Tensor& sorted,
               "sorted and queries must be contiguous");
   TORCH_CHECK(sorted.size(0) < 2147483647LL,
               "sorted_search: n must fit an int32 position");
-  const c10::cuda::CUDAGuard guard(queries.device());
   const int64_t n = sorted.size(0), m = queries.size(0);
+  // the plan: samples = ceil(n / stride), every sample inside the array,
+  // in a tree of 2^levels - 1 >= samples slots
+  TORCH_CHECK(stride >= 1 && samples == (n + stride - 1) / stride,
+              "sorted_search: samples must be ceil(n / stride)");
+  TORCH_CHECK(levels >= 0 && levels <= 14 &&
+                  samples <= (int64_t{1} << levels) - 1,
+              "sorted_search: the tree of 2^levels - 1 slots must hold "
+              "the samples, levels <= 14");
+  const c10::cuda::CUDAGuard guard(queries.device());
   at::Tensor out = at::empty({m}, queries.options().dtype(at::kInt));
   if (m == 0) return out;
-  mo_sorted_search_launch(sorted.data_ptr<int64_t>(), n,
-                          queries.data_ptr<int64_t>(), m,
-                          out.data_ptr<int32_t>(),
-                          c10::cuda::getCurrentCUDAStream().stream());
+  at::Tensor tree = at::empty({int64_t{1} << levels}, sorted.options());
+  C10_CUDA_CHECK(mo_sorted_search_launch(
+      sorted.data_ptr<int64_t>(), n, queries.data_ptr<int64_t>(), m,
+      out.data_ptr<int32_t>(), stride, samples, levels,
+      tree.data_ptr<int64_t>(), c10::cuda::getCurrentCUDAStream().stream()));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
   return out;
 }
@@ -189,7 +242,10 @@ TORCH_LIBRARY(mo_torch, m) {
         " -> Tensor");
   m.def("l2_kernel_attributes() -> Tensor", &l2_kernel_attributes);
   m.def("adc_score(Tensor codes, Tensor lut) -> Tensor");
-  m.def("sorted_search(Tensor sorted, Tensor queries) -> Tensor");
+  m.def("adc_score_lists(Tensor codes, Tensor starts, Tensor ends,"
+        " Tensor lut, int pad) -> Tensor");
+  m.def("sorted_search(Tensor sorted, Tensor queries, int stride,"
+        " int samples, int levels) -> Tensor");
   m.def("segment_sum(Tensor values, Tensor gids, Tensor mask,"
         " int num_segments) -> Tensor");
 }
@@ -198,6 +254,7 @@ TORCH_LIBRARY_IMPL(mo_torch, CUDA, m) {
   m.impl("l2_distance_sq", &l2_distance_sq);
   m.impl("l2_distance_sq_masked", &l2_distance_sq_masked);
   m.impl("adc_score", &adc_score);
+  m.impl("adc_score_lists", &adc_score_lists);
   m.impl("sorted_search", &sorted_search);
   m.impl("segment_sum", &segment_sum);
 }

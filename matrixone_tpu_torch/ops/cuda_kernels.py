@@ -19,7 +19,9 @@ Kernels (the TPU kernel each replaces in brackets):
   * `l2_distance_sq`         [`l2_distance_sq_pallas`, pallas_kernels.py:79]
   * `l2_distance_sq_masked`  [`l2_distance_sq_masked_pallas`, :121], the
     same tile as `l2_distance_sq` (csrc/l2_distance.cu) with a row mask
-  * `adc_score`              [`adc_score_pallas`, :313]
+  * `adc_score`              [`adc_score_pallas`, :313], and its list
+    form `adc_score_lists`, which reads the codes from the inverted
+    lists where they lie (the same kernel body)
   * `sorted_search`          [`sorted_search_pallas`, :250]
   * `segment_sum`            [`segment_sum_pallas`, :177]
 """
@@ -186,7 +188,7 @@ def l2_distance_sq_masked(x: torch.Tensor, q: torch.Tensor,
 
 # ------------------------------------------------- IVF-PQ ADC scoring
 def adc_score_plain(codes: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
-    """Plain version of the ADC kernel: scores [G, P] with
+    """Plain version of the ADC kernel's dense form: scores [G, P] with
     scores[g, p] = sum_m lut[g, m, codes[g, p, m]], for codes [G, P, M]
     (any integer type) and lut [G, M, 256], in the lut's dtype."""
     g, p, m = codes.shape
@@ -195,32 +197,104 @@ def adc_score_plain(codes: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
     return lut.reshape(g, m * 256).gather(1, flat).reshape(g, p, m).sum(-1)
 
 
-def adc_score(codes: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
-    """Launch the ADC kernel (csrc/adc_score.cu) on CUDA codes [G, P, M]
-    uint8 or int32 and f32 lut [G, M, 256] -> [G, P] f32.  Any P and
-    M >= 1; int32 codes must lie in [0, 256)."""
+def _check_adc_inputs(name: str, codes, lut) -> None:
     if not (codes.is_cuda and lut.is_cuda):
-        raise ValueError("adc_score launches on CUDA tensors only")
+        raise ValueError(f"{name} launches on CUDA tensors only")
     if codes.dtype not in (torch.uint8, torch.int32) \
             or lut.dtype != torch.float32:
-        raise TypeError("adc_score takes uint8 or int32 codes and a "
-                        "float32 lut")
-    if codes.dim() != 3 or codes.shape[2] < 1 \
+        raise TypeError(f"{name} takes uint8 or int32 codes and a float32 "
+                        f"lut")
+    if lut.dim() != 3 or lut.shape[1] < 1 or lut.shape[2] != 256:
+        raise ValueError(f"{name}: bad lut shape {tuple(lut.shape)}")
+    if not (codes.is_contiguous() and lut.is_contiguous()):
+        raise ValueError(f"{name} takes contiguous tensors")
+    if codes.dtype == torch.int32 and codes.numel() and bool(
+            ((codes < 0) | (codes > 255)).any()):
+        raise ValueError(f"{name}: int32 codes must lie in [0, 256)")
+
+
+def adc_score(codes: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
+    """Launch the ADC kernel's dense form (csrc/adc_score.cu) on CUDA
+    codes [G, P, M] uint8 or int32 and f32 lut [G, M, 256] -> [G, P]
+    f32.  Any P and M >= 1; int32 codes must lie in [0, 256)."""
+    _check_adc_inputs("adc_score", codes, lut)
+    if codes.dim() != 3 \
             or tuple(lut.shape) != (codes.shape[0], codes.shape[2], 256):
         raise ValueError(f"adc_score: bad shapes codes "
                          f"{tuple(codes.shape)} lut {tuple(lut.shape)}")
-    if not (codes.is_contiguous() and lut.is_contiguous()):
-        raise ValueError("adc_score takes contiguous tensors")
-    if codes.dtype == torch.int32 and codes.numel() and bool(
-            ((codes < 0) | (codes > 255)).any()):
-        raise ValueError("adc_score: int32 codes must lie in [0, 256)")
     out = build().adc_score(codes, lut)
     if out.numel():
         LAUNCHES.add("adc_score", tuple(codes.shape))
     return out
 
 
+def adc_score_lists_plain(codes: torch.Tensor, starts: torch.Tensor,
+                          ends: torch.Tensor, lut: torch.Tensor,
+                          pad: int) -> torch.Tensor:
+    """Plain version of the ADC kernel's list form: scores [G, pad] with
+    lane p < ends[g] - starts[g] of group g scoring row starts[g] + p of
+    codes [n, M] against lut[g], and every other lane +inf: the dense
+    form on the padded candidate gather, masked."""
+    lane = torch.arange(pad, dtype=torch.int64, device=codes.device)
+    cand = starts.to(torch.int64)[:, None] + lane[None, :]     # [G, pad]
+    valid = cand < ends.to(torch.int64)[:, None]
+    cand = torch.where(valid, cand, torch.zeros_like(cand))
+    if codes.shape[0]:
+        dist = adc_score_plain(codes[cand], lut)
+    else:                                 # no rows: every lane is a pad
+        dist = torch.zeros(valid.shape, dtype=lut.dtype, device=lut.device)
+    return torch.where(valid, dist, torch.full_like(dist, float("inf")))
+
+
+def adc_score_lists(codes: torch.Tensor, starts: torch.Tensor,
+                    ends: torch.Tensor, lut: torch.Tensor,
+                    pad: int) -> torch.Tensor:
+    """Launch the ADC kernel's list form (csrc/adc_score.cu) on CUDA
+    codes [n, M] uint8 or int32, int32 starts [G] and ends [G] (rows
+    starts[g] .. ends[g] - 1 of codes; 0 <= starts <= ends <= n) and f32
+    lut [G, M, 256] -> [G, pad] f32, +inf past each list's length.  The
+    kernel reads the rows where they lie; lists longer than pad are cut
+    to pad."""
+    _check_adc_inputs("adc_score_lists", codes, lut)
+    g = lut.shape[0]
+    if codes.dim() != 2 or codes.shape[1] != lut.shape[1]:
+        raise ValueError(f"adc_score_lists: bad shapes codes "
+                         f"{tuple(codes.shape)} lut {tuple(lut.shape)}")
+    if not (starts.is_cuda and ends.is_cuda):
+        raise ValueError("adc_score_lists launches on CUDA tensors only")
+    if starts.dtype != torch.int32 or ends.dtype != torch.int32:
+        raise TypeError("adc_score_lists takes int32 starts and ends")
+    if starts.shape != (g,) or ends.shape != (g,) \
+            or not (starts.is_contiguous() and ends.is_contiguous()):
+        raise ValueError(f"adc_score_lists: starts and ends must be "
+                         f"contiguous [{g}], got {tuple(starts.shape)} "
+                         f"{tuple(ends.shape)}")
+    if pad < 0:
+        raise ValueError(f"adc_score_lists: pad must be >= 0, got {pad}")
+    out = build().adc_score_lists(codes, starts, ends, lut, int(pad))
+    if out.numel():
+        LAUNCHES.add("adc_score_lists", (g, int(pad), codes.shape[1]))
+    return out
+
+
 # ------------------------------------------- hash-join probe sorted search
+#: levels of the sample tree the sorted search stages in a block's shared
+#: memory: 2^14 slots of 8 bytes, 128 KB, up to 16383 samples
+SORTED_SEARCH_LEVELS = 14
+
+
+def sorted_search_plan(n: int):
+    """(stride, samples, levels) of the sorted-search kernel for n sorted
+    keys: every stride-th key, samples = ceil(n / stride) of them, is
+    staged as a perfect binary tree of `levels` levels (2^levels - 1 >=
+    samples slots, the rest UINT64_MAX) in shared memory; when n fits,
+    all of them (stride 1)."""
+    cap = (1 << SORTED_SEARCH_LEVELS) - 1
+    stride = 1 if n <= cap else -(-n // cap)
+    samples = -(-n // stride)
+    return stride, samples, samples.bit_length()
+
+
 def sorted_search_plain(sorted_vals: torch.Tensor,
                         queries: torch.Tensor) -> torch.Tensor:
     """Plain version of the sorted-search kernel: searchsorted-left
@@ -248,7 +322,9 @@ def sorted_search(sorted_vals: torch.Tensor,
                          f"{tuple(queries.shape)}")
     if not (sorted_vals.is_contiguous() and queries.is_contiguous()):
         raise ValueError("sorted_search takes contiguous tensors")
-    out = build().sorted_search(sorted_vals, queries)
+    stride, samples, levels = sorted_search_plan(sorted_vals.shape[0])
+    out = build().sorted_search(sorted_vals, queries, stride, samples,
+                                levels)
     if out.numel():
         LAUNCHES.add("sorted_search",
                      (sorted_vals.shape[0], queries.shape[0]))

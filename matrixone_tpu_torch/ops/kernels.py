@@ -53,6 +53,22 @@ def adc_score(codes: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
     return CK.adc_score_plain(codes, lf)
 
 
+def adc_score_lists(codes: torch.Tensor, starts: torch.Tensor,
+                    ends: torch.Tensor, lut: torch.Tensor,
+                    pad: int) -> torch.Tensor:
+    """IVF-PQ ADC scores [G, pad] f32 read from the inverted lists: lane
+    p < ends[g] - starts[g] holds sum_m lut[g, m, codes[starts[g] + p,
+    m]] for codes [n, M] (uint8 or int32) and lut [G, M, 256], every
+    other lane +inf.  What `adc_score` gives on the padded candidate
+    gather, masked, without the gather."""
+    lf = lut.to(torch.float32).contiguous()
+    s = starts.to(torch.int32).contiguous()
+    e = ends.to(torch.int32).contiguous()
+    if codes.is_cuda:
+        return CK.adc_score_lists(codes.contiguous(), s, e, lf, pad)
+    return CK.adc_score_lists_plain(codes, s, e, lf, pad)
+
+
 def sorted_lookup(sorted_hash: torch.Tensor,
                   queries: torch.Tensor) -> torch.Tensor:
     """searchsorted-left positions [m] int32 of the probe hashes in the

@@ -14,8 +14,9 @@ design:
    sub-distances ||q_m - c_m - codebook[m, j]||^2 comes from one small
    product, and every candidate's score is the sum of its M table
    entries (asymmetric distance computation), which on the card is the
-   hand-written ADC kernel (`ops/kernels.py:adc_score`); top-k is
-   two-stage, per probe then over nprobe * k.
+   hand-written ADC kernel's list form (`ops/kernels.py:adc_score_lists`):
+   it reads each probed list's codes where they lie in the index, with
+   no padded gather; top-k is two-stage, per probe then over nprobe * k.
 
 Scores are PQ approximations of the squared distance; `ivf_flat.
 rerank_exact` over a deeper pool recovers the order where the caller
@@ -167,9 +168,9 @@ def adc_inputs(index: IvfPqIndex, qc: torch.Tensor, pc: torch.Tensor,
                compute_dtype):
     """What the ADC kernel scores for one query chunk: qc [qc, d]
     queries and pc [qc, nprobe] probed lists -> (lut [qc, nprobe, M,
-    256] f32, candidate rows [qc, nprobe, pad] int64, valid lanes
-    [qc, nprobe, pad] bool, codes [qc, nprobe, pad, M]).  Lanes past a
-    list's end carry candidate 0 and valid = False."""
+    256] f32, candidate rows [qc, nprobe, pad] int64, list starts and
+    ends [qc, nprobe] int32).  Lanes past a list's end carry candidate
+    0."""
     query_chunk, nprobe = pc.shape
     m_sub = index.n_subspaces
     ds = index.dim // m_sub
@@ -195,22 +196,23 @@ def adc_inputs(index: IvfPqIndex, qc: torch.Tensor, pc: torch.Tensor,
     cand = starts[:, :, None] + lane[None, None, :]          # [qc, np, pad]
     valid = cand < ends[:, :, None]
     cand = torch.where(valid, cand, torch.zeros_like(cand)).to(torch.int64)
-    return lut, cand, valid, index.codes[cand]
+    return lut, cand, starts, ends
 
 
 def _score_chunk(index: IvfPqIndex, qc: torch.Tensor, pc: torch.Tensor,
                  k: int, compute_dtype):
     """ADC-score one query chunk's probed lists and return its top-k
-    (distances [qc, k] f32, ids [qc, k] int32)."""
+    (distances [qc, k] f32, ids [qc, k] int32).  The ADC kernel reads
+    each list's codes where they lie in the index and scores the lanes
+    past a list's end +inf."""
     query_chunk, nprobe = pc.shape
     pad = index.max_cluster_size
     m_sub = index.n_subspaces
-    lut, cand, valid, cand_codes = adc_inputs(index, qc, pc, compute_dtype)
+    lut, cand, starts, ends = adc_inputs(index, qc, pc, compute_dtype)
     g = query_chunk * nprobe
-    dist = K.adc_score(cand_codes.reshape(g, pad, m_sub),
-                       lut.reshape(g, m_sub, 256)).reshape(
-        query_chunk, nprobe, pad)
-    dist = torch.where(valid, dist, torch.full_like(dist, float("inf")))
+    dist = K.adc_score_lists(index.codes, starts.reshape(g),
+                             ends.reshape(g), lut.reshape(g, m_sub, 256),
+                             pad).reshape(query_chunk, nprobe, pad)
     # two-stage top-k (as in ivf_flat: the top-k of the probe union is
     # contained in the union of per-probe top-ks)
     kk = min(k, pad)

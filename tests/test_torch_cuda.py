@@ -228,6 +228,82 @@ def test_adc_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     assert CK.adc_score(codes[:, :0].contiguous(), lut).shape == (2, 0)
 
 
+def _adc_lists(gen, m, dtype, long_rows=2500, pad=None):
+    """Inverted lists [n, M] on the card with empty lists, a list longer
+    than a block's 2048 lanes and ragged ones, the groups that probe
+    them, a LUT per group and (pad) a pad that is a multiple of
+    nothing."""
+    sizes = torch.tensor([0, long_rows, 1, 255, 256, 257, 700, 0, 33])
+    offs = torch.cat([torch.zeros(1, dtype=torch.int64), sizes.cumsum(0)])
+    n = int(offs[-1])
+    codes = torch.randint(0, 256, (n, m), generator=gen,
+                          device=gen.device).to(dtype)
+    lists = torch.tensor([0, 1, 2, 3, 4, 5, 6, 7, 8, 1, 0, 6])
+    starts = offs[lists].to(torch.int32).to(gen.device)
+    ends = offs[lists + 1].to(torch.int32).to(gen.device)
+    lut = torch.randn(len(lists), m, 256, generator=gen, device=gen.device)
+    return codes, starts, ends, lut, pad or long_rows + 7
+
+
+@pytest.mark.parametrize("m", [1, 8, 96, 97, 300, 304])
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int32])
+def test_adc_list_form_matches_the_dense_form(cuda, m, dtype):
+    """The list form against the dense form on the padded gather: the
+    same bits on every valid lane, +inf on every other; both within
+    1e-5 * |want| + 1e-4 of f64.  M = 97 (rows off 16 bytes: the plain
+    path), 300 and 304 (m-tiles, on the plain and the 16-byte path for
+    uint8 codes), int32 codes, empty lists and a list longer than a
+    block's share."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(m)
+    codes, starts, ends, lut, pad = _adc_lists(gen, m, dtype)
+    before = CK.LAUNCHES.get("adc_score_lists")
+    got = TK.adc_score_lists(codes, starts, ends, lut, pad)
+    torch.cuda.synchronize()
+    assert CK.LAUNCHES.get("adc_score_lists") == before + 1
+    assert CK.LAUNCHES.shapes("adc_score_lists")[(len(starts), pad, m)] >= 1
+    lane = torch.arange(pad, device=cuda)
+    cand = starts.long()[:, None] + lane
+    valid = cand < ends.long()[:, None]
+    gathered = codes[torch.where(valid, cand, 0)].contiguous()
+    dense = TK.adc_score(gathered, lut)
+    assert got.shape == (len(starts), pad) and got.dtype == torch.float32
+    assert torch.equal(got, torch.where(valid, dense, float("inf")))
+    want = CK.adc_score_plain(gathered, lut.double())
+    assert bool(((got.double() - want).abs()[valid]
+                 <= (1e-5 * want.abs() + 1e-4)[valid]).all())
+    # a pad shorter than the long list cuts it, as the plain version does
+    cut = TK.adc_score_lists(codes, starts, ends, lut, 1000)
+    assert torch.equal(cut, got[:, :1000])
+
+
+def test_adc_list_form_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    """Inputs the kernel does not take raise, and so does a launch whose
+    grid the card refuses (past 2^31 - 1 blocks): the binding raises
+    before it allocates or launches."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(3)
+    codes, starts, ends, lut, pad = _adc_lists(gen, 8, torch.uint8)
+    with pytest.raises(ValueError, match="CUDA"):
+        CK.adc_score_lists(codes.cpu(), starts, ends, lut, pad)
+    with pytest.raises(ValueError, match="CUDA"):
+        CK.adc_score_lists(codes, starts.cpu(), ends, lut, pad)
+    with pytest.raises(TypeError):
+        CK.adc_score_lists(codes, starts.long(), ends, lut, pad)
+    with pytest.raises(ValueError):
+        CK.adc_score_lists(codes, starts[:-1], ends, lut, pad)
+    with pytest.raises(ValueError):
+        CK.adc_score_lists(codes[:, :4].contiguous(), starts, ends, lut, pad)
+    before = CK.LAUNCHES.get("adc_score_lists")
+    with pytest.raises(RuntimeError, match="grid"):
+        CK.adc_score_lists(codes, starts[:1].contiguous(),
+                           ends[:1].contiguous(), lut[:1].contiguous(),
+                           2048 << 31)
+    assert CK.LAUNCHES.get("adc_score_lists") == before
+    assert CK.adc_score_lists(codes, starts, ends, lut, 0).shape == \
+        (len(starts), 0)
+
+
 @pytest.mark.parametrize("n,b,d", [(4480, 256, 768), (1000, 3, 65),
                                    (130, 64, 16), (1024, 256, 768),
                                    (1024, 32, 768), (65, 257, 769),
@@ -281,8 +357,9 @@ def test_cuda_ivf_pq_search_matches_cpu_search(cuda):
     dc, ic = ivf_pq.search(cpu, q, k=10, nprobe=8, query_chunk=16)
     dg, ig = ivf_pq.search(card, q, k=10, nprobe=8, query_chunk=16)
     after = CK.LAUNCHES.snapshot()
-    for name in ("adc_score", "l2_distance_sq"):
+    for name in ("adc_score_lists", "l2_distance_sq"):
         assert after.get(name, 0) > before.get(name, 0), name
+    assert after.get("adc_score", 0) == before.get("adc_score", 0)
     assert ig.is_cuda and ig.dtype == torch.int32
     same = np.mean([set(a) == set(b) for a, b in
                     zip(ic.numpy().tolist(), ig.cpu().numpy().tolist())])
@@ -298,7 +375,7 @@ def _hashes(gen, n: int) -> torch.Tensor:
     a = torch.randint(-(1 << 63), (1 << 63) - 1, (n,), generator=gen,
                       device=gen.device, dtype=torch.int64)
     if n:
-        a[: n // 5] = a[0]
+        a[: n // 5] = a[0].item()
         a[-min(4, n):] = -1
     return a[torch.argsort(unsigned_order(a), stable=True)]
 
@@ -329,6 +406,59 @@ def test_sorted_search_kernel_bit_identical(cuda, n, m):
     assert torch.equal(got, CK.sorted_search_plain(srt, q))
 
 
+@pytest.mark.parametrize("stride", [1, 2, 13, 257])
+@pytest.mark.parametrize("offset", [-1, 0, 1])
+def test_sorted_search_tree_edges_bit_identical(cuda, stride, offset):
+    """The sample tree's edges, bit for bit against the plain version: n
+    just below, at and above stride times the sample count S = 2^14 - 1
+    (where the stride steps) and S + 1 past the step below it, a run of
+    equal keys starting just before, at or after a sample and crossing
+    several, keys at 0, 2^63 - 1, 2^63 and 2^64 - 1, m of no particular
+    size."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(stride * 10 + offset + 1)
+    cap = (1 << CK.SORTED_SEARCH_LEVELS) - 1
+    for n in (stride * cap + offset, (stride - 1) * cap + 1 + offset):
+        if n < 1:
+            continue
+        srt = _hashes(gen, n)
+        step = CK.sorted_search_plan(n)[0]
+        if n > 4 * step + 8:
+            at = 2 * step + offset
+            srt[at:at + 2 * step + 1] = srt[at].item()
+        srt[:2] = 0
+        if n > 4:
+            srt[2:4] = torch.tensor([(1 << 63) - 1, -(1 << 63)],
+                                    device=cuda)
+        srt = srt[torch.argsort(unsigned_order(srt), stable=True)]
+        q = torch.cat([torch.tensor([0, 1, -1, (1 << 63) - 1, -(1 << 63)],
+                                    device=cuda), srt[:300007],
+                       srt[:300007] + 1, srt[:300007] - 1]).contiguous()
+        got = CK.sorted_search(srt.contiguous(), q)
+        torch.cuda.synchronize()
+        assert torch.equal(got, CK.sorted_search_plain(srt, q)), n
+
+
+@pytest.mark.parametrize("n,m", [(196608, 1 << 20), (262144, 524288),
+                                 ((1 << 22), 100003)])
+def test_sorted_search_at_q3_and_budget_shapes(cuda, n, m):
+    """Q3's build sizes and the join's 2^22-row budget, with queries in
+    runs as a probe side sends them, bit for bit."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(n + m)
+    srt = _hashes(gen, n)
+    reps = torch.randint(1, 8, (m,), generator=gen, device=cuda)
+    keys = torch.where(torch.rand(m, generator=gen, device=cuda) < 0.5,
+                       srt[torch.randint(0, n, (m,), generator=gen,
+                                         device=cuda)],
+                       torch.randint(-(1 << 63), (1 << 63) - 1, (m,),
+                                     generator=gen, device=cuda))
+    q = torch.repeat_interleave(keys, reps)[:m].contiguous()
+    got = TK.sorted_lookup(srt, q)
+    torch.cuda.synchronize()
+    assert torch.equal(got, CK.sorted_search_plain(srt, q))
+
+
 def test_sorted_search_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     s = torch.arange(10, device=cuda)
     with pytest.raises(ValueError, match="CUDA"):
@@ -340,6 +470,11 @@ def test_sorted_search_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     before = CK.LAUNCHES.get("sorted_search")
     assert CK.sorted_search(s, s[:0]).shape == (0,)
     assert CK.LAUNCHES.get("sorted_search") == before   # m = 0: no launch
+    with pytest.raises(RuntimeError):       # a tree past shared memory
+        CK.build().sorted_search(s, s, 1, 10, 15)
+    with pytest.raises(RuntimeError):
+        CK.build().sorted_search(s, s, 1, 10, 3)
+    assert CK.LAUNCHES.get("sorted_search") == before
 
 
 @pytest.mark.parametrize("n", [1, 4000, 4096, 1 << 20, 6_000_000])

@@ -114,23 +114,51 @@ def test_search_matches_reference_on_converted_index(indexes, metric, b,
     assert _same_sets(ti.numpy(), ji) >= 0.99
 
 
+class _Unindexable(torch.Tensor):
+    """Codes that fail the test if anything indexes or gathers them."""
+
+    @classmethod
+    def __torch_function__(cls, func, types, args=(), kwargs=None):
+        if getattr(func, "__name__", "") in {
+                "__getitem__", "index_select", "take", "take_along_dim",
+                "gather"}:
+            raise AssertionError(f"the search gathered codes ({func})")
+        return super().__torch_function__(func, types, args, kwargs or {})
+
+
 def test_search_routes_adc_through_the_seam(indexes, monkeypatch):
-    """The search scores its candidates through `ops/kernels.adc_score`
-    (the ADC kernel on the card), once per query chunk, on [chunk *
-    nprobe, pad, M] uint8 codes."""
+    """The search scores its candidates through `ops/kernels.
+    adc_score_lists` (the ADC kernel's list form on the card), once per
+    query chunk, on the index's own [n, M] uint8 codes with each probed
+    list's CSR bounds, and never gathers codes into a padded tensor."""
     from matrixone_tpu_torch.ops import kernels as TK
     jidx, q = indexes["l2"]
     tidx = _convert(jidx)
+    tidx.codes = tidx.codes.as_subclass(_Unindexable)
     seen = []
 
-    def spy(codes, lut):
-        seen.append((tuple(codes.shape), codes.dtype, tuple(lut.shape)))
-        return CK.adc_score_plain(codes, lut.to(torch.float32))
+    def spy(codes, starts, ends, lut, pad):
+        assert codes is tidx.codes
+        offs = tidx.offsets.tolist()
+        lists = set(zip(offs, offs[1:]))
+        assert set(zip(starts.tolist(), ends.tolist())) <= lists
+        seen.append((tuple(codes.shape), codes.dtype, tuple(starts.shape),
+                     tuple(lut.shape), pad))
+        return CK.adc_score_lists_plain(codes.as_subclass(torch.Tensor),
+                                        starts, ends,
+                                        lut.to(torch.float32), pad)
 
-    monkeypatch.setattr(TK, "adc_score", spy)
+    def no_dense(*a, **kw):
+        raise AssertionError("the search ran the dense form")
+
+    monkeypatch.setattr(TK, "adc_score_lists", spy)
+    monkeypatch.setattr(TK, "adc_score", no_dense)
     TP.search(tidx, q[:37], k=5, nprobe=4, query_chunk=16)
     pad = tidx.max_cluster_size
-    assert seen == [((16 * 4, pad, 8), torch.uint8, (16 * 4, 8, 256))] * 4
+    assert seen == [((tidx.n, 8), torch.uint8, (16 * 4,), (16 * 4, 8, 256),
+                     pad)] * 4
+    with pytest.raises(AssertionError, match="gathered codes"):
+        tidx.codes[torch.zeros(3, dtype=torch.int64)]
 
 
 def test_search_metrics_and_refusals(indexes):

@@ -21,7 +21,8 @@ PKG = os.path.join(REPO, "matrixone_tpu_torch")
 
 
 def _port_files():
-    out = [os.path.join(REPO, "chip_smoke.py")]
+    out = [os.path.join(REPO, f) for f in ("chip_smoke.py",
+                                           "time_sorted_search.py")]
     for root, _, files in os.walk(PKG):
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(out)
