@@ -63,11 +63,16 @@ Phases, each of which raises on failure:
        an f64 sum; the segment-sum kernel must launch at G = 4096 on the
        counted warm run; times and a profile as in b;
     d. both kernels re-checked and timed at every shape b and c launched
-       them with, on the inputs those paths handed them.
+       them with, on the inputs those paths handed them; the segment sum
+       also over copies of its input set larger than the L2 together
+       (`ms_l2_cold`), with one call profiled (its own kernel only, no
+       memset), and the share of its launches that took the 16-byte walk.
    Phase 2 also holds the two relational kernels against their plain
    versions at edge shapes (bit for bit for the search, with its sample
    tree's edges: n about the sample count, runs of equal keys across a
-   sample, 0 and 2^64 - 1, n = 2^22).
+   sample, 0 and 2^64 - 1, n = 2^22; the segment sum also on skewed,
+   unaligned, out-of-range and NaN/inf inputs, every shape launched twice
+   for the same bits).
 
 The second-to-last line of output is the kernels' JSON record and the
 last is {"ok": true, "device": {...}}.  Without CUDA, or outside a
@@ -90,6 +95,7 @@ import numpy as np
 H100_F32_FLOPS = 67e12          # f32 outside the tensor cores
 H100_TF32_FLOPS = 495e12        # TF32 on the tensor cores, dense
 H100_HBM_BYTES_S = 3.35e12
+H100_L2_BYTES = 50 * 2 ** 20
 
 K = 20
 NPROBE = 8
@@ -1181,40 +1187,141 @@ def sorted_search_tree_edges(torch, CK, g) -> list:
 
 def check_segment_sum(torch, CK, name: str, values, gids, mask,
                       g: int) -> dict:
-    """The segment-sum kernel against its plain version in f64: exact
-    when the values are integer-valued and every group sum stays below
-    2^24, else |err| <= 1e-4 |want| + 1e-3 (the reference's tolerance);
-    timed beside the plain version in f32 and `index_add_` into G + 1
-    slots (the masked rows' slot precomputed)."""
+    """The segment-sum kernel against its plain version in f64: NaN in
+    the same groups, and elsewhere exact when the values are integer-
+    valued and every group's sum of |v| stays below 2^24, else |err| <=
+    1e-4 |want| + 1e-3 (the reference's tolerance); a second launch on
+    the same inputs must give the same bits.  Timed beside the plain
+    version in f32 and `index_add_` into G + 1 slots (the slot of masked
+    and out-of-range rows precomputed)."""
     n = values.shape[0]
+    walks = CK.LAUNCHES.shapes("segment_sum_walk")
     got = CK.segment_sum(values, gids, mask, g)
+    head, = [h for (h,), c in CK.LAUNCHES.shapes("segment_sum_walk").items()
+             if c != walks.get((h,), 0)]
+    again = CK.segment_sum(values, gids, mask, g)
     torch.cuda.synchronize()
     want = CK.segment_sum_plain(values.double(), gids, mask, g)
-    err = (got.double() - want).abs()
-    max_err = float(err.max()) if g else 0.0
-    exact = bool(torch.equal(values, values.round())) \
-        and float(CK.segment_sum_plain(values.double().abs(), gids, mask,
-                                       g).max()) < (1 << 24)
-    ok = (torch.equal(got.double(), want) if exact
-          else bool((err <= 1e-4 * want.abs() + 1e-3).all()))
+    nan = torch.isnan(want)
+    err = (got.double() - want).abs()[~nan & torch.isfinite(want)]
+    max_err = float(err.max()) if err.numel() else 0.0
+    live = mask & torch.isfinite(values)
+    exact = bool(torch.equal(values[live], values[live].round())) \
+        and float(CK.segment_sum_plain(
+            values.double().abs().nan_to_num(), gids, mask,
+            g).max()) < (1 << 24)
+    same = torch.equal(got[~nan].double(), want[~nan]) if exact else bool(
+        (err <= 1e-4 * want[~nan & torch.isfinite(want)].abs()
+         + 1e-3).all()) and torch.equal(got[torch.isinf(want)].double(),
+                                        want[torch.isinf(want)])
+    ok = same and torch.equal(torch.isnan(got), nan)
     if got.shape != (g,) or got.dtype != torch.float32 or not ok:
         raise AssertionError(f"segment_sum {name} n={n} G={g}: max err "
                              f"{max_err} ({'exact' if exact else 'tol'})")
+    if not torch.equal(again.view(torch.int32), got.view(torch.int32)):
+        raise AssertionError(f"segment_sum {name} n={n} G={g}: two "
+                             f"launches gave different bits")
     ms = cuda_time_ms(lambda: CK.segment_sum(values, gids, mask, g))
     plain_ms = cuda_time_ms(
         lambda: CK.segment_sum_plain(values, gids, mask, g))
-    slot = torch.where(mask, gids.long(), g)
+    slot = torch.where(mask & (gids >= 0) & (gids < g), gids.long(), g)
     lib_ms = cuda_time_ms(lambda: torch.zeros(
         g + 1, device=values.device).index_add_(0, slot, values))
     bound_ms, bound_by = segsum_bound(n, g)
     row = {"shape": name, "n": n, "G": g, "exact": exact,
-           "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-           "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": bound_by}
-    log(f"[kernel] segment_sum {name:22s} n={n} G={g} "
-        f"{'exact' if exact else f'err={max_err:.3e}'} ms={ms:.4f} "
-        f"plain_ms={plain_ms:.4f} index_add_ms={lib_ms:.4f} "
-        f"bound_ms={bound_ms:.4f} ({bound_by})")
+           "head": head,
+           "same_bits": True, "max_abs_err": max_err, "ms": ms,
+           "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by}
+    log(f"[kernel] segment_sum {name:22s} n={n} G={g} head={row['head']} "
+        f"{'exact' if exact else f'err={max_err:.3e}'} same bits "
+        f"ms={ms:.4f} plain_ms={plain_ms:.4f} index_add_ms={lib_ms:.4f} "
+        f"bound_ms={bound_ms:.4f} ({bound_by}, {bound_ms / ms:.0%})")
     return row
+
+
+def segsum_edge_inputs(torch, g, n: int = 1 << 20):
+    """The segment sum's edge inputs beyond the uniform ones, integer-
+    valued, as (name, values, gids, mask, G): Zipf-skewed gids (s = 1.2)
+    over 4096 and 1000 groups; views at a common offset of 3 elements
+    (the vector walk from its head row) and at offsets 1, 0, 1 (the
+    scalar walk); unmasked gids of -1, G and 2^31 - 1; masked NaN and
+    +-inf with one unmasked NaN."""
+    v = torch.randint(0, 16, (n + 4,), generator=g,
+                      device="cuda").to(torch.float32)
+    m = torch.rand(n + 4, generator=g, device="cuda") < 0.8
+    out = []
+    for G in (4096, 1000):
+        rank = torch.arange(1, G + 1, device="cuda", dtype=torch.float64)
+        z = torch.multinomial(rank ** -1.2, n, replacement=True,
+                              generator=g).to(torch.int32)
+        out.append((f"zipf_G{G}", v[:n], z, m[:n], G))
+    u = torch.randint(0, 1000, (n + 4,), generator=g, device="cuda",
+                      dtype=torch.int32)
+    out.append(("offset3", v[3:n + 3], u[3:n + 3], m[3:n + 3], 1000))
+    out.append(("offset_mixed", v[1:n + 1], u[:n], m[1:n + 1], 1000))
+    gg = u[:n].clone()
+    gg[::7] = -1
+    gg[1::11] = 1000
+    gg[2::13] = (1 << 31) - 1
+    out.append(("out_of_range", v[:n], gg, m[:n], 1000))
+    vv, mm = v[:n].clone(), m[:n].clone()
+    mm[::5] = False
+    vv[::5] = float("nan")
+    vv[1::10] = float("inf")
+    vv[6::10] = float("-inf")
+    mm[1::10] = mm[6::10] = False
+    vv[8], mm[8], gg[8] = float("nan"), True, 7
+    out.append(("nan_inf", vv, u[:n], mm, 1000))
+    return out
+
+
+def segsum_cold(torch, CK, row: dict, inputs, g: int) -> dict:
+    """The segment sum timed over copies of one path input set, taken in
+    turn: at least 8, together more than twice the H100's 50 MB L2, so
+    each call reads its inputs from HBM -> {"ms_l2_cold", "l2_cold_sets",
+    "bound_share", "bound_share_l2_cold"}."""
+    set_bytes = sum(t.numel() * t.element_size() for t in inputs)
+    k = max(8, -(-2 * H100_L2_BYTES // set_bytes))
+    sets = [tuple(t.clone() for t in inputs) for _ in range(k)]
+    turn = [0]
+
+    def call():
+        v, gids, m = sets[turn[0] % k]
+        turn[0] += 1
+        return CK.segment_sum(v, gids, m, g)
+    cold = cuda_time_ms(call)
+    out = {"ms_l2_cold": cold, "l2_cold_sets": k,
+           "bound_share": row["bound_ms"] / row["ms"],
+           "bound_share_l2_cold": row["bound_ms"] / cold}
+    log(f"[kernel] segment_sum {row['shape']} L2-cold over {k} input sets "
+        f"of {set_bytes / 1e6:.1f} MB: ms={cold:.4f} (bound share "
+        f"{out['bound_share_l2_cold']:.0%}; L2-warm {row['ms']:.4f}, "
+        f"{out['bound_share']:.0%})")
+    del sets
+    torch.cuda.empty_cache()
+    return out
+
+
+def device_us_per_call(torch, fn, calls: int = 10) -> dict:
+    """{device activity (kernel, memset, copy): microseconds per call} of
+    `fn`, from torch.profiler over `calls` calls."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {e.key: e.self_device_time_total / calls
+           for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and e.self_device_time_total > 0}
+    log(f"[profile] a call runs {out}")
+    if not out:
+        raise AssertionError("the profiler saw no device activity")
+    return out
 
 
 def phase_relational_edges(torch, CK, seed: int):
@@ -1222,7 +1329,9 @@ def phase_relational_edges(torch, CK, seed: int):
     on sorted uint64 hashes with a duplicate run and UINT64_MAX (NULL)
     sentinels, queries drawn from them plus random ones plus 0, 1 and
     2^64 - 1; the segment sum on integer-valued and N(0,1) values with a
-    0.8 Bernoulli mask (masked rows keep gids of live groups)."""
+    0.8 Bernoulli mask (masked rows keep gids of live groups), then on
+    skewed, unaligned, out-of-range and NaN/inf inputs, each launched
+    twice for the same bits."""
     from matrixone_tpu_torch.ops.hash import unsigned_order
     g = torch.Generator(device="cuda")
     g.manual_seed(seed)
@@ -1259,6 +1368,9 @@ def phase_relational_edges(torch, CK, seed: int):
                 segsum.append(check_segment_sum(
                     torch, CK, f"edge_{kind}_n{n}_G{gs}", vals, gids, mask,
                     gs))
+    for name, vals, gids, mask, gs in segsum_edge_inputs(torch, g):
+        segsum.append(check_segment_sum(torch, CK, f"edge_{name}", vals,
+                                        gids, mask, gs))
     torch.cuda.empty_cache()
     return search, segsum
 
@@ -1328,8 +1440,8 @@ def sql_path(torch, CK, TK, label: str, session, sql: str, n_rows: int,
     with PathInputs(torch, TK) as cap:
         rows, _ = run_sql(torch, session, sql)
     launches = kernel_launches(
-        CK, label, ("sorted_search", "segment_sum", "l2_distance_sq",
-                    "adc_score"), required=(kernel,))
+        CK, label, ("sorted_search", "segment_sum", "segment_sum_walk",
+                    "l2_distance_sq", "adc_score"), required=(kernel,))
     check(rows)
     warm = [run_sql(torch, session, sql)[1] for _ in range(3)]
     prof = profile_run(torch, lambda: session.execute(sql), label)
@@ -1423,6 +1535,16 @@ def phase_sql(torch, CK, args):
         raise AssertionError("5c: the segment-sum kernel ran at "
                              f"{CK.LAUNCHES.shapes('segment_sum')}, not "
                              f"only at G = 4096")
+    # the walk each launch of the counted run took, as the wrapper
+    # counted it: head row 0-3 for the 16-byte walk, -1 for the scalar one
+    heads = {h: c for h, c in report["group_by"]["launches"][
+        "segment_sum_walk"]["by_shape"]}
+    walk = {"launches": sum(heads.values()),
+            "vector": sum(c for h, c in heads.items() if h >= 0),
+            "heads": {str(h): c for h, c in sorted(heads.items())}}
+    report["group_by"]["segment_sum_walk"] = walk
+    log(f"[5c] segment sum: {walk['vector']} of {walk['launches']} "
+        f"launches took the 16-byte walk (head rows {walk['heads']})")
     log(f"[5c] 1000 groups, sum(xi) exact, sum(xn) max err "
         f"{gb_err['sum_xn_max_abs_err']:.3e} of the f64 sum")
 
@@ -1440,10 +1562,24 @@ def phase_sql(torch, CK, args):
                                             *q3cap.search[(n, m)]),
                         path="5b_q3", path_launches=c)
                    for (n, m), c in sorted(q3_counts.items())]
-    segsum_rows = [dict(check_segment_sum(torch, CK, f"5c_n{n}_G{g}",
-                                          *gbcap.segsum[(n, g)], g),
-                        path="5c_group_by", path_launches=c)
-                   for (n, g), c in sorted(gb_counts.items())]
+    if args.save_group_by_inputs:
+        torch.save({(n, g): tuple(t.cpu() for t in gbcap.segsum[(n, g)])
+                    for n, g in gb_counts}, args.save_group_by_inputs)
+        log(f"[5d] 5c's segment-sum inputs saved to "
+            f"{args.save_group_by_inputs}")
+    segsum_rows = []
+    for (n, g), c in sorted(gb_counts.items()):
+        inputs = gbcap.segsum[(n, g)]
+        row = dict(check_segment_sum(torch, CK, f"5c_n{n}_G{g}", *inputs,
+                                     g), path="5c_group_by", path_launches=c)
+        row.update(segsum_cold(torch, CK, row, inputs, g))
+        row["device_kernels"] = sorted(device_us_per_call(
+            torch, lambda: CK.segment_sum(*inputs, g)))
+        if any("segsum" not in k for k in row["device_kernels"]):
+            raise AssertionError(f"5d: one segment-sum call ran "
+                                 f"{row['device_kernels']}, not only the "
+                                 f"kernel's own")
+        segsum_rows.append(row)
     del q3cap, gbcap
     torch.cuda.empty_cache()
     return report, search_rows, segsum_rows
@@ -1466,6 +1602,10 @@ def main(argv=None) -> int:
                     help="torch.save Q3's sorted-search inputs {(n, m): "
                          "(sorted, queries)} here, for "
                          "time_sorted_search.py")
+    ap.add_argument("--save-group-by-inputs", metavar="PATH",
+                    help="torch.save 5c's segment-sum inputs {(n, G): "
+                         "(values, gids, mask)} here, for "
+                         "time_segment_sum.py")
     args = ap.parse_args(argv)
 
     import torch
@@ -1585,6 +1725,10 @@ def main(argv=None) -> int:
                              for p, v in sql_launches.items()},
         "max_abs_err": max(r["max_abs_err"] for r in segsum_rows),
         **{key: segsum_row[key] for key in timed},
+        **{key: segsum_row[key] for key in (
+            "ms_l2_cold", "l2_cold_sets", "bound_share",
+            "bound_share_l2_cold", "device_kernels")},
+        "segment_sum_walk": report["sql"]["group_by"]["segment_sum_walk"],
         "library_call": "index_add_ into G + 1 slots",
         "shapes": segsum_rows}]}
     # flag every row whose times include the host's gaps

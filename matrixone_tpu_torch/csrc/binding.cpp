@@ -13,6 +13,8 @@
 #include <c10/cuda/CUDAStream.h>
 #include <torch/library.h>
 
+#include <tuple>
+
 int64_t mo_l2_distance_sq_workspace(int64_t n, int64_t b, int64_t d);
 cudaError_t mo_l2_distance_sq_launch(const float* x, const float* q,
                                      const float* q2, const bool* mask,
@@ -30,9 +32,11 @@ cudaError_t mo_sorted_search_launch(const int64_t* sorted, int64_t n,
                                     int32_t* out, int64_t stride,
                                     int64_t samples, int64_t levels,
                                     int64_t* tree, cudaStream_t stream);
-void mo_segment_sum_launch(const float* values, const int32_t* gids,
-                           const bool* mask, int64_t n, int64_t G,
-                           float* out, cudaStream_t stream);
+int64_t mo_segment_sum_workspace(int64_t n, int64_t G, int64_t head);
+cudaError_t mo_segment_sum_launch(const float* values, const int32_t* gids,
+                                  const bool* mask, int64_t n, int64_t G,
+                                  int64_t head, float* scratch, float* out,
+                                  cudaStream_t stream);
 
 namespace {
 
@@ -203,8 +207,26 @@ at::Tensor sorted_search(const at::Tensor& sorted, const at::Tensor& queries,
   return out;
 }
 
-at::Tensor segment_sum(const at::Tensor& values, const at::Tensor& gids,
-                       const at::Tensor& mask, int64_t num_segments) {
+// The rows (0-3) before the first row where values and gids lie on 16
+// bytes and the mask on 4, when one row serves all three: from there the
+// kernel loads 4 rows at a time.  -1 when the three are misaligned by
+// different amounts: every row then takes the kernel's scalar walk.
+int64_t vector_head(const at::Tensor& values, const at::Tensor& gids,
+                    const at::Tensor& mask) {
+  const auto rows_to = [](const at::Tensor& t, uintptr_t align) {
+    const uintptr_t p = reinterpret_cast<uintptr_t>(t.data_ptr());
+    return (int64_t)((align - p % align) % align / t.element_size());
+  };
+  const int64_t h = rows_to(values, 16);
+  return h == rows_to(gids, 16) && h == rows_to(mask, 4) ? h : -1;
+}
+
+// -> (out [num_segments], the head row of the walk launched: 0-3 for
+// the vector walk, -1 for the scalar one)
+std::tuple<at::Tensor, int64_t> segment_sum(const at::Tensor& values,
+                                            const at::Tensor& gids,
+                                            const at::Tensor& mask,
+                                            int64_t num_segments) {
   TORCH_CHECK(values.is_cuda() && gids.is_cuda() && mask.is_cuda(),
               "values, gids and mask must be CUDA tensors");
   TORCH_CHECK(values.device() == gids.device() &&
@@ -223,15 +245,19 @@ at::Tensor segment_sum(const at::Tensor& values, const at::Tensor& gids,
   TORCH_CHECK(num_segments >= 1 && num_segments <= 4096,
               "segment_sum takes 1 <= num_segments <= 4096");
   const c10::cuda::CUDAGuard guard(values.device());
-  at::Tensor out = at::zeros({num_segments}, values.options());
   const int64_t n = values.size(0);
-  if (n == 0) return out;
-  mo_segment_sum_launch(values.data_ptr<float>(), gids.data_ptr<int32_t>(),
-                        mask.data_ptr<bool>(), n, num_segments,
-                        out.data_ptr<float>(),
-                        c10::cuda::getCurrentCUDAStream().stream());
-  C10_CUDA_KERNEL_LAUNCH_CHECK();
-  return out;
+  if (n == 0) return {at::zeros({num_segments}, values.options()), -1};
+  const int64_t head = vector_head(values, gids, mask);
+  at::Tensor out = at::empty({num_segments}, values.options());
+  const int64_t ws = mo_segment_sum_workspace(n, num_segments, head);
+  TORCH_CHECK(ws >= 0, "segment_sum: cannot read the device's SM count");
+  at::Tensor scratch = at::empty({ws}, values.options());
+  C10_CUDA_CHECK(mo_segment_sum_launch(
+      values.data_ptr<float>(), gids.data_ptr<int32_t>(),
+      mask.data_ptr<bool>(), n, num_segments, head,
+      ws ? scratch.data_ptr<float>() : nullptr, out.data_ptr<float>(),
+      c10::cuda::getCurrentCUDAStream().stream()));
+  return {out, head};
 }
 
 }  // namespace
@@ -247,7 +273,7 @@ TORCH_LIBRARY(mo_torch, m) {
   m.def("sorted_search(Tensor sorted, Tensor queries, int stride,"
         " int samples, int levels) -> Tensor");
   m.def("segment_sum(Tensor values, Tensor gids, Tensor mask,"
-        " int num_segments) -> Tensor");
+        " int num_segments) -> (Tensor, int)");
 }
 
 TORCH_LIBRARY_IMPL(mo_torch, CUDA, m) {

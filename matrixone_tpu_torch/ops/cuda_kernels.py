@@ -49,7 +49,8 @@ class LaunchCounts:
     """Launches of each kernel since the last `reset`, in all and by
     shape: a wrapper adds one where it launches its kernel and nowhere
     else, so a run can show that its path went through the kernels, and
-    at which shapes."""
+    at which shapes.  The segment sum also counts the walk each launch
+    took under "segment_sum_walk"."""
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -354,7 +355,11 @@ def segment_sum(values: torch.Tensor, gids: torch.Tensor,
                 mask: torch.Tensor, num_segments: int) -> torch.Tensor:
     """Launch the segment-sum kernel (csrc/segment_sum.cu) on CUDA f32
     values [n], int32 gids [n] and bool mask [n] -> [num_segments] f32,
-    for 1 <= num_segments <= 4096.  n = 0 launches nothing."""
+    for 1 <= num_segments <= 4096: the same bits on every launch on one
+    card.  n = 0 launches nothing.  Besides its launch, it counts the walk
+    the binding chose under "segment_sum_walk", keyed by its head row:
+    0-3 for the 16-byte walk, -1 for the scalar one (views misaligned by
+    different amounts)."""
     if not (values.is_cuda and gids.is_cuda and mask.is_cuda):
         raise ValueError("segment_sum launches on CUDA tensors only")
     if values.dtype != torch.float32 or gids.dtype != torch.int32 \
@@ -372,7 +377,8 @@ def segment_sum(values: torch.Tensor, gids: torch.Tensor,
     if not (values.is_contiguous() and gids.is_contiguous()
             and mask.is_contiguous()):
         raise ValueError("segment_sum takes contiguous tensors")
-    out = build().segment_sum(values, gids, mask, int(num_segments))
+    out, head = build().segment_sum(values, gids, mask, int(num_segments))
     if n:
         LAUNCHES.add("segment_sum", (n, int(num_segments)))
+        LAUNCHES.add("segment_sum_walk", (head,))
     return out

@@ -538,6 +538,153 @@ def test_segment_sum_never_takes_what_the_kernel_does_not_take(cuda):
         CK.segment_sum(v.cpu(), gids.cpu(), mask.cpu(), 64)
 
 
+def _segsum_walk(v, g, m, G):
+    """(segment_sum(v, g, m, G), the head row of the walk its launch
+    counted: 0-3 for the 16-byte walk, -1 for the scalar one)."""
+    before = CK.LAUNCHES.shapes("segment_sum_walk")
+    out = CK.segment_sum(v, g, m, G)
+    after = CK.LAUNCHES.shapes("segment_sum_walk")
+    (head,), = [k for k, c in after.items() if c != before.get(k, 0)]
+    return out, head
+
+
+def _segsum_edge(gen, case: str, n: int = 1 << 20):
+    """(values, gids, mask, G) of one edge input, integer-valued: zipf,
+    gids Zipf-skewed (s = 1.2) over 4096 groups; offset3, three views at
+    a common offset of 3 elements (the vector walk from its head row);
+    offset_mixed, views at offsets 1, 0, 1 (the scalar walk);
+    out_of_range, unmasked gids of -1, G and 2^31 - 1; nan_inf, masked
+    rows holding NaN and +-inf and one unmasked NaN in group 7."""
+    dev = "cuda"
+    v = torch.randint(0, 16, (n + 4,), generator=gen,
+                      device=dev).to(torch.float32)
+    m = torch.rand(n + 4, generator=gen, device=dev) < 0.8
+    if case == "zipf":
+        rank = torch.arange(1, 4097, device=dev, dtype=torch.float64)
+        g = torch.multinomial(rank ** -1.2, n + 4, replacement=True,
+                              generator=gen).to(torch.int32)
+        return v[:n], g[:n], m[:n], 4096
+    g = torch.randint(0, 1000, (n + 4,), generator=gen, device=dev,
+                      dtype=torch.int32)
+    if case == "offset3":
+        return v[3:n + 3], g[3:n + 3], m[3:n + 3], 1000
+    if case == "offset_mixed":
+        return v[1:n + 1], g[:n], m[1:n + 1], 1000
+    v, g, m = v[:n].clone(), g[:n].clone(), m[:n].clone()
+    if case == "out_of_range":
+        g[::7] = -1
+        g[1::11] = 1000
+        g[2::13] = (1 << 31) - 1
+        return v, g, m, 1000
+    assert case == "nan_inf"
+    m[::5] = False
+    v[::5] = float("nan")
+    v[1::10] = float("inf")
+    v[6::10] = float("-inf")
+    m[1::10] = m[6::10] = False
+    v[8], m[8], g[8] = float("nan"), True, 7
+    return v, g, m, 1000
+
+
+@pytest.mark.parametrize("case", ["zipf", "offset3", "offset_mixed",
+                                  "out_of_range", "nan_inf"])
+def test_segment_sum_edge_inputs_match_plain_version(cuda, case):
+    """Skewed, unaligned, out-of-range and NaN/inf inputs give the plain
+    version's answer exactly (integer-valued sums below 2^24): NaN only in
+    the unmasked NaN's group, masked values nowhere."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(31)
+    v, g, m, G = _segsum_edge(gen, case)
+    got, head = _segsum_walk(v, g, m, G)
+    assert head == {"offset3": 1, "offset_mixed": -1}.get(case, 0)
+    want = CK.segment_sum_plain(v.double(), g, m, G)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert int(torch.isnan(want).sum()) == (case == "nan_inf")
+    keep = ~torch.isnan(want)
+    assert torch.equal(got[keep].double(), want[keep])
+
+
+@pytest.mark.parametrize("g", [1, 19, 1000, 4096])
+def test_segment_sum_same_bits_on_every_launch(cuda, g):
+    """Five launches on 6M N(0,1) values give the same bits: no float
+    atomic decides the order of a sum."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(g)
+    n = 6_000_000
+    v = torch.randn(n, generator=gen, device=cuda)
+    gids = torch.randint(0, g, (n,), generator=gen, device=cuda,
+                         dtype=torch.int32)
+    m = torch.rand(n, generator=gen, device=cuda) < 0.8
+    first = CK.segment_sum(v, gids, m, g)
+    for _ in range(4):
+        assert torch.equal(CK.segment_sum(v, gids, m, g).view(torch.int32),
+                           first.view(torch.int32))
+
+
+@pytest.mark.parametrize("n", [100, 1 << 20])
+@pytest.mark.parametrize("g", [19, 4096])
+def test_segment_sum_writes_every_slot(cuda, n, g):
+    """The output (and scratch) come from the allocator unset: blocks of
+    their sizes are filled with NaN and freed just before the call, and
+    every slot still holds the plain version's sum (empty groups +0.0)."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(n + g)
+    v = torch.randint(0, 16, (n,), generator=gen,
+                      device=cuda).to(torch.float32)
+    gids = torch.randint(0, g, (n,), generator=gen, device=cuda,
+                         dtype=torch.int32)
+    m = torch.rand(n, generator=gen, device=cuda) < 0.5
+    want = CK.segment_sum_plain(v.double(), gids, m, g)
+    for size in (g, 132 * g):
+        junk = torch.full((size,), float("nan"), device=cuda)
+        del junk
+        got = CK.segment_sum(v, gids, m, g)
+        assert torch.equal(got.double(), want)
+    empty = want == 0
+    assert bool((got[empty] == 0).all())
+    assert not bool(torch.signbit(got[empty]).any())
+
+
+def test_segment_sum_n0_launches_nothing(cuda):
+    """n = 0 returns G zeros and launches nothing."""
+    v = torch.zeros(0, device=cuda)
+    gids = torch.zeros(0, dtype=torch.int32, device=cuda)
+    m = torch.zeros(0, dtype=torch.bool, device=cuda)
+    before = CK.LAUNCHES.snapshot()
+    out = CK.segment_sum(v, gids, m, 64)
+    torch.cuda.synchronize()
+    assert CK.LAUNCHES.snapshot() == before
+    assert out.shape == (64,) and bool((out == 0).all())
+
+
+@pytest.mark.parametrize("n", [2, 4097])
+@pytest.mark.parametrize("ov,og,om", [(0, 0, 0), (1, 1, 1), (3, 3, 3),
+                                      (4, 4, 4), (1, 0, 1), (0, 0, 2)])
+def test_segment_sum_walk_follows_the_views_alignment(cuda, ov, og, om, n):
+    """Views at their own element offsets: the kernel takes the 16-byte
+    walk from the first row where values and gids lie on 16 bytes and the
+    mask on 4 when one row serves all three (found here by a search of
+    the four candidate rows), else the scalar walk; either way it gives
+    the plain version's sums exactly."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(n + ov)
+    v = torch.randint(0, 16, (n + 4,), generator=gen,
+                      device=cuda).to(torch.float32)[ov:ov + n]
+    g = torch.randint(0, 1000, (n + 4,), generator=gen, device=cuda,
+                      dtype=torch.int32)[og:og + n]
+    m = (torch.rand(n + 4, generator=gen, device=cuda) < 0.8)[om:om + n]
+    want = next((h for h in range(4)
+                 if (v.data_ptr() + 4 * h) % 16 == 0
+                 and (g.data_ptr() + 4 * h) % 16 == 0
+                 and (m.data_ptr() + h) % 4 == 0), -1)
+    got, head = _segsum_walk(v, g, m, 1000)
+    assert head == want
+    if ov == og == om:
+        assert head == (-ov) % 4
+    assert torch.equal(got.double(),
+                       CK.segment_sum_plain(v.double(), g, m, 1000))
+
+
 def test_sql_on_the_card_matches_the_cpu(cuda):
     """TPC-H Q3 and the float GROUP BY on the card (both kernels on the
     path) give the CPU session's rows: Q3 exactly, with the oracle; the

@@ -95,29 +95,130 @@ def test_sorted_search_plain_edges():
 
 
 # --------------------------------------------------------------- kernel 3
-@pytest.mark.parametrize("n", [4096, 4000, 1, 0])
-def test_segment_sum_plain_matches_pallas_and_seam(n):
-    """tests/test_hand_kernels.py's recipe: integer-valued f32 (exact in
-    any order), 19 groups, a 0.8 Bernoulli mask."""
+def _segsum_case(case: str):
+    """(values, gids, mask, G, pallas_tile) for one input of kernel 3:
+    integer-valued f32, so any order of summation gives the same sum.
+    n4096 ... n0: tests/test_hand_kernels.py's recipe (19 groups, a 0.8
+    Bernoulli mask) at that n; g1: every row in one group; zipf: gids
+    Zipf-skewed (s = 1.2) over 4096 groups; out_of_range: unmasked gids of
+    -1, G and 2^31 - 1 among live ones; masked_nan_inf: masked rows hold
+    NaN and +-inf; offset1: views at one element's offset (v[1:], g[1:],
+    m[1:]).  pallas_tile: the tile the reference kernel takes n in, or
+    None where n is no multiple of one."""
     rng = np.random.default_rng(21)
+    if case.startswith("n"):
+        n = int(case[1:])
+        v = rng.integers(0, 16, size=n).astype(np.float32)
+        g = rng.integers(0, 19, size=n).astype(np.int32)
+        m = rng.random(n) < 0.8
+        return v, g, m, 19, (512 if n and n % 512 == 0 else None)
+    n = 8192
     v = rng.integers(0, 16, size=n).astype(np.float32)
-    g = rng.integers(0, 19, size=n).astype(np.int32)
     m = rng.random(n) < 0.8
+    if case == "g1":
+        return v, np.zeros(n, np.int32), m, 1, 512
+    if case == "zipf":
+        g = (rng.zipf(1.2, size=n) - 1) % 4096
+        return v, g.astype(np.int32), m, 4096, 512
+    g = rng.integers(0, 1000, size=n).astype(np.int32)
+    if case == "out_of_range":
+        g[::7] = -1
+        g[1::11] = 1000
+        g[2::13] = (1 << 31) - 1
+        m[:3] = True
+        return v, g, m, 1000, 512
+    if case == "masked_nan_inf":
+        m[::5] = False
+        v[::5] = np.float32("nan")
+        v[1::10] = np.float32("inf")
+        v[6::10] = np.float32("-inf")
+        m[1::10] = m[6::10] = False
+        return v, g, m, 1000, 512
+    assert case == "offset1"
+    return v[1:], g[1:], m[1:], 1000, None
+
+
+@pytest.mark.parametrize("case", [
+    pytest.param(c, id=c[1:] if c.startswith("n") else c)
+    for c in ("n4096", "n4000", "n1", "n0", "g1", "zipf", "out_of_range",
+              "masked_nan_inf", "offset1")])
+def test_segment_sum_plain_matches_pallas_and_seam(case):
+    """The plain version and the seam on each input of `_segsum_case`
+    against the reference's seam and, where n is a multiple of its tile,
+    its Pallas kernel in interpret mode: bit for bit, since integer-valued
+    sums are exact in any order.  Masked rows (whatever their values) and
+    unmasked out-of-range gids land nowhere."""
+    v, g, m, G, tile = _segsum_case(case)
     want_x = np.asarray(HK.grouped_scatter_add(
-        jnp.asarray(v), jnp.asarray(g), jnp.asarray(m), 19,
+        jnp.asarray(v), jnp.asarray(g), jnp.asarray(m), G,
         use_pallas=True))
     tv, tg, tm = (torch.from_numpy(v), torch.from_numpy(g),
                   torch.from_numpy(m))
-    got = CK.segment_sum_plain(tv, tg, tm, 19)
-    seam = TK.grouped_scatter_add(tv, tg, tm, 19, use_pallas=True)
-    assert got.dtype == torch.float32 and got.shape == (19,)
+    got = CK.segment_sum_plain(tv, tg, tm, G)
+    seam = TK.grouped_scatter_add(tv, tg, tm, G, use_pallas=True)
+    assert got.dtype == torch.float32 and got.shape == (G,)
+    assert np.isfinite(got.numpy()).all()
     assert np.array_equal(got.numpy(), want_x)
     assert torch.equal(seam, got)
-    if n and n % 512 == 0:
+    if tile:
         want_k = np.asarray(PK.segment_sum_pallas(
             jnp.asarray(v), jnp.asarray(g), jnp.asarray(m),
-            num_segments=19, tile_n=512, interpret=True))
+            num_segments=G, tile_n=tile, interpret=True))
         assert np.array_equal(got.numpy(), want_k)
+
+
+def test_segment_sum_unmasked_nan_poisons_only_its_group():
+    """An unmasked NaN makes its own group's sum NaN and no other, as the
+    reference's XLA route (use_pallas=False) and SQL's SUM give; a masked
+    inf lands nowhere.  The reference's Pallas kernel instead spreads the
+    NaN to every group (its one-hot product multiplies it by the zeros of
+    the other columns): the port does not copy that (ROADMAP.md C)."""
+    n, G = 1024, 7
+    v = np.arange(n, dtype=np.float32)
+    v[5] = np.float32("nan")
+    v[9] = np.float32("inf")
+    g = (np.arange(n) % G).astype(np.int32)
+    m = np.ones(n, dtype=bool)
+    m[9] = False
+    xla = np.asarray(HK.grouped_scatter_add(
+        jnp.asarray(v), jnp.asarray(g), jnp.asarray(m), G,
+        use_pallas=False))
+    tv, tg, tm = (torch.from_numpy(v), torch.from_numpy(g),
+                  torch.from_numpy(m))
+    for got in (CK.segment_sum_plain(tv, tg, tm, G).numpy(),
+                TK.grouped_scatter_add(tv, tg, tm, G,
+                                       use_pallas=True).numpy()):
+        assert np.isnan(got).tolist() == [g == 5 for g in range(G)]
+        np.testing.assert_array_equal(got, xla)
+    pallas = np.asarray(PK.segment_sum_pallas(
+        jnp.asarray(v), jnp.asarray(g), jnp.asarray(m), num_segments=G,
+        tile_n=512, interpret=True))
+    assert np.isnan(pallas).all()
+
+
+@pytest.mark.parametrize("ov,og,om", [(0, 0, 0), (1, 1, 1), (3, 3, 3),
+                                      (4, 4, 4), (1, 0, 1), (0, 0, 2)])
+def test_segment_sum_views_at_any_offsets_match_reference(ov, og, om):
+    """Views of values, gids and mask at their own element offsets (a
+    common offset, or offsets that differ, as a batch column's slice can
+    give) reach the seam as they are, and give the reference seam's sums
+    bit for bit on integer-valued values."""
+    rng = np.random.default_rng(ov * 16 + og * 4 + om)
+    n = 4096
+    v = rng.integers(0, 16, size=n + 4).astype(np.float32)
+    g = rng.integers(0, 1000, size=n + 4).astype(np.int32)
+    m = rng.random(n + 4) < 0.8
+    v, g, m = v[ov:ov + n], g[og:og + n], m[om:om + n]
+    want = np.asarray(HK.grouped_scatter_add(
+        jnp.asarray(v), jnp.asarray(g), jnp.asarray(m), 1000,
+        use_pallas=True))
+    tv = torch.from_numpy(np.concatenate([np.zeros(ov, np.float32), v]))
+    tg = torch.from_numpy(np.concatenate([np.zeros(og, np.int32), g]))
+    tm = torch.from_numpy(np.concatenate([np.zeros(om, bool), m]))
+    got = TK.grouped_scatter_add(tv[ov:], tg[og:], tm[om:], 1000,
+                                 use_pallas=True)
+    assert got.dtype == torch.float32
+    assert np.array_equal(got.numpy(), want)
 
 
 def test_segment_sum_float_values_within_reference_tolerance():
