@@ -74,6 +74,28 @@ Phases, each of which raises on failure:
    unaligned, out-of-range and NaN/inf inputs, every shape launched twice
    for the same bits).
 
+ 6. all of TPC-H through the same executor:
+    a. Q1 and Q6 on phase 5's SF1 lineitem (no second load): Q1 held
+       to `q1_oracle` on the engine's exact values by `q1_exact` (each
+       sum's scaled int64 and each count equal, the averages within
+       `q1_check`'s bounds); `q1_check` itself is only recorded, and
+       reads false at SF1, because it reads the sums as floats and
+       sum_charge x 10^6 is past 2^53 there; Q1's grouped
+       aggregate takes the dense small-key path (the AggOp's
+       `agg_chunks` counter: every chunk dense, none general); Q6
+       equals its integer oracle; cold seconds, the best of 3 warm runs
+       as lineitem rows/s, the kernels each launched (expected none:
+       no join, and Q1's decimal lanes are int64) and the device's busy
+       share of one profiled run, beside Q3's;
+    b. the 22 queries of `utils/tpch_full.py` at scale factor 0.1
+       (lineitem 600K rows): each held to the sqlite3 oracle by
+       `run_compare` on its cold run and again on its counted warm run;
+       per query the best of 3 warm seconds, the sorted-search and
+       segment-sum launches of the counted run and the busy share; the
+       sorted search re-checked bit for bit at every shape the 22
+       launched it with, on their own inputs, and timed at the most
+       launched one.
+
 The second-to-last line of output is the kernels' JSON record and the
 last is {"ok": true, "device": {...}}.  Without CUDA, or outside a
 checkout of the repository, it exits non-zero and prints no result.
@@ -614,7 +636,7 @@ def pq_probed_truth(torch, idx, q_np: np.ndarray, k: int,
     return out
 
 
-def profile_run(torch, fn, label: str) -> dict:
+def profile_run(torch, fn, label: str, top: int = 8) -> dict:
     """One run of `fn` under torch.profiler: device time by kernel and
     the device's busy share of the wall time.  Only the kernels' own
     rows are summed: an operator's row carries its kernels' device time
@@ -633,10 +655,10 @@ def profile_run(torch, fn, label: str) -> dict:
                 and e.self_device_time_total > 0:
             by_name[e.key] = by_name.get(e.key, 0.0) + e.self_device_time_total
     busy_us = sum(by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     out = {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
            "device_busy_share": busy_us / wall_us,
-           "top_kernels_ms": [[k[:80], v / 1e3] for k, v in top]}
+           "top_kernels_ms": [[k[:80], v / 1e3] for k, v in ranked]}
     log(f"[profile] {label}: wall {out['wall_ms']:.3f} ms, device busy "
         f"{out['device_busy_ms']:.3f} ms ({out['device_busy_share']:.1%})")
     for k, v in out["top_kernels_ms"]:
@@ -1423,31 +1445,43 @@ def table_host_bytes(table) -> int:
 
 
 def run_sql(torch, session, sql: str):
+    """-> (rows, result batch, seconds) of one run of `sql`."""
     t0 = time.perf_counter()
-    rows = session.execute(sql).rows()
+    res = session.execute(sql)
+    rows = res.rows()
     torch.cuda.synchronize()
-    return rows, time.perf_counter() - t0
+    return rows, res.batch, time.perf_counter() - t0
+
+
+def agg_chunks() -> dict:
+    """The grouped aggregate's chunk counts by path, so far."""
+    from matrixone_tpu_torch.utils import metrics as M
+    return {p: M.agg_chunks.get(path=p) for p in ("dense", "general")}
 
 
 def sql_path(torch, CK, TK, label: str, session, sql: str, n_rows: int,
-             check, kernel: str):
+             check, kernel=None, top: int = 8):
     """One query on the card: the cold run (checked), the counted warm
-    run with its kernel inputs captured (checked; `kernel` must launch),
-    the best of 3 warm runs as rows/s of `n_rows`, and one profiled run."""
-    rows, cold_s = run_sql(torch, session, sql)
-    check(rows)
+    run with its kernel inputs captured (checked; `kernel`, if named,
+    must launch; the aggregate's chunks by path counted with it), the
+    best of 3 warm runs as rows/s of `n_rows`, and one profiled run."""
+    rows, batch, cold_s = run_sql(torch, session, sql)
+    check(rows, batch)
     CK.LAUNCHES.reset()
+    chunks0 = agg_chunks()
     with PathInputs(torch, TK) as cap:
-        rows, _ = run_sql(torch, session, sql)
+        rows, batch, _ = run_sql(torch, session, sql)
+    chunks = {p: c - chunks0[p] for p, c in agg_chunks().items()}
     launches = kernel_launches(
         CK, label, ("sorted_search", "segment_sum", "segment_sum_walk",
-                    "l2_distance_sq", "adc_score"), required=(kernel,))
-    check(rows)
-    warm = [run_sql(torch, session, sql)[1] for _ in range(3)]
-    prof = profile_run(torch, lambda: session.execute(sql), label)
+                    "l2_distance_sq", "adc_score"),
+        required=(kernel,) if kernel else ())
+    check(rows, batch)
+    warm = [run_sql(torch, session, sql)[2] for _ in range(3)]
+    prof = profile_run(torch, lambda: session.execute(sql), label, top=top)
     out = {"cold_seconds": cold_s, "warm_seconds": warm,
            "rows_per_sec_best": n_rows / min(warm),
-           "launches": launches, "profile": prof}
+           "launches": launches, "agg_chunks": chunks, "profile": prof}
     log(f"[{label}] cold {cold_s:.3f}s warm {['%.3f' % w for w in warm]} "
         f"best {out['rows_per_sec_best']:.0f} rows/s")
     return out, cap
@@ -1495,7 +1529,7 @@ def phase_sql(torch, CK, args):
     oracle = tpch.q3_oracle(lineitem, q3data)
     epoch = __import__("datetime").date(1970, 1, 1)
 
-    def check_q3(rows):
+    def check_q3(rows, _batch):
         got = [(r[0], round(r[1] * 10000), (r[2] - epoch).days)
                for r in rows]
         if len(rows) != 10 or got != oracle:
@@ -1515,7 +1549,7 @@ def phase_sql(torch, CK, args):
                          minlength=1000)
     gb_err = {}
 
-    def check_group_by(rows):
+    def check_group_by(rows, _batch):
         if [r[0] for r in rows] != list(range(1000)):
             raise AssertionError("5c GROUP BY: wrong groups")
         if [r[1] for r in rows] != xi_exact.tolist():
@@ -1582,7 +1616,223 @@ def phase_sql(torch, CK, args):
         segsum_rows.append(row)
     del q3cap, gbcap
     torch.cuda.empty_cache()
-    return report, search_rows, segsum_rows
+    return report, search_rows, segsum_rows, (session, lineitem)
+
+
+Q1_SUMS = (("sum_qty", 2), ("sum_base_price", 2), ("sum_disc_price", 4),
+           ("sum_charge", 6))
+Q1_AVGS = (("avg_qty", 1e-9), ("avg_price", 1e-6), ("avg_disc", 1e-12))
+
+
+def q1_exact(batch, oracle) -> list:
+    """Q1's result batch against `q1_oracle`, on the values the engine
+    holds: each sum as the scaled int64 of its DECIMAL, at the oracle's
+    scale, and count_order, equal; the averages within `q1_check`'s own
+    bounds.  `q1_check` reads the sums as Python floats, which hold an
+    integer exactly only up to 2^53: at SF1, sum_charge x 10^6 is about
+    2e16, so a float round trip can miss by up to 2 units where the
+    engine is exact.  -> the differences found (none: equal)."""
+    cols = [batch.columns[c] for c in batch.columns]
+    keys = list(zip(cols[0].to_pylist(), cols[1].to_pylist()))
+    bad = [] if len(keys) == len(oracle) else [("groups", len(keys))]
+    for i, key in enumerate(keys):
+        o = oracle.get(key)
+        if o is None:
+            bad.append((key, "not in the oracle"))
+            continue
+        for j, (name, scale) in enumerate(Q1_SUMS, start=2):
+            if cols[j].dtype.scale != scale \
+                    or int(cols[j].data[i]) != o[name]:
+                bad.append((key, name, int(cols[j].data[i]), o[name]))
+        for j, (name, tol) in enumerate(Q1_AVGS, start=6):
+            if abs(float(cols[j].data[i]) - o[name]) > tol:
+                bad.append((key, name, float(cols[j].data[i]), o[name]))
+        if int(cols[9].data[i]) != o["count_order"]:
+            bad.append((key, "count_order", int(cols[9].data[i])))
+    return bad
+
+
+def dense_lanes_check(torch, n: int, seed: int) -> dict:
+    """Q1's dense lane partials (`ops/agg.dense_lane_partials`: two keys
+    of 3 and 2 codes with NULLs, 4 int64 and 3 float64 lanes, some
+    masked) at n rows on the card against the CPU on the same inputs:
+    int lanes and rows exact, float lanes within rtol 1e-12; then 5
+    launches on the same inputs, to say whether the float lanes (summed
+    by `index_add_`, which takes atomics on the card) come out with the
+    same bits every time.  Plain torch, so no kernel count."""
+    from matrixone_tpu_torch.ops import agg as A
+    rng = np.random.default_rng(seed)
+    codes = [torch.from_numpy(rng.integers(0, s, n).astype(np.int8))
+             for s in (3, 2)]
+    valids = [torch.from_numpy(rng.random(n) < 0.99) for _ in range(2)]
+    row_mask = torch.from_numpy(rng.random(n) < 0.98)
+    masks = [None, torch.from_numpy(rng.random(n) < 0.9)]
+    ints = [torch.from_numpy(rng.integers(0, 10 ** 7, n)) for _ in range(4)]
+    floats = [torch.from_numpy(rng.standard_normal(n) * 1e4)
+              for _ in range(3)]
+    args = (codes, valids, row_mask, ints, [None, masks[1], None, masks[1]],
+            floats, [None, masks[1], masks[1]])
+    kw = {"sizes": (3, 2), "with_null": True}
+
+    def on(dev, a):
+        if isinstance(a, list):
+            return [on(dev, x) for x in a]
+        return None if a is None else a.to(dev)
+    host = A.dense_lane_partials(*args, **kw)
+    card_args = on("cuda", list(args))
+    runs = [tuple(t.cpu() for t in A.dense_lane_partials(*card_args, **kw))
+            for _ in range(5)]
+    got = runs[0]
+    if not (torch.equal(got[0], host[0]) and torch.equal(got[2], host[2])):
+        raise AssertionError("6a dense lanes: int lanes or rows differ "
+                             "from the CPU's")
+    rel = float(((got[1] - host[1]).abs()
+                 / host[1].abs().clamp_min(1e-300)).max())
+    if rel > 1e-12:
+        raise AssertionError(f"6a dense lanes: float lanes {rel:.3e} from "
+                             f"the CPU's, past rtol 1e-12")
+    same_bits = all(torch.equal(r[1], got[1]) for r in runs[1:])
+    ms = cuda_time_ms(lambda: A.dense_lane_partials(*card_args, **kw))
+    out = {"n": n, "float_max_rel_err_vs_cpu": rel,
+           "float_same_bits_5_launches": same_bits,
+           "int_exact": True, "ms": ms, "queued": ms.queued}
+    log(f"[6a] dense lane partials n={n}: int exact, float max rel err "
+        f"{rel:.3e} vs the CPU, same float bits on 5 launches: "
+        f"{same_bits}; {ms:.3f} ms")
+    return out
+
+
+#: phase 6b's scale factor: lineitem 600K rows.  At SF1 the sqlite3
+#: oracle loads about 10x longer, and Q16 and Q21 raise (DISTINCT's group
+#: cap, the join's build budget; PERF.md section 4)
+TPCH_SF = 0.1
+
+
+def phase_tpch(torch, CK, args, sf1) -> tuple:
+    """Phase 6: Q1 and Q6 on phase 5's SF1 lineitem, then the 22 TPC-H
+    queries at scale factor `TPCH_SF` against sqlite3."""
+    from matrixone_tpu_torch.frontend import Session
+    from matrixone_tpu_torch.ops import kernels as TK
+    from matrixone_tpu_torch.storage.engine import Engine
+    from matrixone_tpu_torch.utils import tpch, tpch_full
+
+    session, lineitem = sf1
+    n = args.sf1_lineitem
+    report = {}
+    q1_want = tpch.q1_oracle(lineitem)
+
+    q1_float = {}
+
+    def check_q1(rows, batch):
+        bad = q1_exact(batch, q1_want)
+        if bad:
+            raise AssertionError(f"6a Q1 differs from q1_oracle: {bad[:4]}")
+        q1_float["q1_check"] = tpch.q1_check(rows, q1_want)
+
+    report["q1"], _ = sql_path(torch, CK, TK, "6a Q1", session,
+                               tpch.Q1_SQL, n, check_q1)
+    report["q1"]["q1_check"] = q1_float["q1_check"]
+    log(f"[6a] Q1 equals q1_oracle exactly (scaled int64 sums, counts; "
+        f"averages within q1_check's bounds); q1_check itself, which "
+        f"reads the sums through floats: {q1_float['q1_check']}")
+    chunks = report["q1"]["agg_chunks"]
+    if chunks["dense"] == 0 or chunks["general"] != 0:
+        raise AssertionError(f"6a Q1's aggregate did not take the dense "
+                             f"path on every chunk: {chunks}")
+    sel = ((lineitem["l_shipdate"] >= 8766) & (lineitem["l_shipdate"] < 9131)
+           & (lineitem["l_discount"] >= 5) & (lineitem["l_discount"] <= 7)
+           & (lineitem["l_quantity"] < 2400))
+    q6_rev = int((lineitem["l_extendedprice"][sel].astype(object)
+                  * lineitem["l_discount"][sel]).sum())
+
+    def check_q6(rows, _batch):
+        if len(rows) != 1 or abs(rows[0][0] - q6_rev / 10000) >= 1e-9:
+            raise AssertionError(f"6a Q6 {rows} differs from the integer "
+                                 f"oracle {q6_rev / 10000}")
+
+    report["q6"], _ = sql_path(torch, CK, TK, "6a Q6", session,
+                               tpch.Q6_SQL, n, check_q6)
+    for q in ("q1", "q6"):
+        r = report[q]
+        log(f"[6a] {q.upper()} at SF1: {r['rows_per_sec_best']:.0f} "
+            f"lineitem rows/s (best of 3 warm), cold "
+            f"{r['cold_seconds']:.3f}s, device busy "
+            f"{r['profile']['device_busy_share']:.1%}, chunks "
+            f"{r['agg_chunks']}")
+
+    report["dense_lanes"] = dense_lanes_check(torch, n, args.seed)
+
+    # 6b: the 22 queries at a reduced scale factor, against sqlite3
+    eng = Engine()
+    t0 = time.perf_counter()
+    tables = tpch_full.load_tpch(eng, sf=TPCH_SF, seed=args.seed)
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    conn = tpch_full.to_sqlite(tables)
+    sqlite_s = time.perf_counter() - t0
+    del tables
+    rows_of = {t: eng.get_table(t).n_rows for t in eng.tables}
+    report["tpch22"] = {"sf": TPCH_SF, "load_seconds": load_s,
+                        "sqlite_load_seconds": sqlite_s, "rows": rows_of,
+                        "queries": {}}
+    log(f"[6b] TPC-H sf {TPCH_SF}: {rows_of}, loaded in "
+        f"{load_s:.2f}s, sqlite3 oracle in {sqlite_s:.2f}s")
+    sess = Session(catalog=eng, device="cuda")
+    captured = {}
+    for q in sorted(tpch_full.QUERIES):
+        sql = tpch_full.QUERIES[q]
+        t0 = time.perf_counter()
+        want = tpch_full.normalize_rows(
+            conn.execute(tpch_full.to_sqlite_sql(sql)).fetchall())
+        sqlite_q = time.perf_counter() - t0
+
+        def check(rows, _batch, q=q, want=want):
+            if not tpch_full.rows_match(tpch_full.normalize_rows(rows),
+                                        want):
+                raise AssertionError(f"6b Q{q}: rows differ from sqlite3")
+
+        # the hold: the first (cold) run of the query and sqlite3's
+        t0 = time.perf_counter()
+        tpch_full.run_compare(sess, conn, q)
+        compare_s = time.perf_counter() - t0
+        r, cap = sql_path(torch, CK, TK, f"6b Q{q}", sess, sql,
+                          rows_of["lineitem"], check, top=0)
+        for key, val in cap.search.items():
+            captured.setdefault(key, val)
+        out = {"warm_seconds_best": min(r["warm_seconds"]),
+               "run_compare_seconds": compare_s,
+               "sqlite_seconds": sqlite_q, "result_rows": len(want),
+               "sorted_search": r["launches"]["sorted_search"]["launches"],
+               "sorted_search_by_shape":
+                   r["launches"]["sorted_search"]["by_shape"],
+               "segment_sum": r["launches"]["segment_sum"]["launches"],
+               "agg_chunks": r["agg_chunks"],
+               "device_busy_share": r["profile"]["device_busy_share"]}
+        report["tpch22"]["queries"][q] = out
+        log(f"[6b] Q{q:<2d} = sqlite3 ({len(want)} rows): warm "
+            f"{out['warm_seconds_best']:.4f}s (run_compare "
+            f"{out['run_compare_seconds']:.3f}s) sorted_search "
+            f"{out['sorted_search']} segment_sum {out['segment_sum']} "
+            f"busy {out['device_busy_share']:.1%} chunks "
+            f"{out['agg_chunks']}")
+    conn.close()
+    counts = {}
+    for out in report["tpch22"]["queries"].values():
+        for *shape, c in out["sorted_search_by_shape"]:
+            counts[tuple(shape)] = counts.get(tuple(shape), 0) + c
+    if not counts:
+        raise AssertionError("6b: the 22 queries never launched the "
+                             "sorted-search kernel")
+    top_shape = max(counts, key=counts.get)
+    search_rows = [dict(check_sorted_search(
+        torch, CK, f"6b_n{n_}_m{m_}", *captured[(n_, m_)],
+        timed=(n_, m_) == top_shape), path="6b_tpch22", path_launches=c)
+        for (n_, m_), c in sorted(counts.items())]
+    log(f"[6b] sorted search bit-identical at all {len(counts)} shapes "
+        f"the 22 launched it with; timed at {top_shape}")
+    del captured, sess, eng
+    torch.cuda.empty_cache()
+    return report, search_rows
 
 
 GROUP_BY_SQL = ("select grp, sum(xi), sum(xn) from v group by grp "
@@ -1642,8 +1892,11 @@ def main(argv=None) -> int:
     search_rows, segsum_rows = phase_relational_edges(torch, CK, args.seed)
     report, path_rows, ctx = phase_path(torch, CK, args)
     report["ivf_pq"], pq_rows, pq_adc_rows = phase_pq(torch, CK, args, ctx)
-    report["sql"], search_path, segsum_path = phase_sql(torch, CK, args)
-    search_rows += search_path
+    report["sql"], search_path, segsum_path, sf1 = phase_sql(torch, CK,
+                                                             args)
+    report["tpch"], tpch_search = phase_tpch(torch, CK, args, sf1)
+    del sf1
+    search_rows += search_path + tpch_search
     segsum_rows += segsum_path
     rows += path_rows + pq_rows
     adc_rows += pq_adc_rows
@@ -1664,6 +1917,9 @@ def main(argv=None) -> int:
     segsum_row = max(segsum_path, key=lambda r: r["path_launches"])
     sql_launches = {p: report["sql"][k]["launches"] for p, k in
                     (("5b_q3", "q3"), ("5c_group_by", "group_by"))}
+    sql_launches.update({f"6a_{k}": report["tpch"][k]["launches"]
+                         for k in ("q1", "q6")})
+    tpch22 = report["tpch"]["tpch22"]["queries"]
     record = {"kernels": [{
         "name": "l2_distance_sq", "route": "cuda",
         "source": "matrixone_tpu_torch/csrc/l2_distance.cu",
@@ -1711,8 +1967,10 @@ def main(argv=None) -> int:
         "source": "matrixone_tpu_torch/csrc/sorted_search.cu",
         "replaces": "matrixone_tpu/ops/pallas_kernels.py:250",
         "launches": sql_launches["5b_q3"]["sorted_search"]["launches"],
-        "launches_by_path": {p: v["sorted_search"]["launches"]
-                             for p, v in sql_launches.items()},
+        "launches_by_path": {
+            **{p: v["sorted_search"]["launches"]
+               for p, v in sql_launches.items()},
+            **{f"6b_q{q}": v["sorted_search"] for q, v in tpch22.items()}},
         "max_abs_err": max(r["max_abs_err"] for r in search_rows),
         **{key: search_row[key] for key in timed},
         "library_call": "torch.searchsorted on pre-flipped int64",
@@ -1721,8 +1979,10 @@ def main(argv=None) -> int:
         "source": "matrixone_tpu_torch/csrc/segment_sum.cu",
         "replaces": "matrixone_tpu/ops/pallas_kernels.py:177",
         "launches": sql_launches["5c_group_by"]["segment_sum"]["launches"],
-        "launches_by_path": {p: v["segment_sum"]["launches"]
-                             for p, v in sql_launches.items()},
+        "launches_by_path": {
+            **{p: v["segment_sum"]["launches"]
+               for p, v in sql_launches.items()},
+            **{f"6b_q{q}": v["segment_sum"] for q, v in tpch22.items()}},
         "max_abs_err": max(r["max_abs_err"] for r in segsum_rows),
         **{key: segsum_row[key] for key in timed},
         **{key: segsum_row[key] for key in (

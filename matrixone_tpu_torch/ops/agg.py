@@ -1,7 +1,6 @@
 """Group-by aggregation as sort/segment kernels — no hash tables.
 
-The port of `matrixone_tpu/ops/agg.py` (its general path; the dense
-small-key path `dense_lane_partials` waits for the TPC-H Q1 slice):
+The port of `matrixone_tpu/ops/agg.py`.  The general path:
 
     row hash (ops.hash) -> stable argsort in unsigned order -> boundary
     detect -> cumsum group ids -> masked segment sum/min/max scatters
@@ -11,11 +10,15 @@ caller re-runs with the next bucket.  Group ids, their order and the
 representative rows are bit-identical to the JAX package's.  Sums over
 integers and decimals are exact (int64); float32 sums go through the
 hand-kernel seam (ops/kernels.py), where the call site asks for it.
+
+The dense small-key path (`dense_lane_partials`, the TPC-H Q1 shape)
+takes the group id as a mixed-radix number over the key dictionaries
+instead: no hash, no sort.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -120,6 +123,70 @@ def seg_min(values, gids, mask, max_groups: int):
 
 def seg_max(values, gids, mask, max_groups: int):
     return _seg_reduce(values, gids, mask, max_groups, False)
+
+
+def dense_slot_strides(sizes: Sequence[int], null_slots: bool = True
+                       ) -> Tuple[Tuple[int, ...], int]:
+    """Row-major strides over the dense key space. With null_slots each
+    key contributes (size + 1) slots — the extra slot is its NULL group;
+    without, exactly `size` slots (a chunk proven all-valid)."""
+    strides = []
+    acc = 1
+    for s in reversed(sizes):
+        strides.append(acc)
+        acc *= s + (1 if null_slots else 0)
+    return tuple(reversed(strides)), acc
+
+
+def dense_lane_partials(codes, valids, row_mask, int_vals, int_masks,
+                        float_vals, float_masks, *, sizes, with_null):
+    """Small-key grouped partials without hash or sort.
+
+    When every group key is a dictionary code (or bool) the group id is
+    a mixed-radix digit expansion over the key space.  The lanes of one
+    dtype class stack into an (n, L) matrix (a lane's mask folds in as
+    a zero, masked-out rows go to a spare slot) and reduce in ONE
+    `index_add_` into (G, L): int64 for the int lanes (exact), float64
+    for the float lanes. `rows` rides the int stack as one more lane
+    that counts the row mask (a `bincount` would sync the host to size
+    its output).
+
+    Lanes: parallel (value, mask) tuples per dtype class. value None
+    means "count the mask"; mask None means "row_mask only". Returns
+    (int64 lanes [Li, G], float64 lanes [Lf, G], rows [G]) with G the
+    compact (with_null=False) or NULL-slotted key space.
+    """
+    strides, G = dense_slot_strides(sizes, null_slots=with_null)
+    n = row_mask.shape[0]
+    dev = row_mask.device
+    gid = torch.zeros((n,), dtype=torch.int64, device=dev)
+    for c, v, s, st in zip(codes, valids, sizes, strides):
+        # int8/int16 dictionary codes widen before they index
+        slot = torch.clamp(c.to(torch.int64), 0, s - 1)
+        if with_null:
+            slot = torch.where(v, slot, s)
+        gid = gid + slot * st
+    gid = torch.where(row_mask, gid, G)        # the spare slot
+
+    def lane_sums(vals, masks, dtype) -> torch.Tensor:
+        if not vals:
+            return torch.zeros((0, G), dtype=dtype, device=dev)
+        cols: List[torch.Tensor] = []
+        for v, m in zip(vals, masks):
+            x = (torch.ones((n,), dtype=dtype, device=dev) if v is None
+                 else v.to(dtype).expand(n))
+            if m is not None:
+                x = torch.where(m, x, torch.zeros((), dtype=dtype,
+                                                  device=dev))
+            cols.append(x)
+        out = torch.zeros((G + 1, len(cols)), dtype=dtype, device=dev)
+        out.index_add_(0, gid, torch.stack(cols, dim=1))
+        return out[:G].T
+
+    ints = lane_sums(list(int_vals) + [None], list(int_masks) + [None],
+                     torch.int64)
+    floats = lane_sums(float_vals, float_masks, torch.float64)
+    return ints[:-1], floats, ints[-1]
 
 
 def gather_keys(key_columns: Sequence[torch.Tensor],

@@ -22,6 +22,14 @@ def _expand(x: torch.Tensor, n: int) -> torch.Tensor:
     return x if x.shape[0] == n else x.expand((n,) + tuple(x.shape[1:]))
 
 
+def div_by(x: torch.Tensor, d) -> torch.Tensor:
+    """x / d for a Python number d, as a true division on every device.
+    CUDA computes a tensor divided by a CPU scalar as a product with the
+    scalar's reciprocal, up to one ulp away from the quotient the
+    reference (and the CPU) gives; a 0-d tensor on x's device divides."""
+    return x / torch.full((), d, dtype=x.dtype, device=x.device)
+
+
 def _broadcast2(a: DeviceColumn, b: DeviceColumn):
     """Broadcast const columns; return (da, db, validity)."""
     n = max(a.data.shape[0], b.data.shape[0])
@@ -62,8 +70,8 @@ def _descale_for_float(a: DeviceColumn, b: DeviceColumn):
     by 10^scale)."""
     def conv(c):
         if c.dtype.oid == TypeOid.DECIMAL64:
-            return DeviceColumn(c.data.to(torch.float64)
-                                / (10.0 ** c.dtype.scale),
+            return DeviceColumn(div_by(c.data.to(torch.float64),
+                                       10.0 ** c.dtype.scale),
                                 c.validity, dt.FLOAT64)
         return c
     return conv(a), conv(b)
@@ -125,8 +133,8 @@ def div(a: DeviceColumn, b: DeviceColumn) -> DeviceColumn:
         sa = a.dtype.scale if a.dtype.oid == TypeOid.DECIMAL64 else 0
         sb = b.dtype.scale if b.dtype.oid == TypeOid.DECIMAL64 else 0
         # widen to float64 for division; exactness only required for +,-,*
-        fa = da.to(torch.float64) / (10.0 ** sa)
-        fb = db.to(torch.float64) / (10.0 ** sb)
+        fa = div_by(da.to(torch.float64), 10.0 ** sa)
+        fb = div_by(db.to(torch.float64), 10.0 ** sb)
         zero = fb == 0
         out = fa / torch.where(zero, 1.0, fb)
         return DeviceColumn(out, valid & ~zero, dt.FLOAT64)
@@ -171,9 +179,9 @@ def _cmp(a: DeviceColumn, b: DeviceColumn, fn) -> DeviceColumn:
         # decimal vs float: descale the decimal to real units (cents
         # compared against a float threshold would be off by 10^scale)
         if a.dtype.oid == TypeOid.DECIMAL64:
-            da = da.to(torch.float64) / (10 ** a.dtype.scale)
+            da = div_by(da.to(torch.float64), 10.0 ** a.dtype.scale)
         if b.dtype.oid == TypeOid.DECIMAL64:
-            db = db.to(torch.float64) / (10 ** b.dtype.scale)
+            db = div_by(db.to(torch.float64), 10.0 ** b.dtype.scale)
         return DeviceColumn(fn(da.to(torch.float64), db.to(torch.float64)),
                             valid, dt.BOOL)
     if a.dtype.is_numeric and b.dtype.is_numeric and a.dtype.oid != b.dtype.oid:
@@ -247,7 +255,7 @@ def cast(a: DeviceColumn, to: DType) -> DeviceColumn:
         return a
     src, d = a.dtype, a.data
     if src.oid == TypeOid.DECIMAL64 and to.is_float:
-        out = d.to(to.torch_dtype) / (10.0 ** src.scale)
+        out = div_by(d.to(to.torch_dtype), 10.0 ** src.scale)
     elif src.oid == TypeOid.DECIMAL64 and to.oid == TypeOid.DECIMAL64:
         if to.scale >= src.scale:
             out = d * (10 ** (to.scale - src.scale))
@@ -291,7 +299,7 @@ def case_when(cond: DeviceColumn, then: DeviceColumn, els: DeviceColumn) -> Devi
 def _unary_float(a: DeviceColumn, fn, out=dt.FLOAT64) -> DeviceColumn:
     d = a.data
     if a.dtype.oid == TypeOid.DECIMAL64:
-        d = d.to(torch.float64) / (10.0 ** a.dtype.scale)
+        d = div_by(d.to(torch.float64), 10.0 ** a.dtype.scale)
     return DeviceColumn(fn(d.to(out.torch_dtype)), a.validity, out)
 
 
@@ -359,7 +367,7 @@ def truncate(a: DeviceColumn, digits: int = 0) -> DeviceColumn:
                                       rounding_mode="floor") * f
         return DeviceColumn(q.to(d.dtype), a.validity, a.dtype)
     f = 10.0 ** digits
-    return _unary_float(a, lambda x: torch.trunc(x * f) / f)
+    return _unary_float(a, lambda x: div_by(torch.trunc(x * f), f))
 
 
 def _pick2(a: DeviceColumn, b: DeviceColumn, fn) -> DeviceColumn:

@@ -1,8 +1,10 @@
-"""The counters the vector-search slice increments.
+"""The counters the port increments.
 
 Counterpart of the vector-search part of `matrixone_tpu/utils/metrics.py`
 (same metric names, same labels), as a minimal thread-safe registry of
 its own: the port keeps no dependency on the JAX package's registry.
+`agg_chunks` is the port's own: which path each input chunk of a
+grouped aggregate took.
 """
 
 from __future__ import annotations
@@ -47,3 +49,7 @@ vector_batch_rows = Counter(
 vector_batch_coalesced = Counter(
     "mo_vector_batch_coalesced_total",
     "worker micro-batcher: requests that rode another request's dispatch")
+agg_chunks = Counter(
+    "mo_agg_chunks_total",
+    "grouped-aggregate input chunks by path (dense: the small-key dense "
+    "accumulator; general: hash, sort and segment scatter)")

@@ -41,6 +41,8 @@ def _compile_node(node: P.PlanNode, ctx: ExecContext) -> ops.Operator:
         return ops.TopKOp(node, _compile_node(node.child, ctx))
     if isinstance(node, P.Limit):
         return ops.LimitOp(node, _compile_node(node.child, ctx))
+    if isinstance(node, P.Distinct):
+        return ops.DistinctOp(node, _compile_node(node.child, ctx))
     if isinstance(node, P.Join):
         return JoinOp(node, _compile_node(node.left, ctx),
                       _compile_node(node.right, ctx), ctx=ctx)

@@ -1,21 +1,27 @@
 """Expression evaluation over device batches.
 
-The port of the core of `matrixone_tpu/vm/exprs.py`: columns, literals,
-casts, CASE, IN lists, IS NULL and the `ops/scalar.py` arithmetic,
-logic, comparisons (decimal-exact) and math functions.  Every other
-expression — LIKE and the string, JSON, date, distance, geo and LLM
-functions — raises `EvalError("not yet ported: ...")` (ROADMAP.md,
-section A).
+The port of `matrixone_tpu/vm/exprs.py`: columns, literals, casts,
+CASE, IN lists, IS NULL, LIKE, the `ops/scalar.py` arithmetic, logic,
+comparisons (decimal-exact) and math functions, the date functions
+(`year`/`month`/`day` and the `_DATE_FUNCS` family) and the string
+functions (`vm/strfuncs.py`).  The rest — the numeric-to-string
+functions, `date_add_unit`/`timestampadd`/`timestampdiff`, the period
+functions, `time_bucket`, `to_datetime`, distance, `bit_count`,
+`rand`, `uuid`, `llm_embed` and UDF calls — raises
+`EvalError("not yet ported: ...")` (ROADMAP.md, section A).
 
 Varchar columns arrive as dictionary codes + a host-side dictionary
-(ExecBatch.dicts): string comparisons with a literal are evaluated on
-the *dictionary* (host, tiny) and become a boolean LUT gather on the
-codes.
+(ExecBatch.dicts): string predicates are evaluated on the *dictionary*
+(host, tiny) and become code-space operations on the device — `eq` is
+a code compare, LIKE is a host regex over distinct values turned into
+a boolean LUT gather, and a string function re-encodes the dictionary
+and gathers the new codes.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import re
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -27,7 +33,10 @@ from matrixone_tpu_torch.container.dtypes import DType
 from matrixone_tpu_torch.ops import scalar as S
 from matrixone_tpu_torch.sql.expr import (BoundCase, BoundCast, BoundCol,
                                           BoundExpr, BoundFunc, BoundInList,
-                                          BoundIsNull, BoundLiteral)
+                                          BoundIsNull, BoundLike,
+                                          BoundLiteral)
+from matrixone_tpu_torch.vm.strfuncs import (_COLPOS, _STRING_FUNCS,
+                                             EvalError, _apply_string_func)
 
 
 @dataclasses.dataclass
@@ -53,22 +62,24 @@ class ExecBatch:
         return self.mask.device
 
 
-class EvalError(ValueError):
-    pass
-
-
 def _is_varchar(dtype: DType) -> bool:
     return dtype.is_varlen
 
 
 def _dict_of(e: BoundExpr, ex: ExecBatch) -> Optional[List[str]]:
-    """Dictionary of a varchar-valued expression: a column's, or a CASE
-    over string literals.  (The string functions that make dictionaries
-    in the reference are not ported yet.)"""
+    """Dictionary of a varchar-valued expression (recursive: columns,
+    string-function results, CASE over string literals)."""
     if isinstance(e, BoundCol):
         return ex.dicts.get(e.name)
     if isinstance(e, BoundCase) and e.dtype.is_varlen:
         return case_string_dict(e)
+    if isinstance(e, BoundFunc) and e.op == "monthname":
+        return list(_MONTH_NAMES)
+    if isinstance(e, BoundFunc) and e.op == "dayname":
+        return list(_DAY_NAMES)
+    if isinstance(e, BoundFunc) and e.dtype.is_varlen \
+            and e.op in _STRING_FUNCS:
+        return string_func_final_dict(e, ex)
     return None
 
 
@@ -132,9 +143,107 @@ def eval_expr(e: BoundExpr, ex: ExecBatch) -> DeviceColumn:
         else:
             base = S.in_list(arg, list(e.values))
         return S.logical_not(base) if e.negated else base
+    if isinstance(e, BoundLike):
+        arg = eval_expr(e.arg, ex)
+        d = _dict_of(e.arg, ex)
+        if d is None:
+            raise EvalError("LIKE requires a varchar column")
+        rx = _like_regex(e.pattern)
+        lut = np.array([bool(rx.match(s)) for s in d], dtype=np.bool_)
+        if e.negated:
+            lut = ~lut
+        return DeviceColumn(lut_gather(lut, arg.data), arg.validity, dt.BOOL)
     if isinstance(e, BoundFunc):
         return _eval_func(e, ex)
     raise EvalError(f"not yet ported: expression {type(e).__name__}")
+
+
+def _string_arg_info(e, ex, want_col: bool = True):
+    """-> (col DeviceColumn|None, dict, literals list) for a string
+    function call: at most one dict-coded column operand; an all-literal
+    call treats the first literal as the subject. want_col=False skips the
+    device evaluation (dictionary derivation only)."""
+    col = None
+    col_ast = None
+    d = None
+    lits = []
+    for a in e.args:
+        if isinstance(a, BoundLiteral):
+            v = a.value
+            if v is not None and a.dtype.oid == dt.TypeOid.DECIMAL64:
+                v = v / 10 ** a.dtype.scale   # surface the REAL value,
+            lits.append(v)                    # never the scaled integer
+            continue
+        src = _dict_of(a, ex)
+        if src is None:
+            raise EvalError(
+                f"string function {e.op} needs a varchar column or literal "
+                f"arguments")
+        if col_ast is not None:
+            raise EvalError(
+                f"string function {e.op} over two columns not supported yet")
+        col_ast = a
+        d = src
+        lits.append(_COLPOS)       # placeholder for the column position
+    if col_ast is None:
+        # all-literal call: the first literal is the subject string. A
+        # NULL subject stays None in lits so the NULL-propagation rule
+        # fires (left(NULL, 2) is NULL, not '')
+        if not lits:
+            raise EvalError(f"string function {e.op} needs arguments")
+        d = [str(lits[0]) if lits[0] is not None else ""]
+        if lits[0] is not None:
+            lits[0] = _COLPOS
+    elif want_col:
+        col = eval_expr(col_ast, ex)
+    return col, d, lits
+
+
+def string_func_output_dict(e: BoundFunc, ex: ExecBatch):
+    """Transformed dictionary for a varchar-result string function
+    (no device work: dictionaries + literals only). Entries may be None
+    (SQL NULL results, e.g. unhex of garbage)."""
+    _, d, lits = _string_arg_info(e, ex, want_col=False)
+    return [_apply_string_func(e.op, s, lits) for s in d]
+
+
+def _eval_string_func(e: BoundFunc, ex: ExecBatch) -> DeviceColumn:
+    col, d, lits = _string_arg_info(e, ex)
+    if col is None:
+        # all-literal subject: a const code-0 column over the 1-entry dict
+        col = DeviceColumn(torch.zeros((1,), dtype=torch.int32,
+                                       device=ex.device),
+                           torch.ones((1,), dtype=torch.bool,
+                                      device=ex.device), dt.VARCHAR)
+    vals = [_apply_string_func(e.op, s, lits) for s in d]
+    nulls = np.asarray([v is None for v in vals], dtype=np.bool_)
+    validity = col.validity
+    if nulls.any():
+        validity = validity & ~lut_gather(nulls, col.data)
+    if not e.dtype.is_varlen:
+        # result type decides the LUT dtype: the binder already typed
+        # the call (INT64 for length/instr/..., BOOL for regexp_like/...)
+        npdt = (np.bool_ if e.dtype.oid == dt.TypeOid.BOOL
+                else e.dtype.np_dtype)
+        lut = np.asarray([0 if v is None else v for v in vals],
+                         dtype=npdt)
+        return DeviceColumn(lut_gather(lut, col.data), validity, e.dtype)
+    # varchar result: re-encode to the transformed value space so
+    # GROUP BY upper(x) groups by VALUE, not by original code
+    uniq = {}
+    remap = np.empty(len(vals), np.int32)
+    for i, v in enumerate(vals):
+        remap[i] = uniq.setdefault("" if v is None else str(v), len(uniq))
+    return DeviceColumn(lut_gather(remap, col.data), validity, e.dtype)
+
+
+def string_func_final_dict(e: BoundFunc, ex: ExecBatch):
+    """Dict matching _eval_string_func's re-encoded code space."""
+    out_dict = string_func_output_dict(e, ex)
+    uniq = {}
+    for v in out_dict:
+        uniq.setdefault("" if v is None else str(v), len(uniq))
+    return list(uniq)
 
 
 _SIMPLE = {
@@ -199,6 +308,21 @@ def _eval_func(e: BoundFunc, ex: ExecBatch) -> DeviceColumn:
         a = eval_expr(e.args[0], ex)
         digits = e.args[1].value if len(e.args) > 1 else 0
         return S.truncate(a, int(digits))
+    if op in _DATE_FUNCS:
+        return _eval_date_func(e, ex)
+    if op == "date_add_days":
+        a = eval_expr(e.args[0], ex)
+        delta = eval_expr(e.args[1], ex)
+        da, db, valid = S._broadcast2(a, delta)
+        return DeviceColumn(da.to(torch.int32) + db.to(torch.int32),
+                            valid, dt.DATE)
+    if op in ("year", "month", "day"):
+        a = eval_expr(e.args[0], ex)
+        y, m, d = _civil_from_days(a.data.to(torch.int64))
+        out = {"year": y, "month": m, "day": d}[op]
+        return DeviceColumn(out.to(torch.int32), a.validity, dt.INT32)
+    if op in _STRING_FUNCS:
+        return _eval_string_func(e, ex)
     if op in _SIMPLE:
         args = [eval_expr(a, ex) for a in e.args]
         return _SIMPLE[op](*args)
@@ -245,3 +369,176 @@ def _eval_compare(e: BoundFunc, ex: ExecBatch) -> DeviceColumn:
             return _CMP[e.op](col, other_col)
         raise EvalError("cross-dictionary string comparison not supported yet")
     return _CMP[e.op](eval_expr(a_raw, ex), eval_expr(b_raw, ex))
+
+
+def _like_regex(pattern: str) -> "re.Pattern":
+    out = []
+    for ch in pattern:
+        if ch == "%":
+            out.append(".*")
+        elif ch == "_":
+            out.append(".")
+        else:
+            out.append(re.escape(ch))
+    return re.compile("^" + "".join(out) + "$", re.DOTALL)
+
+
+# ------------------------------------------------------------------ dates
+# Every `//` and `%` below is floor division on int64 tensors (torch's
+# `//` floors, `%` takes the divisor's sign), as jnp's are: dates before
+# 1970 are negative epoch days.
+
+_MONTH_NAMES = ["January", "February", "March", "April", "May", "June",
+                "July", "August", "September", "October", "November",
+                "December"]
+_DAY_NAMES = ["Monday", "Tuesday", "Wednesday", "Thursday", "Friday",
+              "Saturday", "Sunday"]
+
+_DATE_FUNCS = {"weekofyear", "to_seconds",
+               "weekday", "dayofweek", "dayofyear", "quarter", "week",
+               "last_day", "to_days", "from_days", "datediff", "hour",
+               "minute", "second", "date", "unix_timestamp",
+               "from_unixtime", "monthname", "dayname",
+               "microsecond", "yearweek"}
+
+_US_PER_DAY = 86_400_000_000
+
+
+def _is_datetime(dtype: DType) -> bool:
+    return dtype.oid in (dt.TypeOid.DATETIME, dt.TypeOid.TIMESTAMP)
+
+
+def _days_col(col: DeviceColumn) -> torch.Tensor:
+    """Epoch days from a DATE (days) or DATETIME/TIMESTAMP (micros)."""
+    if _is_datetime(col.dtype):
+        return col.data.to(torch.int64) // _US_PER_DAY
+    return col.data.to(torch.int64)
+
+
+def _days_from_civil(y, m, d):
+    """Inverse of _civil_from_days (Hinnant, public domain)."""
+    y = y - (m <= 2).to(y.dtype)
+    era = torch.where(y >= 0, y, y - 399) // 400
+    yoe = y - era * 400
+    mp = torch.where(m > 2, m - 3, m + 9)
+    doy = (153 * mp + 2) // 5 + d - 1
+    doe = yoe * 365 + yoe // 4 - yoe // 100 + doy
+    return era * 146097 + doe - 719468
+
+
+def _civil_from_days(z: torch.Tensor):
+    """Epoch days -> (year, month, day); Howard Hinnant's civil algorithm
+    (public domain), integer-only so it runs on the device."""
+    z = z + 719468
+    era = torch.where(z >= 0, z, z - 146096) // 146097
+    doe = z - era * 146097
+    yoe = (doe - doe // 1460 + doe // 36524 - doe // 146096) // 365
+    y = yoe + era * 400
+    doy = doe - (365 * yoe + yoe // 4 - yoe // 100)
+    mp = (5 * doy + 2) // 153
+    d = doy - (153 * mp + 2) // 5 + 1
+    m = torch.where(mp < 10, mp + 3, mp - 9)
+    y = torch.where(m <= 2, y + 1, y)
+    return y, m, d
+
+
+def _sunday_weeks(days, y, m, d):
+    """MySQL week mode 0 (Sunday-start weeks, week 0 before the year's
+    first Sunday) of `days`, a date in year `y`."""
+    jan1 = _days_from_civil(y, torch.ones_like(m), torch.ones_like(d))
+    doy = days - jan1 + 1
+    jan1_dow_sun0 = (jan1 + 4) % 7
+    first_sunday_doy = 1 + (7 - jan1_dow_sun0) % 7
+    return torch.where(doy < first_sunday_doy, 0,
+                       (doy - first_sunday_doy) // 7 + 1)
+
+
+def _eval_date_func(e: BoundFunc, ex: ExecBatch) -> DeviceColumn:
+    op = e.op
+    a = eval_expr(e.args[0], ex)
+    if op == "datediff":
+        b = eval_expr(e.args[1], ex)
+        da, db, valid = S._broadcast2(a, b)
+        out = (_days_col(DeviceColumn(da, valid, a.dtype))
+               - _days_col(DeviceColumn(db, valid, b.dtype)))
+        return DeviceColumn(out.to(torch.int64), valid, dt.INT64)
+    if op == "from_days":
+        out = a.data.to(torch.int64) - 719528
+        return DeviceColumn(out.to(torch.int32), a.validity, dt.DATE)
+    if op == "from_unixtime":
+        out = a.data.to(torch.int64) * 1_000_000
+        return DeviceColumn(out, a.validity, dt.DATETIME)
+    if op in ("hour", "minute", "second"):
+        us = a.data.to(torch.int64)
+        sec_of_day = (us // 1_000_000) % 86_400
+        out = {"hour": sec_of_day // 3600,
+               "minute": (sec_of_day // 60) % 60,
+               "second": sec_of_day % 60}[op]
+        return DeviceColumn(out.to(torch.int32), a.validity, dt.INT32)
+    days = _days_col(a)
+    if op == "date":
+        return DeviceColumn(days.to(torch.int32), a.validity, dt.DATE)
+    if op == "to_days":
+        return DeviceColumn(days + 719528, a.validity, dt.INT64)
+    if op == "to_seconds":
+        # MySQL TO_SECONDS: seconds since year 0 = TO_DAYS*86400 + time
+        base = (days + 719528) * 86_400
+        if _is_datetime(a.dtype):
+            us = a.data.to(torch.int64)
+            base = base + (us - (us // _US_PER_DAY) * _US_PER_DAY) \
+                // 1_000_000
+        return DeviceColumn(base, a.validity, dt.INT64)
+    if op == "weekofyear":
+        # ISO-8601 week number (MySQL week(d, 3)): the week containing
+        # this date's Thursday, numbered within that Thursday's year
+        th = days + 3 - (days + 3) % 7      # Monday-start week's Thursday
+        ty, tm, td = _civil_from_days(th)
+        jan1 = _days_from_civil(ty, torch.ones_like(tm), torch.ones_like(td))
+        wk = (th - jan1) // 7 + 1
+        return DeviceColumn(wk.to(torch.int32), a.validity, dt.INT32)
+    if op == "unix_timestamp":
+        if _is_datetime(a.dtype):
+            out = a.data.to(torch.int64) // 1_000_000
+        else:
+            out = days * 86_400
+        return DeviceColumn(out, a.validity, dt.INT64)
+    if op == "weekday":        # 0 = Monday (1970-01-01 was a Thursday)
+        return DeviceColumn(((days + 3) % 7).to(torch.int32),
+                            a.validity, dt.INT32)
+    if op == "dayofweek":      # 1 = Sunday
+        return DeviceColumn(((days + 4) % 7 + 1).to(torch.int32),
+                            a.validity, dt.INT32)
+    if op == "dayname":
+        return DeviceColumn(((days + 3) % 7).to(torch.int32),
+                            a.validity, e.dtype)
+    y, m, d = _civil_from_days(days)
+    if op == "monthname":
+        return DeviceColumn((m - 1).to(torch.int32), a.validity, e.dtype)
+    if op == "quarter":
+        return DeviceColumn(((m + 2) // 3).to(torch.int32),
+                            a.validity, dt.INT32)
+    if op == "dayofyear":
+        jan1 = _days_from_civil(y, torch.ones_like(m), torch.ones_like(d))
+        return DeviceColumn((days - jan1 + 1).to(torch.int32),
+                            a.validity, dt.INT32)
+    if op == "week":           # MySQL default mode 0: Sunday-start weeks
+        wk = _sunday_weeks(days, y, m, d)
+        return DeviceColumn(wk.to(torch.int32), a.validity, dt.INT32)
+    if op == "last_day":
+        ny = torch.where(m == 12, y + 1, y)
+        nm = torch.where(m == 12, 1, m + 1)
+        out = _days_from_civil(ny, nm, torch.ones_like(d)) - 1
+        return DeviceColumn(out.to(torch.int32), a.validity, dt.DATE)
+    if op == "microsecond":
+        if _is_datetime(a.dtype):
+            us = a.data.to(torch.int64) % 1_000_000
+        else:
+            us = torch.zeros_like(a.data, dtype=torch.int64)
+        return DeviceColumn(us.to(torch.int32), a.validity, dt.INT32)
+    if op == "yearweek":       # mode 0: YYYYWW, week-0 days belong to
+        # the previous year's last week (MySQL yearweek semantics)
+        wk = _sunday_weeks(days, y, m, d)
+        pwk = _sunday_weeks(days, y - 1, m, d)
+        out = torch.where(wk > 0, y * 100 + wk, (y - 1) * 100 + pwk)
+        return DeviceColumn(out.to(torch.int64), a.validity, dt.INT64)
+    raise EvalError(op)

@@ -4,21 +4,25 @@ The port of the per-operator path of `matrixone_tpu/vm/operators.py`
 (reference analogue: `pkg/sql/colexec` + the `vm.Operator` pull loop):
 Scan (pushed filters, zonemap pruning and the runtime filters joins
 inject), Values, Filter, Project, the streaming grouped and scalar
-aggregate, Sort, TopK and Limit.  Operators yield ExecBatch (device
-tensors + mask): filters produce masks, not compacted rows; group-by is
-the sort/segment kernel (ops/agg) with a streaming partial merge into a
-bounded device-resident group table.
+aggregate, Sort, TopK, Limit and Distinct.  Operators yield ExecBatch
+(device tensors + mask): filters produce masks, not compacted rows;
+group-by is the sort/segment kernel (ops/agg) with a streaming partial
+merge into a bounded device-resident group table.
 
-Not ported yet (ROADMAP.md, section A): the dense small-key aggregate
-(the TPC-H Q1 shape; it raises rather than run the general path, whose
-float sums would differ from the reference's f64 dense sums), the
-aggregate's host spill past `max_device_groups`, UNION, DISTINCT,
-SAMPLE, FILL, aggregate UDFs, and the scan's shard routing and
-read-ahead thread.
+Grouped aggregates over small dictionary-coded or BOOL keys (the TPC-H
+Q1 shape) take the reference's dense accumulator: mixed-radix group
+ids, no hash and no sort, float sums in f64.  DISTINCT dedups by the
+same group ids.
+
+Not ported yet (ROADMAP.md, section A): the aggregate's host spill past
+`max_device_groups` and its distributed `partial_state`, UNION, SAMPLE,
+FILL, aggregate UDFs, and the scan's shard routing and read-ahead
+thread.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Iterator, List, Optional
 
 import numpy as np
@@ -30,10 +34,12 @@ from matrixone_tpu_torch.container.device import (DeviceBatch, DeviceColumn,
                                                   bucket_length)
 from matrixone_tpu_torch.container.dtypes import DType, TypeOid
 from matrixone_tpu_torch.ops import agg as A, encodings as ENC
-from matrixone_tpu_torch.ops import filter as F, sort as msort
+from matrixone_tpu_torch.ops import filter as F, scalar as S
+from matrixone_tpu_torch.ops import sort as msort
 from matrixone_tpu_torch.sql import plan as P
 from matrixone_tpu_torch.sql.expr import AggCall, BoundExpr, BoundLiteral
 from matrixone_tpu_torch.sql.parser import BIT_AGGS, STDDEV_AGGS
+from matrixone_tpu_torch.utils import metrics
 from matrixone_tpu_torch.vm.exprs import (EvalError, ExecBatch, _dict_of,
                                           eval_expr, lut_gather)
 
@@ -250,6 +256,7 @@ class AggOp(Operator):
         key_dicts: List[Optional[List[str]]] = [None] * nkeys
         self._agg_tracker = _AggDictTracker(self.node.aggs)
         state = None   # dict: keys:[tensors], kvalid:[tensors], partials per agg
+        dense = None       # small-key dense accumulator (no hash, no sort)
         dense_checked = False
         for ex in self.child.execute():
             self._agg_tracker.observe(ex)
@@ -265,23 +272,35 @@ class AggOp(Operator):
                       else _agg_value(a, ex) for a in self.node.aggs]
             if not dense_checked:
                 dense_checked = True
-                self._refuse_dense(ex)
+                dense = self._dense_init(ex)
+            if dense is not None:
+                if self._dense_sizes(ex) == list(dense["sizes"]):
+                    self._dense_step(dense, kdata, kvalid, ex.mask, values)
+                    continue
+                # a key dictionary grew mid-stream (concurrent insert /
+                # union arm): the dense key space is stale — convert the
+                # partials to a standard group table and continue general
+                state = self._dense_to_state(dense)
+                dense = None
+            metrics.agg_chunks.inc(path="general")
             part = self._partial_vals(kdata, kvalid, ex.mask, values)
             state = part if state is None else self._merge(state, part)
+        if dense is not None:
+            state = self._dense_to_state(dense)
         if state is None:
             state = self._empty_state(self.ctx.device)
         yield self._finalize(state, key_dicts)
 
-    def _refuse_dense(self, ex) -> None:
-        """The reference takes its dense small-key path (vm/operators.py
-        `_dense_init`) when every key is dictionary-coded or BOOL with a
-        small key space and every aggregate is additive; its float sums
-        are f64 there.  That path is not ported yet, and running the
-        general one instead would not give the reference's numbers."""
-        dense_funcs = {"count", "sum", "avg"} | STDDEV_AGGS
-        for a in self.node.aggs:
-            if a.distinct or a.func not in dense_funcs:
-                return
+    # ---- dense small-key fast path (the Q1 shape: GROUP BY two dict-
+    # coded columns with additive aggregates). Group ids come from a
+    # mixed-radix expansion over the key dictionaries instead of
+    # hash+argsort, and the deduplicated partial lanes fold in one
+    # index_add_ per dtype class (ops/agg.dense_lane_partials); the
+    # cross-chunk merge is an elementwise add of (G,)-sized partials —
+    # no re-grouping sort.
+    def _dense_sizes(self, ex) -> Optional[List[int]]:
+        """Per-key dense domain sizes, or None when a key has no bounded
+        code space (numeric keys, computed strings without a dict)."""
         sizes = []
         for k in self.node.group_keys:
             d = _expr_dict(k, ex)
@@ -290,20 +309,165 @@ class AggOp(Operator):
             elif k.dtype.oid == TypeOid.BOOL:
                 sizes.append(2)
             else:
-                return
+                return None
+        return sizes
+
+    @staticmethod
+    def _dense_fields(a: AggCall) -> List[tuple]:
+        """(class, field) layout of one aggregate's partial state —
+        shared by the per-chunk step and the state converter so the two
+        can never disagree on stack order."""
+        if a.func == "count":
+            return [("int", "count")]
+        if a.func in ("sum", "avg"):
+            cls = "float" if a.arg.dtype.is_float else "int"
+            return [(cls, "sum"), ("int", "count")]
+        return [("float", "sum"), ("float", "sumsq"), ("int", "count")]
+
+    def _dense_init(self, ex) -> Optional[dict]:
+        if os.environ.get("MO_DENSE_GROUPS") == "0":
+            return None
+        dense_funcs = {"count", "sum", "avg"} | STDDEV_AGGS
+        for a in self.node.aggs:
+            # min/max/bit partials don't merge additively; distinct
+            # needs per-group key sets — all take the general path
+            if a.distinct or a.func not in dense_funcs:
+                return None
+        sizes = self._dense_sizes(ex)
+        if sizes is None:
+            return None
         g = 1
+        n_fields = 1
         for s in sizes:
             g *= s + 1
-        n_fields = 1
         for a in self.node.aggs:
-            n_fields += (1 if a.func == "count"
-                         else 2 if a.func in ("sum", "avg") else 3)
-        if g > 256 or g * n_fields > 4096:
-            return
-        raise NotImplementedError(
-            "GROUP BY over small dictionary-coded or BOOL keys takes the "
-            "reference's dense accumulator, which is not ported yet "
-            "(ROADMAP.md, section A: the TPC-H Q1 slice)")
+            n_fields += len(self._dense_fields(a))
+        if g > int(os.environ.get("MO_DENSE_GROUPS_MAX", "256")) \
+                or g * n_fields > 4096:
+            # the engine's cap on the dense table (the reference's
+            # bound on its unrolled G x fields reductions)
+            return None
+        # accumulators live at FULL (NULL-slotted) granularity; all-valid
+        # chunks compute in the compact key space and scatter into the
+        # matching full slots
+        device = self.ctx.device
+        partials = []
+        for a in self.node.aggs:
+            partials.append({f: torch.zeros((g,), dtype=(
+                torch.int64 if c == "int" else torch.float64),
+                device=device) for c, f in self._dense_fields(a)})
+        return {"sizes": tuple(sizes), "partials": partials,
+                "rows": torch.zeros((g,), dtype=torch.int64,
+                                    device=device)}
+
+    def _dense_step(self, dense, kdata, kvalid, mask, values) -> None:
+        metrics.agg_chunks.inc(path="dense")
+        # ONE host sync answers every 'no NULLs here?' question for the
+        # chunk: all-valid keys shrink the key space (no NULL slots) and
+        # all-valid agg args collapse their count field into the shared
+        # rows lane
+        checks = list(kvalid)
+        vidx = {}
+        for v in values:
+            if v is not None and id(v.validity) not in vidx:
+                vidx[id(v.validity)] = len(checks)
+                checks.append(v.validity)
+        flags = torch.stack([c.all() for c in checks]).cpu().numpy()
+        keys_allvalid = bool(flags[:len(kvalid)].all())
+        with_null = not keys_allvalid
+        # build deduplicated lanes: plain-column agg args share their
+        # DeviceColumn object (eval_expr returns the batch column), so
+        # sum(l_quantity) and avg(l_quantity) collapse to ONE lane;
+        # counts over all-valid args collapse into the rows lane
+        int_vals, int_masks, float_vals, float_masks = [], [], [], []
+        lane_of = {}                    # dedupe key -> ("int"|"float", idx)
+        fieldmap = []                   # per agg: [(field, lane-or-"rows")]
+        for a, v in zip(self.node.aggs, values):
+            allv = v is None or bool(flags[vidx[id(v.validity)]])
+            mkey = "rows" if allv else id(v.validity)
+            mval = None if allv else v.validity
+            x = None
+            fm = []
+            for cls, field in self._dense_fields(a):
+                if field == "count" and mkey == "rows":
+                    fm.append((field, "rows"))
+                    continue
+                if cls == "float" and field != "count" \
+                        and a.func in STDDEV_AGGS and x is None:
+                    x = _float_of(v)
+                val = (None if field == "count"
+                       else x * x if field == "sumsq"
+                       else x if x is not None else v.data)
+                key = (cls, field == "sumsq",
+                       None if field == "count" else id(v.data), mkey)
+                lane = lane_of.get(key)
+                if lane is None:
+                    if cls == "int":
+                        lane = ("int", len(int_vals))
+                        int_vals.append(val)
+                        int_masks.append(mval)
+                    else:
+                        lane = ("float", len(float_vals))
+                        float_vals.append(val)
+                        float_masks.append(mval)
+                    lane_of[key] = lane
+                fm.append((field, lane))
+            fieldmap.append(fm)
+        ints, floats, rows = A.dense_lane_partials(
+            kdata, kvalid, mask, int_vals, int_masks, float_vals,
+            float_masks, sizes=dense["sizes"], with_null=with_null)
+        # scatter the chunk's compact-space results into the full-space
+        # accumulators (identity when the chunk used NULL slots)
+        pos = self._dense_positions(dense, with_null)
+        for fm, part in zip(fieldmap, dense["partials"]):
+            for field, lane in fm:
+                add = (rows if lane == "rows"
+                       else ints[lane[1]] if lane[0] == "int"
+                       else floats[lane[1]])
+                part[field].index_add_(0, pos, add.to(part[field].dtype))
+        dense["rows"].index_add_(0, pos, rows)
+
+    def _dense_positions(self, dense, with_null: bool) -> torch.Tensor:
+        """Full-space slot of each compact-space slot (cached)."""
+        key = ("pos", with_null)
+        pos = dense.get(key)
+        if pos is None:
+            sizes = dense["sizes"]
+            strides_c, g_eff = A.dense_slot_strides(
+                sizes, null_slots=with_null)
+            strides_f, _g_full = A.dense_slot_strides(sizes)
+            pos = np.zeros(g_eff, np.int64)
+            for slot in range(g_eff):
+                full, rem = 0, slot
+                for stc, stf in zip(strides_c, strides_f):
+                    digit = rem // stc
+                    rem = rem % stc
+                    full += digit * stf
+                pos[slot] = full
+            pos = torch.from_numpy(pos).to(dense["rows"].device)
+            dense[key] = pos
+        return pos
+
+    def _dense_to_state(self, dense) -> dict:
+        """Dense accumulator -> the standard state dict. `present` is
+        scattered over the G slots (not front-packed); every consumer —
+        _merge's re-group, _finalize's output mask, the session's
+        mask-compacting host copy — works off the mask, so that's
+        fine."""
+        sizes = dense["sizes"]
+        strides, g = A.dense_slot_strides(sizes)
+        present = dense["rows"] > 0
+        slots = torch.arange(g, dtype=torch.int32, device=present.device)
+        keys, kvalid = [], []
+        for k_ast, s, st in zip(self.node.group_keys, sizes, strides):
+            code = torch.div(slots, st, rounding_mode="floor") % (s + 1)
+            keys.append(code.to(torch.int32 if k_ast.dtype.is_varlen
+                                else k_ast.dtype.torch_dtype))
+            kvalid.append(code < s)
+        n = present.to(torch.int32).sum().to(torch.int32)
+        return {"keys": keys, "kvalid": kvalid, "present": present,
+                "partials": [dict(p) for p in dense["partials"]],
+                "n": n}
 
     def _partial_vals(self, kdata, kvalid, mask, values):
         while True:
@@ -496,7 +660,7 @@ def _grouped_step(a: AggCall, gi, col: Optional[DeviceColumn],
 def _float_of(col: DeviceColumn):
     x = col.data.to(torch.float64)
     if col.dtype.oid == TypeOid.DECIMAL64:
-        x = x / (10.0 ** col.dtype.scale)
+        x = S.div_by(x, 10.0 ** col.dtype.scale)
     return x
 
 
@@ -552,7 +716,7 @@ def _grouped_final(a: AggCall, part, dtype: DType) -> DeviceColumn:
     if a.func == "avg":
         s = part["sum"].to(torch.float64)
         if a.arg.dtype.oid == TypeOid.DECIMAL64:
-            s = s / (10.0 ** a.arg.dtype.scale)
+            s = S.div_by(s, 10.0 ** a.arg.dtype.scale)
         c = torch.clamp(part["count"], min=1).to(torch.float64)
         return DeviceColumn(s / c, valid, dt.FLOAT64)
     if a.func in ("min", "max"):
@@ -672,7 +836,7 @@ def _scalar_final(a: AggCall, state, dtype: DType, device) -> DeviceColumn:
         s, c = state
         sf = s.to(torch.float64)
         if a.arg.dtype.oid == TypeOid.DECIMAL64:
-            sf = sf / (10.0 ** a.arg.dtype.scale)
+            sf = S.div_by(sf, 10.0 ** a.arg.dtype.scale)
         return DeviceColumn((sf / torch.clamp(c, min=1))[None],
                             (c > 0)[None], dt.FLOAT64)
     v, c = state
@@ -808,3 +972,29 @@ class LimitOp(Operator):
             yield ex
             if n is not None and seen >= off + n:
                 return
+
+
+class DistinctOp(Operator):
+    """SELECT DISTINCT / the dedup under COUNT(DISTINCT): one row per
+    group of the whole row, by the aggregate's group ids."""
+
+    def __init__(self, node: P.Distinct, child: Operator,
+                 max_groups: int = 65536):
+        self.node = node
+        self.child = child
+        self.schema = node.schema
+        self.max_groups = max_groups
+
+    def execute(self) -> Iterator[ExecBatch]:
+        batches = list(self.child.execute())
+        if not batches:
+            return
+        ex = _concat_batches(batches, self.schema)
+        cols = [_broadcast_full(ex.batch.columns[n], ex.padded_len)
+                for n, _ in self.schema]
+        gi = A.group_ids([c.data for c in cols], [c.validity for c in cols],
+                         ex.mask, self.max_groups)
+        if int(gi.num_groups) > self.max_groups:
+            raise EvalError("DISTINCT cardinality exceeds max_groups")
+        out = F.gather(ex.batch, gi.rep_rows, gi.num_groups)
+        yield ExecBatch(batch=out, dicts=ex.dicts, mask=out.row_mask())

@@ -726,3 +726,72 @@ def test_sql_on_the_card_matches_the_cpu(cuda):
     assert [r[:2] for r in got] == [r[:2] for r in ref]
     np.testing.assert_allclose([r[2] for r in got], [r[2] for r in ref],
                                rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("with_null", [True, False])
+def test_dense_lane_partials_on_the_card_match_the_cpu(cuda, with_null):
+    """int64 lanes and rows exact, f64 lanes within rtol 1e-12, with
+    narrow int8 codes, NULL keys, masked rows and per-lane masks."""
+    from matrixone_tpu_torch.ops import agg as A
+    n = 1 << 20
+    g = torch.Generator().manual_seed(7 + with_null)
+
+    def rnd(*shape):
+        return torch.rand(*shape, generator=g)
+    codes = [torch.randint(0, s, (n,), generator=g).to(torch.int8)
+             for s in (3, 2)]
+    valids = [rnd(n) < (0.95 if with_null else 1.0) for _ in range(2)]
+    lane_mask = rnd(n) < 0.9
+    args = (codes, valids, rnd(n) < 0.97,
+            [None, torch.randint(-10 ** 9, 10 ** 9, (n,), generator=g)],
+            [lane_mask, None],
+            [torch.randn(n, generator=g, dtype=torch.float64) * 1e3,
+             torch.randn(n, generator=g).float()],
+            [None, lane_mask])
+    kw = {"sizes": (3, 2), "with_null": with_null}
+    host = A.dense_lane_partials(*args, **kw)
+
+    def on(a):
+        if isinstance(a, (list, tuple)):
+            return [on(x) for x in a]
+        return None if a is None else a.to(cuda)
+    got = [t.cpu() for t in A.dense_lane_partials(*on(args), **kw)]
+    assert torch.equal(got[0], host[0]) and torch.equal(got[2], host[2])
+    torch.testing.assert_close(got[1], host[1], rtol=1e-12, atol=0)
+
+
+def test_tpch_on_the_card_matches_the_cpu_and_the_oracles(cuda):
+    """Q1 on the dense path (by the AggOp's counter) and Q6 at 40K
+    lineitem rows give the CPU session's rows and pass `q1_check` and
+    the integer oracle; the 22 queries of `tpch_full` at sf 0.004 equal
+    sqlite3's rows and the CPU session's."""
+    from matrixone_tpu_torch.frontend import Session
+    from matrixone_tpu_torch.storage.engine import Engine
+    from matrixone_tpu_torch.utils import metrics as M
+    from matrixone_tpu_torch.utils import tpch, tpch_full
+    eng = Engine()
+    lineitem = tpch.load_lineitem(eng, 40_000, seed=1)
+    card, host = Session(catalog=eng), Session(catalog=eng, device="cpu")
+    card.variables["batch_rows"] = host.variables["batch_rows"] = 16384
+    dense0 = M.agg_chunks.get(path="dense")
+    rows = card.execute(tpch.Q1_SQL).rows()
+    assert M.agg_chunks.get(path="dense") - dense0 == 3
+    assert tpch.q1_check(rows, tpch.q1_oracle(lineitem))
+    assert rows == host.execute(tpch.Q1_SQL).rows()
+    rows = card.execute(tpch.Q6_SQL).rows()
+    li = lineitem
+    sel = (li["l_shipdate"] >= 8766) & (li["l_shipdate"] < 9131) & \
+          (li["l_discount"] >= 5) & (li["l_discount"] <= 7) & \
+          (li["l_quantity"] < 2400)
+    rev = int((li["l_extendedprice"][sel].astype(object)
+               * li["l_discount"][sel]).sum())
+    assert abs(rows[0][0] - rev / 10000) < 1e-9
+    assert rows == host.execute(tpch.Q6_SQL).rows()
+    eng = Engine()
+    conn = tpch_full.to_sqlite(tpch_full.load_tpch(eng, sf=0.004, seed=1))
+    card, host = Session(catalog=eng), Session(catalog=eng, device="cpu")
+    for q in sorted(tpch_full.QUERIES):
+        tpch_full.run_compare(card, conn, q)
+        sql = tpch_full.QUERIES[q]
+        assert (tpch_full.normalize_rows(card.execute(sql).rows())
+                == tpch_full.normalize_rows(host.execute(sql).rows())), q
