@@ -96,6 +96,33 @@ Phases, each of which raises on failure:
        launched it with, on their own inputs, and timed at the most
        launched one.
 
+ 7. the write path: TPC-H's refresh functions (`tpch_full.rf1`, `rf2`:
+    SF x 1500 orders with their lineitems inserted, then as many
+    deleted, each as SQL text in one transaction) through
+    `Session.execute`:
+    a. on 6b's session and sqlite3 connection: RF1, the 22 each equal
+       to sqlite3 (`run_compare`, the sorted-search and segment-sum
+       launches of each counted by shape and their inputs captured),
+       RF2, the 22 again; after each, both kernels held against their
+       plain versions at every shape the 22 launched them with, on those
+       inputs (the search timed at its most launched shape); a second
+       RF1 rolled back (Q1 and Q3 unchanged); a live key inserted again
+       (DuplicateKeyError at COMMIT, nothing changed); an order RF2
+       deleted inserted again with its lineitems (accepted, Q3 equal to
+       sqlite3);
+    b. on phase 5's SF1 tables, with a second session's transaction
+       open across the refresh: RF1 and RF2 (rows written a second);
+       Q1, Q3 and Q6 exact to oracles of the refreshed arrays, each as
+       in 5b/6a (cold, counted, best of 3 warm, profiled); the open
+       transaction still reads the old Q3 and row counts, and the new
+       ones after its COMMIT; `CREATE SNAPSHOT s`, an UPDATE of 6000 v
+       rows, the float GROUP BY against an f64 sum of the updated arrays
+       (the segment sum must launch), and v joined with its snapshot
+       (3M rows a side; count and the sum of the differences exact to
+       the UPDATE; the sorted search must launch); both kernels held
+       against their plain versions at every shape 7b launched them
+       with, on its own inputs.
+
 The second-to-last line of output is the kernels' JSON record and the
 last is {"ok": true, "device": {...}}.  Without CUDA, or outside a
 checkout of the repository, it exits non-zero and prints no result.
@@ -1325,25 +1352,31 @@ def segsum_cold(torch, CK, row: dict, inputs, g: int) -> dict:
     return out
 
 
-def device_us_per_call(torch, fn, calls: int = 10) -> dict:
-    """{device activity (kernel, memset, copy): microseconds per call} of
-    `fn`, from torch.profiler over `calls` calls."""
+def device_us_per_call(torch, fn, calls: int = 10) -> tuple:
+    """({device activity (kernel, memset, copy): microseconds per call}
+    of `fn`, from torch.profiler over `calls` calls; the number of traces
+    that came back empty before it)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    out = {e.key: e.self_device_time_total / calls
-           for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA
-           and e.self_device_time_total > 0}
-    log(f"[profile] a call runs {out}")
-    if not out:
-        raise AssertionError("the profiler saw no device activity")
-    return out
+    # a trace of a few short launches has come back empty on the card
+    # once, for a cause not known: trace again before failing, and
+    # report every empty trace
+    for empty in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        out = {e.key: e.self_device_time_total / calls
+               for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0}
+        log(f"[profile] a call runs {out}")
+        if out:
+            return out, empty
+        log(f"[profile] trace {empty + 1} of {calls} calls came back empty")
+    raise AssertionError("the profiler saw no device activity in 3 traces")
 
 
 def phase_relational_edges(torch, CK, seed: int):
@@ -1607,8 +1640,9 @@ def phase_sql(torch, CK, args):
         row = dict(check_segment_sum(torch, CK, f"5c_n{n}_G{g}", *inputs,
                                      g), path="5c_group_by", path_launches=c)
         row.update(segsum_cold(torch, CK, row, inputs, g))
-        row["device_kernels"] = sorted(device_us_per_call(
-            torch, lambda: CK.segment_sum(*inputs, g)))
+        activity, row["empty_traces"] = device_us_per_call(
+            torch, lambda: CK.segment_sum(*inputs, g))
+        row["device_kernels"] = sorted(activity)
         if any("segsum" not in k for k in row["device_kernels"]):
             raise AssertionError(f"5d: one segment-sum call ran "
                                  f"{row['device_kernels']}, not only the "
@@ -1616,7 +1650,7 @@ def phase_sql(torch, CK, args):
         segsum_rows.append(row)
     del q3cap, gbcap
     torch.cuda.empty_cache()
-    return report, search_rows, segsum_rows, (session, lineitem)
+    return report, search_rows, segsum_rows, (session, lineitem, q3data, v)
 
 
 Q1_SUMS = (("sum_qty", 2), ("sum_base_price", 2), ("sum_disc_price", 4),
@@ -1716,7 +1750,7 @@ def phase_tpch(torch, CK, args, sf1) -> tuple:
     from matrixone_tpu_torch.storage.engine import Engine
     from matrixone_tpu_torch.utils import tpch, tpch_full
 
-    session, lineitem = sf1
+    session, lineitem = sf1[:2]
     n = args.sf1_lineitem
     report = {}
     q1_want = tpch.q1_oracle(lineitem)
@@ -1770,7 +1804,6 @@ def phase_tpch(torch, CK, args, sf1) -> tuple:
     t0 = time.perf_counter()
     conn = tpch_full.to_sqlite(tables)
     sqlite_s = time.perf_counter() - t0
-    del tables
     rows_of = {t: eng.get_table(t).n_rows for t in eng.tables}
     report["tpch22"] = {"sf": TPCH_SF, "load_seconds": load_s,
                         "sqlite_load_seconds": sqlite_s, "rows": rows_of,
@@ -1815,7 +1848,6 @@ def phase_tpch(torch, CK, args, sf1) -> tuple:
             f"{out['sorted_search']} segment_sum {out['segment_sum']} "
             f"busy {out['device_busy_share']:.1%} chunks "
             f"{out['agg_chunks']}")
-    conn.close()
     counts = {}
     for out in report["tpch22"]["queries"].values():
         for *shape, c in out["sorted_search_by_shape"]:
@@ -1830,9 +1862,426 @@ def phase_tpch(torch, CK, args, sf1) -> tuple:
         for (n_, m_), c in sorted(counts.items())]
     log(f"[6b] sorted search bit-identical at all {len(counts)} shapes "
         f"the 22 launched it with; timed at {top_shape}")
-    del captured, sess, eng
+    del captured
     torch.cuda.empty_cache()
-    return report, search_rows
+    return report, search_rows, (sess, conn, tables)
+
+
+def run_statements(torch, session, statements) -> tuple:
+    """-> (seconds, the last statement's `affected`, {"parse_seconds":
+    the parser alone over the same text, "commit_seconds": the last
+    statement's}) of a refresh run statement by statement through
+    `Session.execute`."""
+    from matrixone_tpu_torch.sql.parser import parse
+    t0 = time.perf_counter()
+    for sql in statements:
+        parse(sql)
+    parse_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    affected = 0
+    for sql in statements:
+        t1 = time.perf_counter()
+        affected = session.execute(sql).affected
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return t2 - t0, affected, {"parse_seconds": parse_s,
+                               "commit_seconds": t2 - t1}
+
+
+def refresh_22(torch, CK, TK, label: str, sess, conn) -> tuple:
+    """The 22 queries, each held to sqlite3 by `run_compare` on one run
+    whose sorted-search and segment-sum launches are counted by shape and
+    whose kernel inputs are captured; then both kernels held against
+    their plain versions at every shape the 22 launched them with, on
+    those inputs (the search timed at its most launched shape) ->
+    (per-query record, search rows, segment-sum rows)."""
+    from matrixone_tpu_torch.utils import tpch_full
+    path = label.replace(" ", "_").lower()
+    out, search_in, segsum_in = {}, {}, {}
+    for q in sorted(tpch_full.QUERIES):
+        CK.LAUNCHES.reset()
+        chunks0 = agg_chunks()
+        t0 = time.perf_counter()
+        with PathInputs(torch, TK) as cap:
+            tpch_full.run_compare(sess, conn, q)
+        seconds = time.perf_counter() - t0
+        for key, val in cap.search.items():
+            search_in.setdefault(key, val)
+        for key, val in cap.segsum.items():
+            segsum_in.setdefault(key, val)
+        out[q] = {"run_compare_seconds": seconds,
+                  "sorted_search": CK.LAUNCHES.get("sorted_search"),
+                  "sorted_search_by_shape": [
+                      [*k, v] for k, v in sorted(
+                          CK.LAUNCHES.shapes("sorted_search").items())],
+                  "segment_sum": CK.LAUNCHES.get("segment_sum"),
+                  "segment_sum_by_shape": [
+                      [*k, v] for k, v in sorted(
+                          CK.LAUNCHES.shapes("segment_sum").items())],
+                  "agg_chunks": {p: c - chunks0[p]
+                                 for p, c in agg_chunks().items()}}
+    joins = [q for q in out if q not in (1, 6)]
+    missing = [q for q in joins if out[q]["sorted_search"] == 0]
+    if missing:
+        raise AssertionError(f"{label}: Q{missing} launched no sorted "
+                             f"search")
+    log(f"[{label}] the 22 = sqlite3; sorted-search launches "
+        f"{ {q: r['sorted_search'] for q, r in out.items()} }; "
+        f"run_compare {sum(r['run_compare_seconds'] for r in out.values()):.2f}s"
+        f" in all")
+
+    def by_shape(kernel):
+        counts = {}
+        for r in out.values():
+            for *shape, c in r[f"{kernel}_by_shape"]:
+                counts[tuple(shape)] = counts.get(tuple(shape), 0) + c
+        return counts
+
+    counts = by_shape("sorted_search")
+    top = max(counts, key=counts.get)
+    search_rows = [dict(check_sorted_search(
+        torch, CK, f"{path}_n{n_}_m{m_}", *search_in[(n_, m_)],
+        timed=(n_, m_) == top), path=path, path_launches=c)
+        for (n_, m_), c in sorted(counts.items())]
+    segsum_rows = [dict(check_segment_sum(
+        torch, CK, f"{path}_n{n_}_G{g}", *segsum_in[(n_, g)], g),
+        path=path, path_launches=c)
+        for (n_, g), c in sorted(by_shape("segment_sum").items())]
+    log(f"[{label}] sorted search bit-identical at all {len(counts)} "
+        f"shapes the 22 launched it with, timed at {top}; segment sum "
+        f"held at {len(segsum_rows)} shapes")
+    del search_in, segsum_in
+    return out, search_rows, segsum_rows
+
+
+def phase_refresh_sf01(torch, CK, args, sf01) -> tuple:
+    """Phase 7a: TPC-H's refresh functions on 6b's session and sqlite3
+    connection, the 22 after each (both kernels held against their plain
+    versions at every shape each run of the 22 launched them with), then
+    a rollback, a duplicate key and the re-insert of a deleted key ->
+    (report, search rows, segment-sum rows)."""
+    from matrixone_tpu_torch.ops import kernels as TK
+    from matrixone_tpu_torch.storage.engine import DuplicateKeyError
+    from matrixone_tpu_torch.utils import tpch_full
+    sess, conn, tables = sf01
+    report = {}
+    rf1 = tpch_full.rf1(tables, TPCH_SF, seed=args.seed + 1)
+    rf1_s, _, _ = run_statements(torch, sess, rf1.statements)
+    t0 = time.perf_counter()
+    tpch_full.apply_sqlite(conn, rf1.statements)
+    sqlite_rf1_s = time.perf_counter() - t0
+    tables = tpch_full.apply_refresh(tables, rf1)
+    rf1_rows = sum(len(next(iter(a.values()))) for a in rf1.inserts.values())
+    report["rf1"] = {"seconds": rf1_s, "rows": rf1_rows,
+                     "statements": len(rf1.statements),
+                     "sqlite_seconds": sqlite_rf1_s}
+    log(f"[7a] RF1 at sf {TPCH_SF}: {rf1_rows} rows in "
+        f"{len(rf1.statements)} statements, {rf1_s:.3f}s "
+        f"(sqlite3 {sqlite_rf1_s:.3f}s)")
+    report["after_rf1"], search_rows, segsum_rows = refresh_22(
+        torch, CK, TK, "7a after RF1", sess, conn)
+    q1_chunks = report["after_rf1"][1]["agg_chunks"]
+    log(f"[7a] Q1 after RF1: aggregate chunks {q1_chunks} over "
+        f"{len(sess.catalog.get_table('lineitem').segments)} segments")
+    rf2 = tpch_full.rf2(tables, TPCH_SF, seed=args.seed + 2)
+    rf2_s, rf2_rows, _ = run_statements(torch, sess, rf2.statements)
+    t0 = time.perf_counter()
+    tpch_full.apply_sqlite(conn, rf2.statements)
+    sqlite_rf2_s = time.perf_counter() - t0
+    before_rf2 = tables
+    tables = tpch_full.apply_refresh(tables, rf2)
+    want = sum(len(before_rf2[t][c]) - len(tables[t][c]) for t, c in
+               (("orders", "o_orderkey"), ("lineitem", "l_orderkey")))
+    if rf2_rows != want:
+        raise AssertionError(f"7a RF2 deleted {rf2_rows} rows, not {want}")
+    report["rf2"] = {"seconds": rf2_s, "rows": rf2_rows,
+                     "statements": len(rf2.statements),
+                     "sqlite_seconds": sqlite_rf2_s}
+    log(f"[7a] RF2: {rf2_rows} rows deleted in {len(rf2.statements)} "
+        f"statements, {rf2_s:.3f}s (sqlite3 {sqlite_rf2_s:.3f}s)")
+    report["after_rf2"], search2, segsum2 = refresh_22(
+        torch, CK, TK, "7a after RF2", sess, conn)
+    search_rows += search2
+    segsum_rows += segsum2
+
+    q1, q3 = tpch_full.QUERIES[1], tpch_full.QUERIES[3]
+    held = (sess.execute(q1).rows(), sess.execute(q3).rows())
+    # a second RF1 batch with fresh keys, rolled back
+    again = tpch_full.rf1(tables, TPCH_SF, seed=args.seed + 3)
+    for sql in again.statements[:-1]:
+        sess.execute(sql)
+    sess.execute("rollback")
+    if (sess.execute(q1).rows(), sess.execute(q3).rows()) != held:
+        raise AssertionError("7a: a rolled-back RF1 changed Q1 or Q3")
+    # a live key inserted again: DuplicateKeyError at COMMIT, no change
+    live = tpch_full.insert_orders(tables, tables["orders"]["o_orderkey"][:1])
+    for sql in live.statements[:-1]:
+        sess.execute(sql)
+    try:
+        sess.execute("commit")
+    except DuplicateKeyError as e:
+        dup = str(e)
+    else:
+        raise AssertionError("7a: re-inserting a live order committed")
+    if (sess.execute(q1).rows(), sess.execute(q3).rows()) != held:
+        raise AssertionError("7a: a refused commit changed Q1 or Q3")
+    # an order RF2 deleted, inserted again with its lineitems
+    back = tpch_full.insert_orders(before_rf2, rf2.delete_keys[:1])
+    for sql in back.statements:
+        sess.execute(sql)
+    tpch_full.apply_sqlite(conn, back.statements)
+    tpch_full.run_compare(sess, conn, 3)
+    report["checks"] = {"rollback": "Q1, Q3 unchanged",
+                        "duplicate_key": dup,
+                        "reinsert": f"order {int(rf2.delete_keys[0])} "
+                                    f"and its lineitems, Q3 = sqlite3"}
+    log(f"[7a] rollback: Q1 and Q3 unchanged; duplicate key at COMMIT "
+        f"({dup}), nothing changed; order {int(rf2.delete_keys[0])} "
+        f"re-inserted after RF2, Q3 = sqlite3")
+    conn.close()
+    torch.cuda.empty_cache()
+    return report, search_rows, segsum_rows
+
+
+#: phase 7b's self-join of v with its snapshot: both sides filtered to
+#: 3,000,000 rows, below the join's build budget of 2^22 rows
+SNAPSHOT_JOIN_SQL = (
+    "select count(*), sum(cur.xn - old.xn) from v cur join v as of "
+    "snapshot 's' old on cur.id = old.id where cur.grp < 500 and "
+    "old.grp < 500")
+UPDATE_SQL = "update v set xn = xn + 1 where grp = 7"
+
+
+#: the lineitem columns Q1 scans
+Q1_COLUMNS = ["l_returnflag", "l_linestatus", "l_quantity",
+              "l_extendedprice", "l_discount", "l_tax", "l_shipdate"]
+
+
+def scan_split(torch, session, views) -> dict:
+    """What a refresh costs the scan, taken apart: for each view of
+    `views` ({label: (snapshot ts, lineitem rows there)}), Q1 through
+    `AS OF TIMESTAMP` (best of 3 warm seconds) and the engine's
+    `iter_chunks` alone over Q1's columns (its chunks and the best of 2
+    host seconds: the slicing, and the copies through keep masks where
+    rows are dead) -> {label: record}.  Each view's row count is held
+    to `count(*)` at its timestamp."""
+    from matrixone_tpu_torch.utils import tpch
+    table = session.catalog.get_table("lineitem")
+    batch_rows = int(session.variables.get("batch_rows", 1 << 20))
+    out = {}
+    for label, (ts, n_rows) in views.items():
+        at = f"from lineitem as of timestamp {ts}"
+        got = session.execute(f"select count(*) {at}").rows()[0][0]
+        if got != n_rows:
+            raise AssertionError(f"7b {label}: {got} lineitem rows at ts "
+                                 f"{ts}, not {n_rows}")
+        sql = tpch.Q1_SQL.replace("from lineitem", at)
+        run_sql(torch, session, sql)
+        warm = [run_sql(torch, session, sql)[2] for _ in range(3)]
+        scans = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            chunks = sum(1 for _ in table.iter_chunks(
+                Q1_COLUMNS, batch_rows, snapshot_ts=ts))
+            scans.append(time.perf_counter() - t0)
+        out[label] = {"rows": n_rows, "q1_warm_seconds_best": min(warm),
+                      "iter_chunks_seconds_best": min(scans),
+                      "chunks": chunks}
+        log(f"[7b] Q1 {label} ({n_rows} rows, {chunks} chunks): warm "
+            f"{min(warm):.4f}s, iter_chunks alone {min(scans):.4f}s")
+    return out
+
+
+def phase_refresh_sf1(torch, CK, args, sf1) -> tuple:
+    """Phase 7b: RF1 and RF2 at scale factor 1 on phase 5's tables with a
+    snapshot reader open across them; Q1, Q3 and Q6 against oracles of
+    the refreshed arrays; an UPDATE under a named snapshot, the float
+    GROUP BY after it, and v joined with its own snapshot."""
+    from matrixone_tpu_torch.frontend import Session
+    from matrixone_tpu_torch.ops import kernels as TK
+    from matrixone_tpu_torch.utils import tpch, tpch_full
+
+    session, lineitem, q3data, v = sf1
+    eng = session.catalog
+    n = args.sf1_lineitem
+    report = {}
+    q3_pre = session.execute(tpch.Q3_SQL).rows()
+    reader = Session(catalog=eng, device="cuda")
+    reader.execute("begin")
+    tables = {"lineitem": lineitem, "orders": q3data["orders"]}
+    rf1 = tpch_full.rf1(tables, 1.0, seed=args.seed + 4, q3data=q3data)
+    ts_before = eng.committed_ts
+    rf1_s, _, rf1_parts = run_statements(torch, session, rf1.statements)
+    ts_rf1 = eng.committed_ts
+    tables = tpch_full.apply_refresh(tables, rf1)
+    rf1_rows = sum(len(next(iter(a.values()))) for a in rf1.inserts.values())
+    rf2 = tpch_full.rf2(tables, 1.0, seed=args.seed + 5)
+    rf2_s, rf2_rows, rf2_parts = run_statements(torch, session,
+                                                rf2.statements)
+    after = tpch_full.apply_refresh(tables, rf2)
+    want = sum(len(tables[t][c]) - len(after[t][c]) for t, c in
+               (("orders", "o_orderkey"), ("lineitem", "l_orderkey")))
+    if rf2_rows != want:
+        raise AssertionError(f"7b RF2 deleted {rf2_rows} rows, not {want}")
+    lineitem2 = after["lineitem"]
+    q3data2 = dict(q3data, orders=after["orders"])
+    report["rf1"] = {"seconds": rf1_s, "rows": rf1_rows,
+                     "rows_per_sec": rf1_rows / rf1_s,
+                     "statements": len(rf1.statements), **rf1_parts}
+    report["rf2"] = {"seconds": rf2_s, "rows": rf2_rows,
+                     "rows_per_sec": rf2_rows / rf2_s,
+                     "statements": len(rf2.statements), **rf2_parts}
+    for rf in ("rf1", "rf2"):
+        r = report[rf]
+        log(f"[7b] {rf.upper()} at SF1: {r['rows']} rows in "
+            f"{r['seconds']:.3f}s ({r['rows_per_sec']:.0f} rows/s); the "
+            f"parser alone {r['parse_seconds']:.3f}s, the COMMIT "
+            f"{r['commit_seconds']:.3f}s")
+
+    q1_want = tpch.q1_oracle(lineitem2)
+
+    def check_q1(_rows, batch):
+        bad = q1_exact(batch, q1_want)
+        if bad:
+            raise AssertionError(f"7b Q1 differs from q1_oracle: {bad[:4]}")
+
+    report["q1"], _ = sql_path(torch, CK, TK, "7b Q1", session,
+                               tpch.Q1_SQL, n, check_q1)
+    oracle = tpch.q3_oracle(lineitem2, q3data2)
+    epoch = __import__("datetime").date(1970, 1, 1)
+
+    def q3_key(rows):
+        return [(r[0], round(r[1] * 10000), (r[2] - epoch).days)
+                for r in rows]
+
+    def check_q3(rows, _batch):
+        if q3_key(rows) != oracle:
+            raise AssertionError(f"7b Q3 rows differ from q3_oracle: "
+                                 f"{q3_key(rows)[:3]} vs {oracle[:3]}")
+
+    report["q3"], q3cap = sql_path(torch, CK, TK, "7b Q3", session,
+                                   tpch.Q3_SQL, n, check_q3,
+                                   "sorted_search")
+    li = lineitem2
+    sel = ((li["l_shipdate"] >= 8766) & (li["l_shipdate"] < 9131)
+           & (li["l_discount"] >= 5) & (li["l_discount"] <= 7)
+           & (li["l_quantity"] < 2400))
+    q6_rev = int((li["l_extendedprice"][sel].astype(object)
+                  * li["l_discount"][sel]).sum())
+
+    def check_q6(rows, _batch):
+        if len(rows) != 1 or abs(rows[0][0] - q6_rev / 10000) >= 1e-9:
+            raise AssertionError(f"7b Q6 {rows} differs from the integer "
+                                 f"oracle {q6_rev / 10000}")
+
+    report["q6"], _ = sql_path(torch, CK, TK, "7b Q6", session,
+                               tpch.Q6_SQL, n, check_q6)
+    report["scan_split"] = scan_split(torch, session, {
+        "before the refresh": (ts_before, n),
+        "after RF1 (its segments, no tombstones)":
+            (ts_rf1, len(tables["lineitem"]["l_orderkey"])),
+        "after RF2 (its tombstones too)":
+            (eng.committed_ts, len(lineitem2["l_orderkey"]))})
+    # the reader's view: Q3 (whose top 10 a refresh of 0.1% of the
+    # orders may leave as it was) and the two tables' row counts (which
+    # it changes), before and after its COMMIT
+    q3_post = session.execute(tpch.Q3_SQL).rows()
+    counts = ("select (select count(*) from lineitem), "
+              "(select count(*) from orders)")
+    pre = (q3_pre, [(len(lineitem["l_orderkey"]),
+                     len(q3data["orders"]["o_orderkey"]))])
+    post = (q3_post, [(len(lineitem2["l_orderkey"]),
+                       len(q3data2["orders"]["o_orderkey"]))])
+    if pre[1] == post[1]:
+        raise AssertionError("7b: the refresh changed no row count")
+    seen = (reader.execute(tpch.Q3_SQL).rows(),
+            reader.execute(counts).rows())
+    if seen != pre:
+        raise AssertionError(f"7b: the snapshot reader saw the refresh: "
+                             f"{seen[1]} rows, not {pre[1]}")
+    reader.execute("commit")
+    seen = (reader.execute(tpch.Q3_SQL).rows(),
+            reader.execute(counts).rows())
+    if seen != post or session.execute(counts).rows() != post[1]:
+        raise AssertionError(f"7b: after COMMIT the reader sees {seen[1]} "
+                             f"rows, not the refreshed {post[1]}")
+    report["snapshot_reader"] = {"rows_before": pre[1][0],
+                                 "rows_after": post[1][0],
+                                 "q3_changed": q3_post != q3_pre}
+    log(f"[7b] Q1, Q3, Q6 exact to the refreshed oracles; the snapshot "
+        f"reader saw the pre-refresh Q3 and row counts {pre[1][0]} until "
+        f"its COMMIT, then {post[1][0]} (Q3's top 10 changed: "
+        f"{q3_post != q3_pre})")
+
+    session.execute("create snapshot s")
+    t0 = time.perf_counter()
+    upd = session.execute(UPDATE_SQL).affected
+    torch.cuda.synchronize()
+    upd_s = time.perf_counter() - t0
+    grp = v["grp"]
+    if upd != int((grp == 7).sum()):
+        raise AssertionError(f"7b UPDATE changed {upd} rows")
+    xn2 = v["xn"].copy()
+    xn2[grp == 7] += np.float32(1)
+    xi_exact = np.bincount(grp, weights=v["xi"].astype(np.int64),
+                           minlength=1000)
+    xn_f64 = np.bincount(grp, weights=xn2.astype(np.float64),
+                         minlength=1000)
+    gb_err = {}
+
+    def check_group_by(rows, _batch):
+        if [r[0] for r in rows] != list(range(1000)):
+            raise AssertionError("7b GROUP BY: wrong groups")
+        if [r[1] for r in rows] != xi_exact.tolist():
+            raise AssertionError("7b sum(xi) is not the exact integer sum")
+        err = np.abs(np.asarray([r[2] for r in rows], np.float64) - xn_f64)
+        gb_err["sum_xn_max_abs_err"] = float(err.max())
+        if (err > 1e-4 * np.abs(xn_f64) + 1e-3).any():
+            raise AssertionError(f"7b sum(xn) max err {err.max()} past "
+                                 f"rtol 1e-4 / atol 1e-3")
+
+    report["update"] = {"seconds": upd_s, "rows": upd}
+    log(f"[7b] UPDATE v: {upd} rows in {upd_s:.3f}s")
+    report["group_by"], gbcap = sql_path(
+        torch, CK, TK, "7b GROUP BY", session, GROUP_BY_SQL, n,
+        check_group_by, "segment_sum")
+    report["group_by"].update(gb_err)
+
+    half = int((grp < 500).sum())
+
+    def check_join(rows, _batch):
+        cnt, diff = rows[0]
+        if cnt != half or abs(diff - upd) > 1e-4 * upd + 1e-3:
+            raise AssertionError(f"7b snapshot join: count {cnt}, sum "
+                                 f"{diff}; want {half} and {upd}")
+        report["snapshot_join_sum"] = diff
+
+    report["snapshot_join"], joincap = sql_path(
+        torch, CK, TK, "7b snapshot join", session, SNAPSHOT_JOIN_SQL,
+        2 * n, check_join, "sorted_search")
+    log(f"[7b] v joined with snapshot 's': {half} rows, sum of the "
+        f"differences {report['snapshot_join_sum']!r} (want {upd})")
+
+    search_rows = []
+    for label, rec, cap in (("7b_q3", report["q3"], q3cap),
+                            ("7b_snapshot_join", report["snapshot_join"],
+                             joincap)):
+        counts = {tuple(r[:-1]): r[-1] for r in
+                  rec["launches"]["sorted_search"]["by_shape"]}
+        top = max(counts, key=counts.get)
+        search_rows += [dict(check_sorted_search(
+            torch, CK, f"{label}_n{n_}_m{m_}", *cap.search[(n_, m_)],
+            timed=(n_, m_) == top), path=label, path_launches=c)
+            for (n_, m_), c in sorted(counts.items())]
+    counts = {tuple(r[:-1]): r[-1] for r in
+              report["group_by"]["launches"]["segment_sum"]["by_shape"]}
+    segsum_rows = [dict(check_segment_sum(torch, CK, f"7b_n{n_}_G{g}",
+                                          *gbcap.segsum[(n_, g)], g),
+                        path="7b_group_by_after_update", path_launches=c)
+                   for (n_, g), c in sorted(counts.items())]
+    del q3cap, gbcap, joincap
+    torch.cuda.empty_cache()
+    return report, search_rows, segsum_rows
 
 
 GROUP_BY_SQL = ("select grp, sum(xi), sum(xn) from v group by grp "
@@ -1894,10 +2343,19 @@ def main(argv=None) -> int:
     report["ivf_pq"], pq_rows, pq_adc_rows = phase_pq(torch, CK, args, ctx)
     report["sql"], search_path, segsum_path, sf1 = phase_sql(torch, CK,
                                                              args)
-    report["tpch"], tpch_search = phase_tpch(torch, CK, args, sf1)
+    report["tpch"], tpch_search, sf01 = phase_tpch(torch, CK, args, sf1)
+    t0 = time.perf_counter()
+    rf01_report, rf01_search, rf01_segsum = phase_refresh_sf01(
+        torch, CK, args, sf01)
+    report["refresh"] = {"sf01": rf01_report}
+    del sf01
+    report["refresh"]["sf1"], refresh_search, refresh_segsum = \
+        phase_refresh_sf1(torch, CK, args, sf1)
+    report["refresh"]["seconds"] = time.perf_counter() - t0
+    log(f"[7] phase 7 took {report['refresh']['seconds']:.1f}s")
     del sf1
-    search_rows += search_path + tpch_search
-    segsum_rows += segsum_path
+    search_rows += search_path + tpch_search + rf01_search + refresh_search
+    segsum_rows += segsum_path + rf01_segsum + refresh_segsum
     rows += path_rows + pq_rows
     adc_rows += pq_adc_rows
     pq_build = report["ivf_pq"]["build_launches"]
@@ -1920,6 +2378,16 @@ def main(argv=None) -> int:
     sql_launches.update({f"6a_{k}": report["tpch"][k]["launches"]
                          for k in ("q1", "q6")})
     tpch22 = report["tpch"]["tpch22"]["queries"]
+    rf01, rf1 = report["refresh"]["sf01"], report["refresh"]["sf1"]
+    refresh_launches = {
+        kernel: {"7a_after_rf1": sum(r[kernel] for r in
+                                     rf01["after_rf1"].values()),
+                 "7a_after_rf2": sum(r[kernel] for r in
+                                     rf01["after_rf2"].values()),
+                 **{f"7b_{k}": rf1[k]["launches"][kernel]["launches"]
+                    for k in ("q1", "q3", "q6", "group_by",
+                              "snapshot_join")}}
+        for kernel in ("sorted_search", "segment_sum")}
     record = {"kernels": [{
         "name": "l2_distance_sq", "route": "cuda",
         "source": "matrixone_tpu_torch/csrc/l2_distance.cu",
@@ -1970,7 +2438,8 @@ def main(argv=None) -> int:
         "launches_by_path": {
             **{p: v["sorted_search"]["launches"]
                for p, v in sql_launches.items()},
-            **{f"6b_q{q}": v["sorted_search"] for q, v in tpch22.items()}},
+            **{f"6b_q{q}": v["sorted_search"] for q, v in tpch22.items()},
+            **refresh_launches["sorted_search"]},
         "max_abs_err": max(r["max_abs_err"] for r in search_rows),
         **{key: search_row[key] for key in timed},
         "library_call": "torch.searchsorted on pre-flipped int64",
@@ -1982,12 +2451,13 @@ def main(argv=None) -> int:
         "launches_by_path": {
             **{p: v["segment_sum"]["launches"]
                for p, v in sql_launches.items()},
-            **{f"6b_q{q}": v["segment_sum"] for q, v in tpch22.items()}},
+            **{f"6b_q{q}": v["segment_sum"] for q, v in tpch22.items()},
+            **refresh_launches["segment_sum"]},
         "max_abs_err": max(r["max_abs_err"] for r in segsum_rows),
         **{key: segsum_row[key] for key in timed},
         **{key: segsum_row[key] for key in (
             "ms_l2_cold", "l2_cold_sets", "bound_share",
-            "bound_share_l2_cold", "device_kernels")},
+            "bound_share_l2_cold", "device_kernels", "empty_traces")},
         "segment_sum_walk": report["sql"]["group_by"]["segment_sum_walk"],
         "library_call": "index_add_ into G + 1 slots",
         "shapes": segsum_rows}]}

@@ -35,6 +35,13 @@ class Batch:
     def schema(self) -> Dict[str, DType]:
         return {n: v.dtype for n, v in self.columns.items()}
 
+    @classmethod
+    def from_pydict(cls, data: Dict[str, list],
+                    schema: Dict[str, DType]) -> "Batch":
+        """Python values (None for NULL) -> Vectors of `schema`'s types."""
+        return cls({n: Vector.from_values(data[n], schema[n])
+                    for n in schema})
+
 
 def from_device(dbatch: dev.DeviceBatch, dicts: Optional[HostDicts] = None,
                 schema: Optional[Dict[str, DType]] = None) -> Batch:

@@ -11,9 +11,12 @@ made them.
 
 `tables_to_numpy` reads the tables of an engine (the JAX package's or
 the port's: it only reads attributes) as plain schemas, numpy segments
-and dictionaries; `tables_from_numpy` commits them into a port engine,
-segment for segment and code for code, so both engines hold the same
-rows in the same order.
+with their commit timestamps and global row ids, tombstones,
+dictionaries, counters and the engine's named snapshots;
+`tables_from_numpy` places them in a port engine as they are, segment
+for segment and code for code, so both engines hold the same rows in
+the same order and give the same view at every timestamp (`AS OF`
+reads included).
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ import numpy as np
 import torch
 
 from matrixone_tpu_torch import resolve_device
-from matrixone_tpu_torch.storage.engine import (Engine, TableMeta,
+from matrixone_tpu_torch.storage.engine import (Engine, Segment, TableMeta,
                                                 schema_from_json,
                                                 schema_to_json)
 from matrixone_tpu_torch.vectorindex.ivf_flat import IvfFlatIndex
@@ -65,39 +68,75 @@ def ivf_pq_from_numpy(fields: dict, device=None) -> IvfPqIndex:
 
 
 def tables_to_numpy(engine) -> dict:
-    """{table: {"schema", "primary_key", "not_null", "segments",
-    "dicts"}} of every table of `engine`: the schema as `schema_to_json`
-    rows, each committed segment as (arrays, validity) numpy dicts
-    (varchar columns as dictionary codes), and each varchar column's
-    dictionary."""
+    """{table: {"schema", "primary_key", "not_null", "auto_increment",
+    "segments", "tombstones", "dicts", "next_gid", "next_seg",
+    "next_auto", "last_commit_ts", "committed_ts", "snapshots"}} of
+    every table of `engine`: the schema as `schema_to_json` rows, each
+    committed segment as a dict of its `seg_id`, `commit_ts`,
+    `base_gid` and (arrays, validity) numpy dicts (varchar columns as
+    dictionary codes), each tombstone as (commit_ts, gids), each
+    varchar column's dictionary, and the engine's frontier and named
+    snapshots."""
     out = {}
     for name, t in engine.tables.items():
+        if getattr(t, "fences", None):
+            raise NotImplementedError(
+                f"table {name!r} has merge fences: merges are not ported "
+                f"yet (ROADMAP.md, section A)")
         out[name] = {
             "schema": schema_to_json(t.meta.schema),
             "primary_key": list(t.meta.primary_key),
             "not_null": list(t.meta.not_null),
-            "segments": [({c: np.asarray(a) for c, a in seg.arrays.items()},
-                          {c: np.asarray(v) for c, v in seg.validity.items()})
-                         for seg in t.segments],
-            "dicts": {c: list(d) for c, d in t.dicts.items()}}
+            "auto_increment": getattr(t.meta, "auto_increment", None),
+            "segments": [{
+                "seg_id": seg.seg_id, "commit_ts": seg.commit_ts,
+                "base_gid": seg.base_gid,
+                "arrays": {c: np.asarray(a) for c, a in seg.arrays.items()},
+                "validity": {c: np.asarray(v)
+                             for c, v in seg.validity.items()}}
+                for seg in t.segments],
+            "tombstones": [(int(ts), np.asarray(g, np.int64))
+                           for ts, g in t.tombstones],
+            "dicts": {c: list(d) for c, d in t.dicts.items()},
+            "next_gid": t.next_gid, "next_seg": t.next_seg,
+            "next_auto": getattr(t, "next_auto", 1),
+            "last_commit_ts": t.last_commit_ts,
+            "committed_ts": engine.committed_ts,
+            "snapshots": dict(getattr(engine, "snapshots", {}))}
     return out
 
 
 def tables_from_numpy(tables: dict, engine=None) -> Engine:
-    """Create and load `tables` (as `tables_to_numpy` gives them) in
-    `engine` (a new port engine when None): one commit per segment, the
-    dictionaries taken over as they are, so every code keeps its
-    string."""
+    """Create `tables` (as `tables_to_numpy` gives them) in `engine` (a
+    new port engine when None) and place their segments, tombstones,
+    dictionaries and counters as they are; the engine's clock and read
+    frontier move past every timestamp carried, and the named
+    snapshots are taken over."""
     engine = engine if engine is not None else Engine()
     for name, f in tables.items():
-        engine.create_table(TableMeta(name, schema_from_json(f["schema"]),
-                                      list(f["primary_key"]),
-                                      not_null=list(f["not_null"])))
+        engine.create_table(TableMeta(
+            name, schema_from_json(f["schema"]), list(f["primary_key"]),
+            auto_increment=f["auto_increment"],
+            not_null=list(f["not_null"])))
         t = engine.get_table(name)
         for col, d in f["dicts"].items():
             t.encode_strings_list(col, list(d))
-        for arrays, validity in f["segments"]:
-            engine.commit_write(
-                name, {c: np.array(a) for c, a in arrays.items()},
-                {c: np.array(v, np.bool_) for c, v in validity.items()})
+        for seg in f["segments"]:
+            arrays = {c: np.array(a) for c, a in seg["arrays"].items()}
+            t.apply_segment(Segment(
+                seg_id=seg["seg_id"], commit_ts=seg["commit_ts"],
+                arrays=arrays,
+                validity={c: np.array(v, np.bool_)
+                          for c, v in seg["validity"].items()},
+                n_rows=len(next(iter(arrays.values()))),
+                base_gid=seg["base_gid"]))
+        for ts, gids in f["tombstones"]:
+            t.apply_tombstones(ts, np.array(gids, np.int64))
+        t.next_gid, t.next_seg = f["next_gid"], f["next_seg"]
+        t.next_auto = f["next_auto"]
+        t.last_commit_ts = max(t.last_commit_ts, f["last_commit_ts"])
+        engine.snapshots.update(f["snapshots"])
+        engine.hlc.update(max([f["committed_ts"]]
+                              + list(f["snapshots"].values())))
+        engine.committed_ts = max(engine.committed_ts, f["committed_ts"])
     return engine

@@ -1,20 +1,31 @@
-"""Session: SQL text in, result batches out — the SELECT subset.
+"""Session: SQL text in, result batches out.
 
-The port of the SELECT pipeline of `matrixone_tpu/frontend/session.py`
-(reference analogue: the frontend's doComQuery -> buildPlan -> Compile
--> Run chain):
+The port of `matrixone_tpu/frontend/session.py` (reference analogue: the
+frontend's doComQuery -> buildPlan -> Compile -> Run chain).  A SELECT
+goes
 
     parse -> _prepare_select (decorrelate, inline uncorrelated
     subqueries) -> Binder.bind_statement -> cost-based join reordering
     -> index rewrites -> compile_plan -> pull loop on the device ->
     host Batch
 
-without the result and plan caches, transactions, admission control,
-tracing or `mo_ctl`.  Any statement other than SELECT (and UNION, which
-the executor does not run yet) raises NotImplementedError: tables are
-created and loaded through the engine (`create_table` + `insert_numpy`,
-as `utils/tpch.py` does).  The session runs on `device` (CUDA unless the
-caller names the CPU); every scan uploads its chunks there.
+DDL, DML and transaction control run against the engine: CREATE/DROP
+TABLE, INSERT (VALUES or SELECT, AUTO_INCREMENT and LAST_INSERT_ID()),
+UPDATE and DELETE (a plan that returns each target row's `__rowid`,
+run on the session's device, then a delete of those rows and, for an
+UPDATE, an insert of the new rows in one commit), BEGIN/COMMIT/ROLLBACK
+over the MVCC engine (snapshot isolation, a transaction's workspace,
+first-committer-wins; `set txn_mode = 'pessimistic'` takes row locks
+through the lock service), SET/SHOW VARIABLES, SHOW TABLES/CREATE
+TABLE/COLUMNS, CREATE/DROP/SHOW SNAPSHOT, RESTORE TABLE and EXPLAIN of a
+SELECT.
+
+Not ported yet (ROADMAP.md, section A): the result and plan caches,
+admission control, tracing, `mo_ctl`, the fault hooks, and every other
+statement (UNION, LOAD DATA, indexes, partitions, materialized views,
+UDFs, accounts ...), which raises NotImplementedError.  The session runs
+on `device` (CUDA unless the caller names the CPU); every scan uploads
+its chunks there.
 """
 
 from __future__ import annotations
@@ -22,20 +33,30 @@ from __future__ import annotations
 import contextvars
 import dataclasses
 import datetime
+import re
+import types
 from typing import List, Optional
 
+import numpy as np
+
 from matrixone_tpu_torch import resolve_device
-from matrixone_tpu_torch.container import Batch, Vector, from_device
+from matrixone_tpu_torch.container import Batch, Vector, dtypes as dt, \
+    from_device
+from matrixone_tpu_torch.container.dtypes import TypeOid
 from matrixone_tpu_torch.ops import filter as F
-from matrixone_tpu_torch.sql import ast
-from matrixone_tpu_torch.sql.binder import Binder, BindError
+from matrixone_tpu_torch.sql import ast, plan as P
+from matrixone_tpu_torch.sql.binder import Binder, BindError, Scope, \
+    type_from_name
+from matrixone_tpu_torch.sql.expr import BoundCol
 from matrixone_tpu_torch.sql.parser import parse, parse_one
-from matrixone_tpu_torch.storage.engine import Engine
+from matrixone_tpu_torch.storage.engine import ROWID, Engine, TableMeta
+from matrixone_tpu_torch.txn.client import TxnClient
 from matrixone_tpu_torch.vm.compile import compile_plan
 from matrixone_tpu_torch.vm.process import ExecContext
 
 #: the session currently executing a statement on this thread — info
-#: functions (connection_id()/user()/...) resolve against it at bind time
+#: functions (connection_id()/user()/last_insert_id()/...) resolve
+#: against it at bind time
 _CURRENT_SESSION: contextvars.ContextVar = contextvars.ContextVar(
     "mo_torch_current_session", default=None)
 
@@ -46,7 +67,9 @@ def current_session():
 
 @dataclasses.dataclass
 class Result:
-    batch: Optional[Batch] = None        # SELECT results
+    batch: Optional[Batch] = None        # SELECT and SHOW results
+    affected: int = 0                    # DML row count
+    text: Optional[str] = None           # EXPLAIN output
 
     def rows(self) -> List[tuple]:
         if self.batch is None:
@@ -60,32 +83,50 @@ class Result:
         return list(self.batch.columns) if self.batch is not None else []
 
 
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP.md, section A)")
+
+
 class Session:
-    """One client session: a catalog, a device and session variables."""
+    """One client session: a catalog, a device, session variables and
+    the open explicit transaction, if any."""
 
     def __init__(self, catalog: Optional[Engine] = None, device=None):
         self.catalog = catalog if catalog is not None else Engine()
         self.device = resolve_device(device)
+        self.txn_client = TxnClient(self.catalog)
+        self.txn = None                 # active explicit transaction
+        self.last_insert_id = 0         # MySQL LAST_INSERT_ID()
         self.variables = {"batch_rows": 1 << 20}
 
-    def _ctx(self) -> ExecContext:
-        return ExecContext(catalog=self.catalog, variables=self.variables,
-                           frozen_ts=self.catalog.committed_ts,
+    def _ctx(self, frozen_ts: Optional[int] = None) -> ExecContext:
+        if frozen_ts is None and self.txn is None:
+            frozen_ts = self.catalog.committed_ts
+        return ExecContext(catalog=self.catalog, txn=self.txn,
+                           variables=self.variables,
+                           frozen_ts=(None if self.txn is not None
+                                      else frozen_ts),
                            device=self.device)
+
+    def _index_skip_tables(self) -> frozenset:
+        """Index rewrites serve only frontier (autocommit) reads: an open
+        txn reads an older snapshot + workspace that a frontier-built
+        index cannot realize."""
+        if self.txn is not None:
+            return frozenset(self.catalog.tables)
+        return frozenset()
 
     # ------------------------------------------------------------ execute
     def execute(self, sql: str) -> Result:
         stmts = parse(sql)
         tok = _CURRENT_SESSION.set(self)
         try:
-            result = Result()
+            results = []
             for st in stmts:
-                if not isinstance(st, ast.Select):
-                    raise NotImplementedError(
-                        f"{type(st).__name__} statements are not ported "
-                        f"yet: only SELECT runs (ROADMAP.md, section A)")
-                result = self._select(st)
-            return result
+                self._liid_set = False     # last_insert_id(): per statement
+                results.append(self._execute_stmt(st))
+            return results[-1] if results else Result()
         finally:
             _CURRENT_SESSION.reset(tok)
 
@@ -93,6 +134,101 @@ class Session:
         """The bound, cost-optimized and index-rewritten plan of one
         SELECT: the tree `execute` compiles (EXPLAIN's tree)."""
         return self.plan_select(parse_one(sql))
+
+    def _execute_stmt(self, stmt: ast.Node) -> Result:
+        if isinstance(stmt, ast.Select):
+            return self._select(stmt)
+        if isinstance(stmt, ast.CreateTable):
+            return self._create_table(stmt)
+        if isinstance(stmt, ast.DropTable):
+            self.catalog.drop_table(stmt.name, stmt.if_exists)
+            return Result()
+        if isinstance(stmt, ast.Insert):
+            return self._insert(stmt)
+        if isinstance(stmt, ast.Delete):
+            return self._delete(stmt)
+        if isinstance(stmt, ast.Update):
+            return self._update(stmt)
+        if isinstance(stmt, ast.Explain):
+            if not isinstance(stmt.stmt, ast.Select):
+                raise BindError("EXPLAIN supports SELECT only for now")
+            if stmt.analyze:
+                raise _not_ported("EXPLAIN ANALYZE")
+            return Result(text=P.explain(self.plan_select(stmt.stmt)))
+        if isinstance(stmt, ast.ShowTables):
+            return _show({"Tables": sorted(self.catalog.tables)})
+        if isinstance(stmt, ast.ShowCreateTable):
+            t = self.catalog.get_table(stmt.name)
+            cols = []
+            for c, d in t.meta.schema:
+                extra = (" auto_increment" if c == t.meta.auto_increment
+                         else "")
+                cols.append(f"  `{c}` {d}{extra}")
+            if t.meta.primary_key:
+                cols.append("  primary key ("
+                            + ", ".join(t.meta.primary_key) + ")")
+            ddl = (f"create table `{stmt.name}` (\n" + ",\n".join(cols)
+                   + "\n)")
+            return _show({"Table": [stmt.name], "Create Table": [ddl]},
+                         {"Create Table": dt.TEXT})
+        if isinstance(stmt, ast.ShowColumns):
+            t = self.catalog.get_table(stmt.name)
+            return _show({"Field": [c for c, _ in t.meta.schema],
+                          "Type": [str(d) for _, d in t.meta.schema],
+                          "Key": ["PRI" if c in t.meta.primary_key else ""
+                                  for c, _ in t.meta.schema]})
+        if isinstance(stmt, ast.ShowVariables):
+            names = sorted(self.variables)
+            if stmt.like:
+                # SQL LIKE: only % and _ are wildcards; everything
+                # else (incl. regex/fnmatch metachars) is literal
+                pat = "".join(".*" if ch == "%" else "." if ch == "_"
+                              else re.escape(ch) for ch in stmt.like)
+                rx = re.compile(f"^{pat}$")
+                names = [n for n in names if rx.match(n)]
+            return _show({"Variable_name": names,
+                          "Value": [str(self.variables[n]) for n in names]})
+        if isinstance(stmt, ast.SetVariable):
+            if stmt.name in ("fault_point", "fault_point_clear"):
+                raise _not_ported("fault injection (SET fault_point)")
+            if isinstance(stmt.value, ast.Literal):
+                self.variables[stmt.name] = stmt.value.value
+            return Result()
+        if isinstance(stmt, ast.CreateSnapshot):
+            self.catalog.create_snapshot(stmt.name)
+            return Result()
+        if isinstance(stmt, ast.DropSnapshot):
+            self.catalog.drop_snapshot(stmt.name)
+            return Result()
+        if isinstance(stmt, ast.ShowSnapshots):
+            names = sorted(self.catalog.snapshots)
+            return _show({"Snapshot": names,
+                          "Timestamp": [self.catalog.snapshots[n]
+                                        for n in names]},
+                         {"Timestamp": dt.INT64})
+        if isinstance(stmt, ast.RestoreTable):
+            snaps = self.catalog.snapshots
+            if stmt.snapshot not in snaps:
+                raise BindError(f"no such snapshot {stmt.snapshot!r}")
+            n = self.catalog.restore_table(stmt.table, snaps[stmt.snapshot])
+            return Result(affected=n)
+        if isinstance(stmt, ast.BeginTxn):
+            if self.txn is not None:
+                old, self.txn = self.txn, None
+                old.commit()            # MySQL: BEGIN commits the open txn
+            self.txn = self.txn_client.begin()
+            return Result()
+        if isinstance(stmt, ast.CommitTxn):
+            if self.txn is not None:
+                old, self.txn = self.txn, None   # clear even on conflict
+                return Result(affected=old.commit())
+            return Result()
+        if isinstance(stmt, ast.RollbackTxn):
+            if self.txn is not None:
+                self.txn.rollback()
+                self.txn = None
+            return Result()
+        raise _not_ported(f"{type(stmt).__name__} statements")
 
     # ---------------------------------------------------- subqueries
     def _run_subquery(self, sel):
@@ -240,16 +376,229 @@ class Session:
 
     def plan_select(self, sel: ast.Select):
         from matrixone_tpu_torch.sql.optimize import apply_indices
+        if not isinstance(sel, ast.Select):
+            raise _not_ported(f"{type(sel).__name__} statements")
         self._prepare_select(sel)
         node = Binder(self.catalog).bind_statement(sel)
         node = self._cbo(node)
         return apply_indices(node, self.catalog,
-                             nprobe=int(self.variables.get("ivf_nprobe", 8)))
+                             nprobe=int(self.variables.get("ivf_nprobe", 8)),
+                             skip_tables=self._index_skip_tables())
 
     def _to_host(self, ex, schema) -> Batch:
         # compact masked rows before leaving the device
         db = F.compact(ex.batch, ex.mask, ex.padded_len)
         return from_device(db, ex.dicts, schema=dict(schema))
+
+    # --------------------------------------------------------------- ddl
+    def _create_table(self, stmt: ast.CreateTable) -> Result:
+        if stmt.partition_by is not None:
+            raise _not_ported("PARTITION BY")
+        schema = [(c.name, type_from_name(c.type_name, c.type_args))
+                  for c in stmt.columns]
+        auto = [c.name for c in stmt.columns if c.auto_increment]
+        if len(auto) > 1:
+            raise BindError("only one AUTO_INCREMENT column allowed")
+        not_null = [c.name for c in stmt.columns if c.not_null]
+        self.catalog.create_table(
+            TableMeta(stmt.name, schema, stmt.primary_key,
+                      auto_increment=auto[0] if auto else None,
+                      not_null=not_null),
+            if_not_exists=stmt.if_not_exists)
+        return Result()
+
+    # --------------------------------------------------------------- dml
+    def _pessimistic(self, txn) -> bool:
+        return (self.txn is not None
+                and self.variables.get("txn_mode") == "pessimistic")
+
+    def _maybe_lock(self, txn, table: str, gids) -> None:
+        """Pessimistic mode (reference: colexec/lockop + lockservice.Lock):
+        DML takes exclusive row locks before buffering the write; released
+        at commit/rollback. `set txn_mode = 'pessimistic'` arms it. A
+        deadlock victim is rolled back so its locks release at once and
+        the survivor proceeds."""
+        if not self._pessimistic(txn):
+            return     # autocommit DML serializes through the commit lock
+        from matrixone_tpu_torch.lockservice import DeadlockError
+        committed = np.asarray(gids)[np.asarray(gids) >= 0]
+        if len(committed):
+            timeout = float(self.variables.get("lock_timeout", 10.0))
+            try:
+                self.catalog.locks.lock(txn.txn_id, table, committed,
+                                        timeout=timeout)
+            except DeadlockError:
+                if self.txn is txn:
+                    txn.rollback()
+                    self.txn = None
+                raise
+
+    def _dml_read_ctx(self, txn) -> ExecContext:
+        """Row-planning context for DML.  Pessimistic txns plan against the
+        CURRENT frontier (MySQL 'current read'): after the lock wait, the
+        statement must see the rows the lock winner left behind, not its
+        own stale snapshot."""
+        if self._pessimistic(txn):
+            cur = types.SimpleNamespace(
+                snapshot_ts=self.catalog.committed_ts,
+                workspace=txn.workspace)
+            return ExecContext(catalog=self.catalog, txn=cur,
+                               variables=self.variables, device=self.device)
+        return ExecContext(catalog=self.catalog, txn=txn,
+                           variables=self.variables, device=self.device)
+
+    def _plan_and_lock_rows(self, txn, table: str, run_plan):
+        """run_plan(ctx) -> (gids, payload). In pessimistic mode: plan at
+        the frontier, lock, re-plan (the frontier may have advanced while
+        we waited) until the row set stabilizes."""
+        result = run_plan(self._dml_read_ctx(txn))
+        if not self._pessimistic(txn):
+            return result
+        for _ in range(5):
+            self._maybe_lock(txn, table, result[0])
+            again = run_plan(self._dml_read_ctx(txn))
+            if set(np.asarray(again[0]).tolist()) == \
+                    set(np.asarray(result[0]).tolist()):
+                return again
+            result = again
+        return result
+
+    def _dml_plan(self, table_name: str, where, extra_exprs=None,
+                  extra_names=None):
+        """Plan `SELECT __rowid [, extra...] FROM t WHERE ...` for DML."""
+        table = self.catalog.get_table(table_name)
+        scope = Scope()
+        for col, dtype in table.meta.schema:
+            scope.add(table_name, col, dtype)
+        binder = Binder(self.catalog)
+        scan_cols = [c for c, _ in table.meta.schema] + [ROWID]
+        scan_schema = [(f"{table_name}.{c}", d)
+                       for c, d in table.meta.schema] + [(ROWID, dt.INT64)]
+        node = P.Scan(table_name, scan_cols, scan_schema)
+        if where is not None:
+            pred = binder.bind_expr(where, scope)
+            node = P.Filter(node, pred, node.schema)
+        exprs = [BoundCol(ROWID, dt.INT64)]
+        names = [ROWID]
+        out_types = [dt.INT64]
+        for e, nm in zip(extra_exprs or [], extra_names or []):
+            b = binder.bind_expr(e, scope)
+            exprs.append(b)
+            names.append(nm)
+            out_types.append(b.dtype)
+        return P.Project(node, exprs, list(zip(names, out_types)))
+
+    def _run_dml_plan(self, proj, ctx, columns=()):
+        """Run a DML plan on the session's device -> (row ids, {column:
+        python values})."""
+        op = compile_plan(proj, ctx)
+        gids, new_cols = [], {c: [] for c in columns}
+        for ex in op.execute():
+            b = self._to_host(ex, proj.schema)
+            gids.append(np.asarray(b.columns[ROWID].data, np.int64))
+            for c in columns:
+                new_cols[c].extend(b.columns[c].to_pylist())
+        gids = np.concatenate(gids) if gids else np.zeros(0, np.int64)
+        return gids, new_cols
+
+    def _delete(self, stmt: ast.Delete) -> Result:
+        txn = self.txn or self.txn_client.begin()
+        proj = self._dml_plan(stmt.table, stmt.where)
+        gids, _ = self._plan_and_lock_rows(
+            txn, stmt.table, lambda ctx: self._run_dml_plan(proj, ctx))
+        txn.delete_rows(stmt.table, gids)
+        if self.txn is None:
+            txn.commit()
+        return Result(affected=len(gids))
+
+    def _update(self, stmt: ast.Update) -> Result:
+        txn = self.txn or self.txn_client.begin()
+        table = self.catalog.get_table(stmt.table)
+        schema = table.meta.schema
+        assigned = dict(stmt.assignments)
+        names = [c for c, _ in schema]
+        proj = self._dml_plan(
+            stmt.table, stmt.where,
+            [assigned.get(c, ast.ColumnRef(c, stmt.table)) for c in names],
+            names)
+        gids, new_cols = self._plan_and_lock_rows(
+            txn, stmt.table,
+            lambda ctx: self._run_dml_plan(proj, ctx, names))
+        if len(gids) == 0:
+            return Result(affected=0)
+        # rows must round-trip through the table's SQL types (e.g. the
+        # assignment may produce float for a decimal column)
+        batch = Batch.from_pydict(new_cols, dict(schema))
+        arrays, validity = table.batch_to_arrays(batch)
+        txn.delete_rows(stmt.table, gids)
+        txn.write_batch(stmt.table, arrays, validity)
+        if self.txn is None:
+            txn.commit()
+        return Result(affected=len(gids))
+
+    def _insert(self, stmt: ast.Insert) -> Result:
+        table = self.catalog.get_table(stmt.table)
+        schema = table.meta.schema
+        cols = stmt.columns or [c for c, _ in schema]
+        if stmt.select is not None:
+            sub = self._select(stmt.select)
+            data = {c: sub.batch.columns[n].to_pylist()
+                    for c, n in zip(cols, sub.column_names)}
+        else:
+            data = {c: [] for c in cols}
+            for row in stmt.rows:
+                if len(row) != len(cols):
+                    raise BindError("INSERT arity mismatch")
+                for c, v in zip(cols, row):
+                    data[c].append(_literal_value(v))
+        full = {}
+        n = len(next(iter(data.values()))) if data else 0
+        auto_col = table.meta.auto_increment
+        for c, d in schema:
+            vals = data.get(c, [None] * n)
+            if c == auto_col:
+                # row order matters: an explicit value advances the counter
+                # for subsequent NULLs in the same statement (MySQL behavior)
+                vals = list(vals)
+                for i, v in enumerate(vals):
+                    if v is None:
+                        vals[i] = int(table.allocate_auto(1)[0])
+                        # MySQL last_insert_id(): FIRST generated id
+                        # of the statement
+                        if not self._liid_set:
+                            self.last_insert_id = vals[i]
+                            self._liid_set = True
+                    else:
+                        table.observe_auto(np.asarray([v], np.int64))
+            if d.oid == TypeOid.DATE:
+                vals = [dt.epoch_days_from_iso(v)
+                        if isinstance(v, str) else v for v in vals]
+            elif d.oid in (TypeOid.DATETIME, TypeOid.TIMESTAMP):
+                vals = [dt.epoch_micros_from_iso(v)
+                        if isinstance(v, str) else v for v in vals]
+            elif d.is_vector:
+                vals = [[float(x) for x in v.strip()[1:-1].split(",")]
+                        if isinstance(v, str) else v for v in vals]
+                for v in vals:
+                    if v is not None and len(v) != d.dim:
+                        raise BindError(
+                            f"vector literal has {len(v)} dimensions, "
+                            f"column {c!r} expects {d.dim}")
+            full[c] = vals
+        batch = Batch.from_pydict(full, dict(schema))
+        if self.txn is not None:
+            arrays, validity = table.batch_to_arrays(batch)
+            n = self.txn.write_batch(stmt.table, arrays, validity)
+        else:
+            n = table.insert_batch(batch)
+        return Result(affected=n)
+
+
+def _show(data: dict, dtypes: Optional[dict] = None) -> Result:
+    """A SHOW result: columns of Python values, VARCHAR unless named."""
+    dtypes = dtypes or {}
+    return Result(batch=Batch.from_pydict(
+        data, {c: dtypes.get(c, dt.VARCHAR) for c in data}))
 
 
 def _param_literal(v) -> ast.Node:
@@ -266,3 +615,18 @@ def _param_literal(v) -> ast.Node:
     if isinstance(v, datetime.date):
         return ast.DateLiteral((v - datetime.date(1970, 1, 1)).days)
     raise BindError(f"unsupported parameter type {type(v).__name__}")
+
+
+def _literal_value(v: ast.Node):
+    if isinstance(v, ast.Literal):
+        if v.kind == "float":
+            return float(v.value)
+        return v.value
+    if isinstance(v, ast.DateLiteral):
+        return v.days
+    if isinstance(v, ast.UnaryOp) and v.op == "-":
+        inner = _literal_value(v.operand)
+        return -inner
+    if isinstance(v, ast.Cast):
+        return _literal_value(v.expr)
+    raise BindError("INSERT VALUES must be literals")

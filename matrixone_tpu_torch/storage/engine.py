@@ -1,18 +1,21 @@
-"""MVCC storage engine, in-memory subset: versioned segments + commit ts.
+"""MVCC storage engine, in-memory: versioned segments + tombstones.
 
 The port's copy of the in-memory half of `matrixone_tpu/storage/engine.py`:
 the catalog, MVCC tables of committed numpy segments with table-global
-string dictionaries, the single-writer commit pipeline for inserts
-(NOT NULL and primary-key uniqueness checked before anything is applied,
-a hybrid-logical-clock commit ts, apply, then the read frontier
-`committed_ts` advances), and snapshot scans that read each segment
-committed at or before the reader's ts, pruned by per-chunk zonemaps.
+string dictionaries, row deletes as tombstones (commit ts, global row
+ids), the single-writer commit pipeline (first-committer-wins conflict
+check on deletes, NOT NULL and primary-key uniqueness over live rows,
+a hybrid-logical-clock commit ts, deletes applied before inserts, then
+the read frontier `committed_ts` advances), snapshot scans that merge a
+transaction's workspace (`extra_segments`, `extra_deletes`) into the
+rows visible at its snapshot and can carry each row's id (`ROWID`),
+named snapshots with `restore_table`, auto-increment counters and the
+pessimistic lock service (`lockservice`).
 
 Not ported yet (ROADMAP.md, section A): the WAL, checkpoints and the
 object store (they need `pyarrow`, which the card machine lacks),
-merges and their snapshot fences, deletes, updates and transactions
-(so no tombstones and no row ids), partitions, auto-increment, the lock
-service, the index cache and the primary-key bloom filter (the
+merges and their snapshot fences, partitions, the logtail subscribers
+(CDC), the index cache and the primary-key bloom filter (the
 uniqueness check here is the same exact membership test, unfiltered).
 """
 
@@ -30,6 +33,10 @@ from matrixone_tpu_torch.sql.expr import BoundCol, BoundExpr, BoundFunc, \
 from matrixone_tpu_torch.txn.hlc import HLC
 
 Schema = List[Tuple[str, DType]]
+
+#: the pseudo-column a scan fills with each row's global id (int64;
+#: rows of a transaction's workspace have negative ids)
+ROWID = "__rowid"
 
 
 def schema_to_json(schema: Schema) -> list:
@@ -49,17 +56,22 @@ class TableMeta:
     name: str
     schema: Schema
     primary_key: List[str]
+    auto_increment: Optional[str] = None   # column name (incrservice)
     not_null: List[str] = dataclasses.field(default_factory=list)
 
 
 @dataclasses.dataclass
 class Segment:
     seg_id: int
-    commit_ts: int                       # committed segments only
+    commit_ts: int                       # 0 for a workspace segment
     arrays: Dict[str, np.ndarray]        # varchar columns as int32 codes
     validity: Dict[str, np.ndarray]
     n_rows: int
     base_gid: int
+
+
+class ConflictError(RuntimeError):
+    pass
 
 
 class DuplicateKeyError(RuntimeError):
@@ -84,9 +96,20 @@ def _splitmix_np(x: np.ndarray) -> np.ndarray:
         return x ^ (x >> np.uint64(31))
 
 
+def _range_keep(dead: np.ndarray, lo: int, hi: int) -> np.ndarray:
+    """Keep mask of the gids [lo, hi) against `dead`, a sorted unique
+    int64 array: the rows of the range that are not in it (the mask the
+    reference's `RoaringBitmap.test_range` negates)."""
+    keep = np.ones(hi - lo, np.bool_)
+    i0, i1 = np.searchsorted(dead, [lo, hi], side="left")
+    if i1 > i0:
+        keep[dead[i0:i1] - lo] = False
+    return keep
+
+
 class MVCCTable:
-    """Versioned columnar table; readers see a snapshot, writers go
-    through the engine's commit pipeline."""
+    """Versioned columnar table; readers see a snapshot, writers buffer in
+    a transaction's workspace until the engine commits them."""
 
     #: wired by Engine.create_table
     engine: "Engine" = None
@@ -94,9 +117,7 @@ class MVCCTable:
     def __init__(self, meta: TableMeta):
         self.meta = meta
         self.segments: List[Segment] = []
-        #: (commit_ts, gids) of deleted rows: always empty until deletes
-        #: are ported; the statistics and the row count read it
-        self.tombstones: List[Tuple[int, np.ndarray]] = []
+        self.tombstones: List[Tuple[int, np.ndarray]] = []  # (commit_ts, gids)
         #: commit TS of the last data change applied to THIS table
         self.last_commit_ts = 0
         self.next_gid = 0
@@ -104,6 +125,7 @@ class MVCCTable:
         self.dicts: Dict[str, List[str]] = {
             c: [] for c, d in meta.schema if d.is_varlen}
         self._dict_idx: Dict[str, Dict[str, int]] = {c: {} for c in self.dicts}
+        self.next_auto = 1
         self._pk_col: Optional[str] = None
         self._pk_cols: List[str] = []     # composite: hashed key columns
         sd = dict(meta.schema)
@@ -119,6 +141,20 @@ class MVCCTable:
             if all(keyable(sd.get(c)) for c in meta.primary_key):
                 self._pk_cols = list(meta.primary_key)
 
+    def allocate_auto(self, n: int) -> np.ndarray:
+        """Allocate n auto_increment values (the reference's cached range
+        allocator, single-process form), serialized by the commit lock."""
+        with self.engine._commit_lock:
+            base = self.next_auto
+            self.next_auto += n
+        return np.arange(base, base + n, dtype=np.int64)
+
+    def observe_auto(self, values: np.ndarray) -> None:
+        if len(values):
+            with self.engine._commit_lock:
+                self.next_auto = max(self.next_auto,
+                                     int(values.max()) + 1)
+
     @property
     def schema(self) -> Schema:
         return self.meta.schema
@@ -126,7 +162,9 @@ class MVCCTable:
     @property
     def n_rows(self) -> int:
         """Committed row count net of tombstones (latest snapshot)."""
-        return sum(s.n_rows for s in self.segments)
+        total = sum(s.n_rows for s in self.segments)
+        dead = sum(len(g) for _, g in self.tombstones)
+        return total - dead
 
     # -------------------------------------------------------- dict encode
     # Both encoders run under the engine commit lock: the check-then-
@@ -160,6 +198,19 @@ class MVCCTable:
                 remap[i] = code
             return remap[np.asarray(codes, dtype=np.int64)]
 
+    def batch_to_arrays(self, batch):
+        """A host `Batch` in the table's schema -> (arrays, validity),
+        varchar columns encoded into the table's dictionaries."""
+        arrays, validity = {}, {}
+        for col, dtype in self.meta.schema:
+            vec = batch.columns[col]
+            validity[col] = vec.valid_mask().copy()
+            if dtype.is_varlen:
+                arrays[col] = self.encode_strings_list(col, list(vec.strings))
+            else:
+                arrays[col] = np.asarray(vec.data, dtype=dtype.np_dtype)
+        return arrays, validity
+
     # ------------------------------------------------------------ pk dedup
     def pk_key_values(self, arrays: Dict[str, np.ndarray]
                       ) -> Optional[np.ndarray]:
@@ -184,10 +235,13 @@ class MVCCTable:
         return None
 
     def check_pk_unique(self, arrays: Dict[str, np.ndarray],
+                        extra_deletes: Optional[np.ndarray] = None,
                         validity: Optional[np.ndarray] = None) -> None:
         """Raise DuplicateKeyError if the batch collides with existing live
         PK values or contains internal duplicates (fuzzyfilter analogue).
-        NULL primary keys are rejected outright (PK implies NOT NULL)."""
+        A row that is tombstoned, or deleted by the same transaction
+        (`extra_deletes`), holds no key.  NULL primary keys are rejected
+        outright (PK implies NOT NULL)."""
         new = self.pk_key_values(arrays)
         if new is None:
             return
@@ -203,9 +257,13 @@ class MVCCTable:
             raise DuplicateKeyError(
                 f"duplicate key {shown} within the insert batch for "
                 f"{self.meta.name!r}.{c}".replace("key  ", "key "))
+        dead = np.unique(self._dead_gids(None, extra_deletes))
         for seg in self.segments:
             vals = self.pk_key_values(seg.arrays)
-            collide = new[np.isin(new, vals)]
+            alive = (_range_keep(dead, seg.base_gid,
+                                 seg.base_gid + seg.n_rows)
+                     if len(dead) else np.ones(seg.n_rows, np.bool_))
+            collide = new[np.isin(new, vals[alive])]
             for k in collide:
                 if self._pk_col is not None:
                     shown = int(k)
@@ -220,7 +278,7 @@ class MVCCTable:
                 # before rejecting (a 2^-64 collision must not block an
                 # unrelated insert)
                 in_row = int(np.nonzero(new == k)[0][0])
-                seg_rows = np.nonzero(vals == k)[0]
+                seg_rows = np.nonzero(alive & (vals == k))[0]
                 for r in seg_rows:
                     if all(int(seg.arrays[cc][r]) == int(arrays[cc][in_row])
                            for cc in self._pk_cols):
@@ -244,28 +302,150 @@ class MVCCTable:
         self.segments.append(seg)
         self.last_commit_ts = max(self.last_commit_ts, seg.commit_ts)
 
+    def insert_segments(self, arrays, validity, commit_ts: int
+                        ) -> List[Segment]:
+        """Apply an insert batch as one segment (unpartitioned: the
+        reference splits a partitioned table's batch per partition)."""
+        seg = self.make_segment(arrays, validity, commit_ts)
+        self.apply_segment(seg)
+        return [seg]
+
+    def apply_tombstones(self, commit_ts: int, gids: np.ndarray) -> None:
+        if len(gids):
+            self.tombstones.append((commit_ts, np.asarray(gids, np.int64)))
+            self.last_commit_ts = max(self.last_commit_ts, commit_ts)
+
     # --------------------------------------------------------------- read
+    def _view_at(self, snapshot_ts: Optional[int]):
+        """(segments, tombstones) source lists for a read at snapshot_ts:
+        the live lists (no merges, so no snapshot fences yet)."""
+        return self.segments, self.tombstones
+
+    def _dead_gids(self, snapshot_ts: Optional[int],
+                   extra_deletes: Optional[np.ndarray],
+                   tombstones: Optional[list] = None) -> np.ndarray:
+        src = self.tombstones if tombstones is None else tombstones
+        parts = [g for ts, g in src
+                 if snapshot_ts is None or ts <= snapshot_ts]
+        if extra_deletes is not None and len(extra_deletes):
+            parts.append(np.asarray(extra_deletes, np.int64))
+        if not parts:
+            return np.zeros(0, np.int64)
+        return np.concatenate(parts)
+
     def iter_chunks(self, columns: List[str], batch_rows: int,
                     filters: Optional[List[BoundExpr]] = None,
                     qualified_names: Optional[List[str]] = None,
-                    snapshot_ts: Optional[int] = None) -> Iterator[tuple]:
+                    snapshot_ts: Optional[int] = None,
+                    extra_segments: Optional[List[Segment]] = None,
+                    extra_deletes: Optional[np.ndarray] = None
+                    ) -> Iterator[tuple]:
         """Yield (arrays, validity, dicts, n) chunks of at most batch_rows
-        rows from the segments committed at or before snapshot_ts,
-        skipping chunks whose zonemaps exclude a filter."""
-        segs = [s for s in self.segments
+        rows: the segments committed at or before snapshot_ts, then a
+        transaction's own segments, without the rows tombstoned at
+        snapshot_ts or deleted by the transaction, skipping chunks whose
+        zonemaps exclude a filter.  `ROWID` among the columns yields each
+        row's global id."""
+        want_rowid = ROWID in columns
+        data_cols = [c for c in columns if c != ROWID]
+        src_segs, src_tombs = self._view_at(snapshot_ts)
+        # the dead set is built ONCE per scan, sorted: a chunk's gids are
+        # a contiguous range, so its keep mask is two binary searches
+        dead = np.unique(self._dead_gids(snapshot_ts, extra_deletes,
+                                         src_tombs))
+        segs = [s for s in src_segs
                 if snapshot_ts is None or s.commit_ts <= snapshot_ts]
+        segs = segs + list(extra_segments or [])
         qmap = dict(zip(qualified_names or columns, columns))
         for seg in segs:
             for start in range(0, seg.n_rows, batch_rows):
                 end = min(start + batch_rows, seg.n_rows)
-                arrays = {c: seg.arrays[c][start:end] for c in columns}
-                validity = {c: seg.validity[c][start:end] for c in columns}
+                lo = seg.base_gid + start
+                keep = None
+                if len(dead):
+                    keep = _range_keep(dead, lo, seg.base_gid + end)
+                    if not keep.any():
+                        continue
+                    if keep.all():
+                        keep = None
+                arrays, validity = {}, {}
+                for c in data_cols:
+                    a = seg.arrays[c][start:end]
+                    v = seg.validity[c][start:end]
+                    if keep is not None:
+                        a, v = a[keep], v[keep]
+                    arrays[c] = a
+                    validity[c] = v
+                if want_rowid:
+                    g = np.arange(lo, seg.base_gid + end, dtype=np.int64)
+                    arrays[ROWID] = g if keep is None else g[keep]
+                    validity[ROWID] = np.ones(len(arrays[ROWID]), np.bool_)
+                n = len(next(iter(arrays.values()))) if arrays else 0
+                if n == 0:
+                    continue
                 if filters and _zonemap_excludes(filters, arrays, validity,
                                                  qmap, dict(self.meta.schema)):
                     continue
-                yield arrays, validity, self.dicts, end - start
+                yield arrays, validity, self.dicts, n
+
+    def visible_gids(self, gids: np.ndarray,
+                     snapshot_ts: Optional[int] = None,
+                     extra_deletes: Optional[np.ndarray] = None) -> np.ndarray:
+        """Filter gids to rows visible at the snapshot: owning segment
+        committed <= ts and not tombstoned (incl. txn-local deletes)."""
+        gids = np.asarray(gids, np.int64)
+        if len(gids) == 0:
+            return gids
+        src_segs, src_tombs = self._view_at(snapshot_ts)
+        bases = np.array([s.base_gid for s in src_segs], np.int64)
+        seg_ts = np.array([s.commit_ts for s in src_segs], np.int64)
+        si = np.searchsorted(bases, gids, side="right") - 1
+        ok = si >= 0
+        if snapshot_ts is not None:
+            ok = ok & (seg_ts[np.clip(si, 0, None)] <= snapshot_ts)
+        dead = self._dead_gids(snapshot_ts, extra_deletes, src_tombs)
+        if len(dead):
+            ok = ok & ~np.isin(gids, dead)
+        return gids[ok]
+
+    def fetch_rows(self, gids: np.ndarray, columns: List[str]):
+        """Host gather of rows by global id.  Returns (arrays, validity)
+        in gid order."""
+        gids = np.asarray(gids, np.int64)
+        bases = np.array([s.base_gid for s in self.segments], np.int64)
+        seg_idx = np.searchsorted(bases, gids, side="right") - 1
+        owners: List[Segment] = []
+        for gi, si in zip(gids, seg_idx):
+            seg = self.segments[si] if si >= 0 else None
+            if seg is None or gi >= seg.base_gid + seg.n_rows:
+                raise KeyError(f"gid {int(gi)} not found in "
+                               f"{self.meta.name!r}")
+            owners.append(seg)
+        arrays = {c: [] for c in columns}
+        validity = {c: [] for c in columns}
+        for c in columns:
+            dtype = dict(self.meta.schema)[c]
+            parts_a, parts_v = [], []
+            for gi, seg in zip(gids, owners):
+                off = int(gi - seg.base_gid)
+                parts_a.append(seg.arrays[c][off])
+                parts_v.append(seg.validity[c][off])
+            if parts_a:
+                arrays[c] = np.stack(parts_a) if np.ndim(parts_a[0]) \
+                    else np.asarray(parts_a)
+                validity[c] = np.asarray(parts_v, np.bool_)
+            else:
+                shape = (0, dtype.dim) if dtype.is_vector else (0,)
+                np_t = np.int32 if dtype.is_varlen else dtype.np_dtype
+                arrays[c] = np.zeros(shape, np_t)
+                validity[c] = np.zeros(0, np.bool_)
+        return arrays, validity
 
     # -------------------------------------------------- convenience write
+    def insert_batch(self, batch) -> int:
+        arrays, validity = self.batch_to_arrays(batch)
+        return self.engine.commit_write(self.meta.name, arrays, validity)
+
     def insert_numpy(self, arrays, validity=None, strings=None) -> int:
         strings = strings or {}
         full, val = {}, {}
@@ -357,15 +537,18 @@ class Engine:
     """Catalog + single-writer commit service (in memory)."""
 
     def __init__(self):
+        from matrixone_tpu_torch.lockservice import LockService
         self.hlc = HLC()
         self.tables: Dict[str, MVCCTable] = {}
         # reentrant: table helpers called under a commit take it again
         self._commit_lock = threading.RLock()
         #: catalog-shape generation: bumped on every DDL
         self.ddl_gen = 0
+        self.snapshots: Dict[str, int] = {}      # named points in time
         #: last FULLY applied commit: readers snapshot here so a commit
-        #: mid-apply can never tear a read
+        #: mid-apply (tombstones in, segments not yet) can never tear a read
         self.committed_ts = self.hlc.now()
+        self.locks = LockService()     # pessimistic mode (pkg/lockservice)
 
     # ----------------------------------------------------------- catalog
     def create_table(self, meta: TableMeta, if_not_exists=False) -> None:
@@ -378,6 +561,14 @@ class Engine:
         self.tables[meta.name] = t
         self.ddl_gen += 1
 
+    def drop_table(self, name: str, if_exists=False) -> None:
+        if name not in self.tables:
+            if if_exists:
+                return
+            raise ValueError(f"no such table {name}")
+        del self.tables[name]
+        self.ddl_gen += 1
+
     def get_table(self, name: str) -> MVCCTable:
         if name not in self.tables:
             raise ValueError(f"no such table {name}")
@@ -387,6 +578,43 @@ class Engine:
         """Secondary indexes of a table: none, until indexes are ported
         (the plan rewrites of sql/optimize.py ask)."""
         return []
+
+    # --------------------------------------------------- snapshots / PITR
+    def create_snapshot(self, name: str) -> int:
+        """A named point in time (CREATE SNAPSHOT)."""
+        ts = self.hlc.now()
+        self.snapshots[name] = ts
+        self.ddl_gen += 1
+        return ts
+
+    def drop_snapshot(self, name: str) -> None:
+        self.snapshots.pop(name, None)
+        self.ddl_gen += 1
+
+    def restore_table(self, table: str, ts: int) -> int:
+        """RESTORE ... FROM SNAPSHOT: one commit replaces the current
+        visible rows with the rows visible at ts."""
+        t = self.get_table(table)
+        parts_a, parts_v = [], []
+        cols = [c for c, _ in t.meta.schema]
+        for arrays, validity, _dicts, _n in t.iter_chunks(
+                cols, 1 << 20, snapshot_ts=ts):
+            parts_a.append(arrays)
+            parts_v.append(validity)
+        # all currently-visible rows go away
+        current = [arrays[ROWID] for arrays, _v, _d, _n
+                   in t.iter_chunks([ROWID], 1 << 20)]
+        cur_gids = (np.concatenate(current) if current
+                    else np.zeros(0, np.int64))
+        if parts_a:
+            merged = {c: np.concatenate([p[c] for p in parts_a])
+                      for c in cols}
+            merged_v = {c: np.concatenate([p[c] for p in parts_v])
+                        for c in cols}
+            inserts = {table: [(merged, merged_v)]}
+        else:
+            inserts = {}
+        return self.commit_txn(None, inserts, {table: cur_gids})
 
     # ------------------------------------------------------------ commit
     def commit_write(self, table: str, arrays, validity) -> int:
@@ -398,13 +626,21 @@ class Engine:
     def commit_txn(self, snapshot_ts: Optional[int],
                    inserts: Dict[str, list],
                    deletes: Dict[str, np.ndarray]) -> int:
-        """The commit pipeline (tae/rpc/handle.go:547 HandleCommit) for
-        inserts: constraint checks -> commit ts -> apply -> frontier.
+        """The commit pipeline (tae/rpc/handle.go:547 HandleCommit):
+        conflict check -> constraints -> commit ts -> apply -> frontier.
         Returns rows affected."""
-        if any(len(g) for g in deletes.values()):
-            raise NotImplementedError(
-                "deletes are not ported yet (ROADMAP.md, section A)")
         with self._commit_lock:
+            # write-write conflict: someone deleted my victim after my
+            # snapshot (first-committer-wins)
+            if snapshot_ts is not None:
+                for tname, gids in deletes.items():
+                    t = self.get_table(tname)
+                    mine = np.asarray(gids, np.int64)
+                    newer = [g for ts, g in t.tombstones if ts > snapshot_ts]
+                    if newer and len(np.intersect1d(
+                            mine, np.concatenate(newer))):
+                        raise ConflictError(
+                            f"write-write conflict on {tname}")
             # NOT NULL constraints (PK columns are implicitly NOT NULL
             # via the uniqueness check's NULL rejection)
             for tname, segs in inserts.items():
@@ -415,9 +651,11 @@ class Engine:
                             raise ConstraintError(
                                 f"column {tname!r}.{col} cannot be NULL")
             # PK uniqueness before anything is applied; all of a txn's
-            # batches are checked as ONE key set
+            # batches are checked as ONE key set, against the rows left
+            # alive once the txn's own deletes land
             for tname, segs in inserts.items():
                 t = self.get_table(tname)
+                extra = deletes.get(tname)
                 pk_cols = ([t._pk_col] if t._pk_col else t._pk_cols)
                 if pk_cols and segs:
                     have = [(a, v) for a, v in segs
@@ -433,15 +671,23 @@ class Engine:
                             else np.ones(len(next(iter(a.values()))),
                                          np.bool_)
                             for a, v in have])
-                        t.check_pk_unique(combined, validity=val)
+                        t.check_pk_unique(combined, extra_deletes=extra,
+                                          validity=val)
             commit_ts = self.hlc.now()
             affected = 0
+            # apply: deletes BEFORE inserts — an UPDATE is delete+insert at
+            # one commit ts
+            for tname, gids in deletes.items():
+                t = self.get_table(tname)
+                t.apply_tombstones(commit_ts, np.asarray(gids, np.int64))
+                affected += len(gids)
             for tname, segs in inserts.items():
                 t = self.get_table(tname)
                 for arrays, validity in segs:
-                    seg = t.make_segment(arrays, validity, commit_ts)
-                    t.apply_segment(seg)
-                    affected += seg.n_rows
+                    for seg in t.insert_segments(arrays, validity,
+                                                 commit_ts):
+                        affected += seg.n_rows
+            # max(): the read frontier must never retreat
             self.committed_ts = max(self.committed_ts, commit_ts)
         return affected
 

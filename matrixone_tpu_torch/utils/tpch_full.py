@@ -1,5 +1,5 @@
 """Full 8-table TPC-H corpus: generator, engine loader, sqlite3 oracle,
-and all 22 queries.
+all 22 queries, and the refresh functions RF1/RF2 as SQL text.
 
 NOT the official dbgen (no C dbgen in this image): cardinalities, key
 relationships, and value domains follow the TPC-H spec (customer 150k/SF,
@@ -15,20 +15,25 @@ Reference test corpus analogue: pkg/sql/plan/tpch_test.go golden plans +
 test/distributed/cases/benchmark/tpch BVT cases.
 
 The port's copy of `matrixone_tpu/utils/tpch_full.py`, loading into the
-port's engine; the tables and queries are the same.
+port's engine; the tables and queries are the same.  The refresh
+functions (`rf1`, `rf2`, `apply_refresh`) are the port's own workload
+data for its write path, for this corpus and for `utils/tpch.py`'s Q3
+tables.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import re
 import sqlite3
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 
 from matrixone_tpu_torch.container import dtypes as dt
 from matrixone_tpu_torch.storage.engine import Catalog, TableMeta
+from matrixone_tpu_torch.utils import tpch
 
 _EPOCH = datetime.date(1970, 1, 1)
 
@@ -84,6 +89,90 @@ def _comments(rng, n, extra_rate=0.0, extra=""):
         for i in np.nonzero(hit)[0]:
             out[i] = f"{out[i].split(' ')[0]} {extra} {out[i]}"
     return np.array(out, dtype=object)
+
+
+def _orders_lineitem(rng, o_keys: np.ndarray, active: np.ndarray,
+                     n_supp: int, n_part: int, retailprice: np.ndarray):
+    """orders with keys `o_keys` (customers drawn from `active`), each
+    with 1-7 lineitems, and o_totalprice / o_orderstatus derived from
+    the lines: the load's value generators, which the refresh function
+    RF1 reuses."""
+    n_ord = len(o_keys)
+    o_cust = active[rng.integers(0, len(active), n_ord)]
+    o_date = rng.integers(_days(1992, 1, 1), _days(1998, 8, 3),
+                          n_ord).astype(np.int32)
+    n_lines_per = rng.integers(1, 8, n_ord)
+    orders = {
+        "o_orderkey": o_keys,
+        "o_custkey": o_cust.astype(np.int64),
+        "o_orderstatus": None,          # filled after lineitem
+        "o_totalprice": None,
+        "o_orderdate": o_date,
+        "o_orderpriority": np.array([PRIORITIES[i] for i in
+                                     rng.integers(0, 5, n_ord)], dtype=object),
+        "o_clerk": np.array([f"Clerk#{rng.integers(1, max(2, n_supp)):09d}"
+                             for _ in range(n_ord)], dtype=object),
+        "o_shippriority": np.zeros(n_ord, dtype=np.int64),
+        "o_comment": _comments(rng, n_ord, 0.02, "special requests"),
+    }
+
+    # lineitem
+    l_order = np.repeat(orders["o_orderkey"], n_lines_per)
+    # each line's order, as a position in o_keys
+    l_pos = np.repeat(np.arange(n_ord), n_lines_per)
+    n_li = len(l_order)
+    l_linenum = np.concatenate([np.arange(1, k + 1) for k in n_lines_per]
+                               ).astype(np.int64)
+    l_part = rng.integers(1, n_part + 1, n_li).astype(np.int64)
+    # supplier must be one of the part's 4 partsupp suppliers (Q9 join)
+    pick4 = rng.integers(0, 4, n_li)
+    l_supp = ((l_part - 1 + pick4 * (n_supp // 4) + (l_part - 1) // n_supp)
+              % n_supp) + 1
+    qty = rng.integers(1, 51, n_li).astype(np.int64)
+    extprice = qty * retailprice[l_part - 1]                    # cents
+    discount = rng.integers(0, 11, n_li).astype(np.int64)       # cents (0.00-0.10)
+    tax = rng.integers(0, 9, n_li).astype(np.int64)
+    o_date_per_line = np.repeat(o_date, n_lines_per)
+    l_ship = o_date_per_line + rng.integers(1, 122, n_li).astype(np.int32)
+    l_commit = o_date_per_line + rng.integers(30, 91, n_li).astype(np.int32)
+    l_receipt = l_ship + rng.integers(1, 31, n_li).astype(np.int32)
+    today = _days(1995, 6, 17)
+    rf = np.where(l_receipt <= today,
+                  np.where(rng.random(n_li) < 0.5, "R", "A"), "N")
+    ls = np.where(l_ship > today, "O", "F")
+    lineitem = {
+        "l_orderkey": l_order,
+        "l_partkey": l_part,
+        "l_suppkey": l_supp,
+        "l_linenumber": l_linenum,
+        "l_quantity": qty * 100,                                 # cents
+        "l_extendedprice": extprice,
+        "l_discount": discount,
+        "l_tax": tax,
+        "l_returnflag": rf.astype(object),
+        "l_linestatus": ls.astype(object),
+        "l_shipdate": l_ship,
+        "l_commitdate": l_commit,
+        "l_receiptdate": l_receipt,
+        "l_shipinstruct": np.array([INSTRUCTS[i] for i in
+                                    rng.integers(0, 4, n_li)], dtype=object),
+        "l_shipmode": np.array([SHIPMODES[i] for i in
+                                rng.integers(0, 7, n_li)], dtype=object),
+        "l_comment": _comments(rng, n_li),
+    }
+
+    # o_totalprice = sum(extprice*(1+tax)*(1-disc)); o_orderstatus from lines
+    gross = (extprice * (100 - discount) * (100 + tax)) // 10000
+    totol = np.zeros(n_ord, dtype=np.int64)
+    np.add.at(totol, l_pos, gross)
+    orders["o_totalprice"] = totol
+    all_f = np.ones(n_ord, dtype=bool)
+    any_f = np.zeros(n_ord, dtype=bool)
+    np.logical_and.at(all_f, l_pos, ls == "F")
+    np.logical_or.at(any_f, l_pos, ls == "F")
+    status = np.where(all_f, "F", np.where(any_f, "P", "O"))
+    orders["o_orderstatus"] = status.astype(object)
+    return orders, lineitem
 
 
 def gen_tpch(sf: float = 0.01, seed: int = 0) -> Dict[str, Dict[str, np.ndarray]]:
@@ -184,78 +273,9 @@ def gen_tpch(sf: float = 0.01, seed: int = 0) -> Dict[str, Dict[str, np.ndarray]
 
     # orders: only 2/3 of customers place orders (Q13's zero-order groups)
     active = rng.permutation(n_cust)[:max(1, n_cust * 2 // 3)] + 1
-    o_cust = active[rng.integers(0, len(active), n_ord)]
-    o_date = rng.integers(_days(1992, 1, 1), _days(1998, 8, 3),
-                          n_ord).astype(np.int32)
-    n_lines_per = rng.integers(1, 8, n_ord)
-    orders = {
-        "o_orderkey": np.arange(1, n_ord + 1, dtype=np.int64),
-        "o_custkey": o_cust.astype(np.int64),
-        "o_orderstatus": None,          # filled after lineitem
-        "o_totalprice": None,
-        "o_orderdate": o_date,
-        "o_orderpriority": np.array([PRIORITIES[i] for i in
-                                     rng.integers(0, 5, n_ord)], dtype=object),
-        "o_clerk": np.array([f"Clerk#{rng.integers(1, max(2, n_supp)):09d}"
-                             for _ in range(n_ord)], dtype=object),
-        "o_shippriority": np.zeros(n_ord, dtype=np.int64),
-        "o_comment": _comments(rng, n_ord, 0.02, "special requests"),
-    }
-
-    # lineitem
-    l_order = np.repeat(orders["o_orderkey"], n_lines_per)
-    n_li = len(l_order)
-    l_linenum = np.concatenate([np.arange(1, k + 1) for k in n_lines_per]
-                               ).astype(np.int64)
-    l_part = rng.integers(1, n_part + 1, n_li).astype(np.int64)
-    # supplier must be one of the part's 4 partsupp suppliers (Q9 join)
-    pick4 = rng.integers(0, 4, n_li)
-    l_supp = ((l_part - 1 + pick4 * (n_supp // 4) + (l_part - 1) // n_supp)
-              % n_supp) + 1
-    qty = rng.integers(1, 51, n_li).astype(np.int64)
-    extprice = qty * part["p_retailprice"][l_part - 1]          # cents
-    discount = rng.integers(0, 11, n_li).astype(np.int64)       # cents (0.00-0.10)
-    tax = rng.integers(0, 9, n_li).astype(np.int64)
-    o_date_per_line = np.repeat(o_date, n_lines_per)
-    l_ship = o_date_per_line + rng.integers(1, 122, n_li).astype(np.int32)
-    l_commit = o_date_per_line + rng.integers(30, 91, n_li).astype(np.int32)
-    l_receipt = l_ship + rng.integers(1, 31, n_li).astype(np.int32)
-    today = _days(1995, 6, 17)
-    rf = np.where(l_receipt <= today,
-                  np.where(rng.random(n_li) < 0.5, "R", "A"), "N")
-    ls = np.where(l_ship > today, "O", "F")
-    lineitem = {
-        "l_orderkey": l_order,
-        "l_partkey": l_part,
-        "l_suppkey": l_supp,
-        "l_linenumber": l_linenum,
-        "l_quantity": qty * 100,                                 # cents
-        "l_extendedprice": extprice,
-        "l_discount": discount,
-        "l_tax": tax,
-        "l_returnflag": rf.astype(object),
-        "l_linestatus": ls.astype(object),
-        "l_shipdate": l_ship,
-        "l_commitdate": l_commit,
-        "l_receiptdate": l_receipt,
-        "l_shipinstruct": np.array([INSTRUCTS[i] for i in
-                                    rng.integers(0, 4, n_li)], dtype=object),
-        "l_shipmode": np.array([SHIPMODES[i] for i in
-                                rng.integers(0, 7, n_li)], dtype=object),
-        "l_comment": _comments(rng, n_li),
-    }
-
-    # o_totalprice = sum(extprice*(1+tax)*(1-disc)); o_orderstatus from lines
-    gross = (extprice * (100 - discount) * (100 + tax)) // 10000
-    totol = np.zeros(n_ord + 1, dtype=np.int64)
-    np.add.at(totol, l_order, gross)
-    orders["o_totalprice"] = totol[1:]
-    all_f = np.ones(n_ord + 1, dtype=bool)
-    any_f = np.zeros(n_ord + 1, dtype=bool)
-    np.logical_and.at(all_f, l_order, ls == "F")
-    np.logical_or.at(any_f, l_order, ls == "F")
-    status = np.where(all_f[1:], "F", np.where(any_f[1:], "P", "O"))
-    orders["o_orderstatus"] = status.astype(object)
+    orders, lineitem = _orders_lineitem(
+        rng, np.arange(1, n_ord + 1, dtype=np.int64), active, n_supp,
+        n_part, part["p_retailprice"])
 
     return {"region": region, "nation": nation, "supplier": supplier,
             "part": part, "partsupp": partsupp, "customer": customer,
@@ -332,6 +352,166 @@ def load_tpch(catalog: Catalog, sf: float = 0.01, seed: int = 0
                 strings[col] = _encode_strings(arrays[col])
         t.insert_numpy(arrays, strings=strings)
     return tables
+
+
+# ------------------------------------------------------- refresh functions
+# TPC-H's two refresh functions as SQL text (spec 2.5.2-2.5.3): workload
+# data for the write path, applied alike to an engine session and to the
+# sqlite3 oracle.  Both accept the 8-table corpus of `gen_tpch` and the
+# Q3 tables of `utils/tpch.py` ({"lineitem": gen_lineitem's arrays,
+# "orders": load_tpch_q3's orders}).
+
+#: rows per INSERT ... VALUES of RF1; order keys per DELETE of RF2
+RF1_ROWS_PER_INSERT = 500
+RF2_KEYS_PER_DELETE = 150
+
+
+@dataclasses.dataclass
+class Refresh:
+    """One refresh function: its statements (BEGIN ... COMMIT) and the
+    rows they change, for the oracles (`apply_refresh`)."""
+    statements: List[str]
+    inserts: Dict[str, Dict[str, np.ndarray]]   # RF1: table -> columns
+    delete_keys: np.ndarray                      # RF2: order keys
+
+
+def _refresh_orders(sf: float) -> int:
+    """SF x 1500 orders a refresh (at least one)."""
+    return max(1, int(round(sf * 1500)))
+
+
+def _schemas_of(tables) -> tuple:
+    """(schema by table, categories of code columns) of either corpus."""
+    if "part" in tables:
+        return _SCHEMAS, {}
+    return ({"lineitem": tpch.LINEITEM_SCHEMA, "orders": tpch.ORDERS_SCHEMA},
+            {"l_returnflag": tpch.FLAG_CATS,
+             "l_linestatus": tpch.STATUS_CATS})
+
+
+def _sql_value(v, dtype, cats=None) -> str:
+    if cats is not None:
+        v = cats[int(v)]
+    if dtype.oid == dt.TypeOid.DECIMAL64:
+        v = int(v)
+        sign, v = ("-" if v < 0 else ""), abs(v)
+        q = 10 ** dtype.scale
+        return f"{sign}{v // q}.{v % q:0{dtype.scale}d}"
+    if dtype.oid == dt.TypeOid.DATE:
+        day = _EPOCH + datetime.timedelta(days=int(v))
+        return f"'{day.isoformat()}'"
+    if dtype.is_varlen:
+        return "'" + str(v).replace("'", "''") + "'"
+    return str(int(v))
+
+
+def insert_statements(table: str, schema, arrays, cats=None) -> List[str]:
+    """Multi-row `INSERT INTO table VALUES` statements of at most
+    `RF1_ROWS_PER_INSERT` rows, every column of `schema` in order."""
+    cats = cats or {}
+    cols = [[_sql_value(v, d, cats.get(c)) for v in arrays[c].tolist()]
+            for c, d in schema]
+    rows = [f"({', '.join(r)})" for r in zip(*cols)]
+    return [f"insert into {table} values " + ", ".join(
+        rows[i:i + RF1_ROWS_PER_INSERT])
+        for i in range(0, len(rows), RF1_ROWS_PER_INSERT)]
+
+
+def _next_order_keys(tables, n: int) -> np.ndarray:
+    top = max(int(tables["orders"]["o_orderkey"].max()),
+              int(tables["lineitem"]["l_orderkey"].max()))
+    return np.arange(top + 1, top + 1 + n, dtype=np.int64)
+
+
+def rf1(tables, sf: float, seed: int, q3data=None) -> Refresh:
+    """RF1: SF x 1500 new orders with keys above the current maximum,
+    each with 1-7 lineitems, from the load's value generators seeded by
+    `seed`, as INSERTs in one transaction.  `tables` is the corpus's
+    current state; for the Q3 tables, `q3data` is `load_tpch_q3`'s
+    return (its customer count)."""
+    rng = np.random.default_rng(seed)
+    keys = _next_order_keys(tables, _refresh_orders(sf))
+    schemas, cats = _schemas_of(tables)
+    if "part" in tables:
+        orders, lineitem = _orders_lineitem(
+            rng, keys, np.unique(tables["orders"]["o_custkey"]),
+            len(tables["supplier"]["s_suppkey"]),
+            len(tables["part"]["p_partkey"]),
+            tables["part"]["p_retailprice"])
+    else:
+        n_lines = rng.integers(1, 8, len(keys))
+        lineitem = tpch.gen_lineitem(int(n_lines.sum()), seed=seed)
+        lineitem["l_orderkey"] = np.repeat(keys, n_lines)
+        lineitem["l_linenumber"] = np.concatenate(
+            [np.arange(1, k + 1) for k in n_lines]).astype(np.int32)
+        orders = {
+            "o_orderkey": keys,
+            "o_custkey": rng.integers(1, len(q3data["seg_codes"]) + 1,
+                                      len(keys)).astype(np.int64),
+            "o_orderdate": rng.integers(_days(1992, 1, 1),
+                                        _days(1998, 8, 3),
+                                        len(keys)).astype(np.int32),
+            "o_shippriority": np.zeros(len(keys), np.int32)}
+    stmts = (insert_statements("orders", schemas["orders"], orders, cats)
+             + insert_statements("lineitem", schemas["lineitem"],
+                                 lineitem, cats))
+    return Refresh(["begin"] + stmts + ["commit"],
+                   {"orders": orders, "lineitem": lineitem},
+                   np.zeros(0, np.int64))
+
+
+def rf2(tables, sf: float, seed: int) -> Refresh:
+    """RF2: SF x 1500 existing orders chosen by `seed`, and all their
+    lineitems, deleted by key in statements of at most
+    `RF2_KEYS_PER_DELETE` keys, lineitem first, in one transaction."""
+    rng = np.random.default_rng(seed)
+    have = tables["orders"]["o_orderkey"]
+    keys = np.sort(rng.choice(have, min(_refresh_orders(sf), len(have)),
+                              replace=False)).astype(np.int64)
+    stmts = []
+    for table, col in (("lineitem", "l_orderkey"), ("orders", "o_orderkey")):
+        for i in range(0, len(keys), RF2_KEYS_PER_DELETE):
+            part = ", ".join(str(k) for k in
+                             keys[i:i + RF2_KEYS_PER_DELETE].tolist())
+            stmts.append(f"delete from {table} where {col} in ({part})")
+    return Refresh(["begin"] + stmts + ["commit"], {}, keys)
+
+
+def insert_orders(tables, keys) -> Refresh:
+    """The orders of `keys` and all their lineitems, as `tables` holds
+    them, as RF1-shaped INSERTs in one transaction (a re-insert of
+    orders RF2 deleted, or of live ones, which must collide)."""
+    schemas, cats = _schemas_of(tables)
+    keys = np.asarray(keys, np.int64)
+    rows = {}
+    stmts = []
+    for table, col in (("orders", "o_orderkey"), ("lineitem", "l_orderkey")):
+        pick = np.isin(tables[table][col], keys)
+        rows[table] = {c: a[pick] for c, a in tables[table].items()}
+        stmts += insert_statements(table, schemas[table], rows[table], cats)
+    return Refresh(["begin"] + stmts + ["commit"], rows,
+                   np.zeros(0, np.int64))
+
+
+def apply_refresh(tables, refresh: Refresh) -> dict:
+    """The corpus after `refresh`, as numpy arrays (a new dict; the
+    tables it does not touch are shared)."""
+    out = dict(tables)
+    for table, rows in refresh.inserts.items():
+        out[table] = {c: np.concatenate([a, rows[c]])
+                      for c, a in tables[table].items()}
+    if len(refresh.delete_keys):
+        for table, col in (("lineitem", "l_orderkey"),
+                           ("orders", "o_orderkey")):
+            keep = ~np.isin(out[table][col], refresh.delete_keys)
+            out[table] = {c: a[keep] for c, a in out[table].items()}
+    return out
+
+
+def apply_sqlite(conn: sqlite3.Connection, statements: List[str]) -> None:
+    """Run refresh statements on the sqlite3 oracle."""
+    for sql in statements:
+        conn.execute(to_sqlite_sql(sql))
 
 
 # ------------------------------------------------------------ sqlite oracle

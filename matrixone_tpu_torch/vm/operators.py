@@ -56,7 +56,10 @@ class Operator:
 def chunk_to_execbatch(arrays, validity, table_dicts, n, columns, schema,
                        device) -> ExecBatch:
     """Host chunk -> padded device ExecBatch, renaming raw table columns to
-    the plan's qualified names and tagging varlen columns."""
+    the plan's qualified names and tagging varlen columns.  Only
+    dictionary-coded columns are narrowed: the row-id column (`ROWID`,
+    int64, negative for a transaction's own rows) reaches the device
+    as it is."""
     qnames = [nm for nm, _ in schema]
     arr2, val2, dicts2, dtypes = {}, {}, {}, {}
     for qn, col, dtype in zip(qnames, columns, [d for _, d in schema]):
@@ -79,7 +82,9 @@ def chunk_to_execbatch(arrays, validity, table_dicts, n, columns, schema,
 
 class ScanOp(Operator):
     """Table scan with filter pushdown + zonemap chunk pruning
-    (reference: colexec/table_scan + readutil block pruning).  Each chunk
+    (reference: colexec/table_scan + readutil block pruning).  It reads
+    the context's view (the statement's frontier, or a transaction's
+    snapshot plus its workspace; `AS OF` overrides both), and each chunk
     is uploaded to the context's device."""
 
     def __init__(self, node: P.Scan, relation, ctx,

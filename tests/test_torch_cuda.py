@@ -795,3 +795,63 @@ def test_tpch_on_the_card_matches_the_cpu_and_the_oracles(cuda):
         sql = tpch_full.QUERIES[q]
         assert (tpch_full.normalize_rows(card.execute(sql).rows())
                 == tpch_full.normalize_rows(host.execute(sql).rows())), q
+
+
+def _dml_script():
+    """CREATE, INSERT (strings, DATEs, DECIMALs, NULLs), an UPDATE of a
+    DECIMAL column, a DELETE, a join over the tombstoned table, a
+    rolled-back transaction, and reads between them."""
+    rows_c = ", ".join(
+        f"({i}, {'null' if i % 13 == 0 else repr(f'n{i % 37}')}, "
+        f"{'null' if i % 11 == 0 else f'{i * 1.25:.2f}'}, "
+        f"'{2020 + i % 5}-0{1 + i % 9}-{10 + i % 19}', "
+        f"{'null' if i % 7 == 0 else repr(f'x{i % 3}')})"
+        for i in range(1, 2001))
+    rows_o = ", ".join(f"({1 + (7 * j) % 2000}, {j % 50})"
+                       for j in range(3000))
+    full = "select id, name, price, d, note from c order by id"
+    return [
+        "create table c (id int primary key, name varchar(20), "
+        "price decimal(12,2), d date, note varchar(10))",
+        f"insert into c values {rows_c}",
+        "create table o (cid int, qty bigint)",
+        f"insert into o values {rows_o}",
+        full,
+        "update c set price = price * 3 + 0.07 where id % 5 = 0",
+        "update c set price = price / 7 where id % 6 = 1 and price / 3 > 20",
+        "delete from c where id % 9 = 0",
+        full,
+        "#join",
+        "select c.name, count(*), sum(o.qty), sum(c.price), min(c.d) "
+        "from c join o on c.id = o.cid group by c.name order by c.name",
+        "begin",
+        "insert into c values (5000, 'late', 1.01, '2030-01-01', null)",
+        "update c set price = 0 where id < 500",
+        "delete from c where id > 1500",
+        "select count(*), sum(price) from c",
+        "rollback",
+        "select count(*), sum(price), count(name), count(note) from c",
+        full]
+
+
+def test_dml_on_the_card_matches_the_cpu(cuda):
+    """The write path's plans on the card give the CPU session's rows
+    and counts, statement for statement; the join over the tombstoned
+    table launches the sorted search."""
+    from matrixone_tpu_torch.frontend import Session
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        s = Session() if dev == "cuda" else Session(device="cpu")
+        assert s.device.type == dev
+        out = []
+        for sql in _dml_script():
+            if sql == "#join":
+                CK.LAUNCHES.reset()
+                continue
+            r = s.execute(sql)
+            out.append((r.rows(), r.affected))
+            if dev == "cuda" and sql.startswith("select c.name"):
+                assert CK.LAUNCHES.get("sorted_search") > 0
+        outs[dev] = out
+    assert outs["cuda"] == outs["cpu"]
+    assert len(outs["cpu"][-1][0]) == 2000 - 2000 // 9
