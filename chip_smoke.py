@@ -123,6 +123,31 @@ Phases, each of which raises on failure:
        against their plain versions at every shape 7b launched them
        with, on its own inputs.
 
+ 8. the rest of the executor on phase 5's SF1 tables, read-only (so it
+    runs before phase 7 changes them), each query as SQL text through
+    `Session.execute` with its cold seconds, the best of 3 warm runs as
+    rows/s of the tables it scans, the kernels' launches of the counted
+    run by shape and one profiled run:
+    a. FULL OUTER of the orders with a returned line and those with a
+       line shipped after 1995-06-17 (TPC-DS q97's three classes): equal
+       to numpy set arithmetic; the sorted search must launch;
+    b. rank() over orders by customer (150K partitions, past the
+       window's max_partitions), the first orders counted by year exact
+       to a lexsort oracle; a running sum, a 10-row moving average and
+       maximum over all of v: sums and maxima exact, averages within
+       rtol 1e-4 / atol 1e-3 of f64;
+    c. 5c's GROUP BY over a UNION ALL of v's two halves, with 5c's gates
+       and the segment sum at G = 4096; a UNION of c_mktsegment and
+       l_returnflag (two dictionaries), exact;
+    d. SAMPLE 10 PERCENT of lineitem equal to a replay of the draws (the
+       plan's seed, the scan's padded lengths) and within 5 sigma of
+       10%; SAMPLE 1000 ROWS of v the replay's rows; time_bucket groups
+       exact to numpy;
+    e. a comma join and a non-equi join of 2000 customers and 4096
+       orders: counts exact;
+    then both kernels held against their plain versions at every shape
+    phase 8 launched them with, on phase 8's own inputs.
+
 The second-to-last line of output is the kernels' JSON record and the
 last is {"ok": true, "device": {...}}.  Without CUDA, or outside a
 checkout of the repository, it exits non-zero and prints no result.
@@ -131,6 +156,7 @@ checkout of the repository, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import os
 import subprocess
@@ -2288,6 +2314,353 @@ GROUP_BY_SQL = ("select grp, sum(xi), sum(xn) from v group by grp "
                 "order by grp")
 
 
+#: phase 8a: TPC-DS q97's "only here, only there, both" over two sets of
+#: orders: those with a returned line, those with a line shipped after
+#: the cutoff.  Returned lines were all received by 1995-06-17; with
+#: that date as the cutoff the orders with only returned lines would be
+#: under 1% of the keys, with this one they are about 4%
+FULL_OUTER_CUTOFF = "1996-06-01"
+FULL_OUTER_SQL = f"""
+select sum(case when b.k is null then 1 else 0 end) only_returned,
+       sum(case when a.k is null then 1 else 0 end) only_late,
+       sum(case when a.k is not null and b.k is not null then 1 else 0
+           end) both_
+from (select l_orderkey k from lineitem where l_returnflag = 'R'
+      group by l_orderkey) a
+full outer join
+     (select l_orderkey k from lineitem
+      where l_shipdate > date '{FULL_OUTER_CUTOFF}' group by l_orderkey) b
+on a.k = b.k"""
+
+#: 8b: each customer's first order, counted by year (about 150K
+#: partitions, past the window's max_partitions of 65536)
+FIRST_ORDER_SQL = """
+select year(o_orderdate) y, count(*) from
+  (select o_orderdate,
+          rank() over (partition by o_custkey order by o_orderdate) rk
+   from orders) q
+where rk = 1 group by year(o_orderdate) order by y"""
+
+#: 8b: a running sum and a 10-row moving average and maximum over all
+#: of v, about 60 rows of it read back
+FRAME_STRIDE = 100003
+FRAMES_SQL = f"""
+select id, s, a, m from
+  (select id,
+          sum(xi) over (partition by grp order by id) s,
+          avg(xn) over (partition by grp order by id
+                        rows between 9 preceding and current row) a,
+          max(xn) over (partition by grp order by id
+                        rows between 9 preceding and current row) m
+   from v) q
+where id % {FRAME_STRIDE} = 0 order by id"""
+
+#: 8c: 5c's GROUP BY over the two halves of v put back together
+UNION_GROUP_BY_SQL = """
+select grp, sum(xi), sum(xn) from
+  (select grp, xi, xn from v where id < 3000000
+   union all
+   select grp, xi, xn from v where id >= 3000000) u
+group by grp order by grp"""
+UNION_DISTINCT_SQL = ("select c_mktsegment s from customer union "
+                      "select l_returnflag from lineitem order by s")
+
+#: 8d: each statement binds its Sample node with this seed
+SAMPLE_SEED = 8
+SAMPLE_PERCENT_SQL = "select count(*) from lineitem sample 10 percent"
+SAMPLE_ROWS_SQL = "select id from v sample 1000 rows"
+TIME_BUCKET_SQL = ("select time_bucket(l_shipdate, 30) b, count(*), "
+                   "sum(l_quantity) from lineitem group by "
+                   "time_bucket(l_shipdate, 30) order by b")
+
+#: 8e: a comma (cross) join and a join on a non-equi ON
+CROSS_SQL = ("select count(*) from customer, orders where c_custkey <= 2000 "
+             "and o_orderkey <= 4096")
+NON_EQUI_SQL = ("select count(*) from customer join orders on c_custkey < "
+                "o_custkey where c_custkey <= 2000 and o_orderkey <= 4096")
+
+
+class SeededSession:
+    """`session` with the binder's Sample seed counter set to `seed`
+    before each statement, so every run of a query draws one sample."""
+
+    def __init__(self, session, seed: int):
+        self.session, self.seed = session, seed
+
+    def _reset(self):
+        from matrixone_tpu_torch.sql import binder
+        binder._sample_seed = itertools.count(self.seed)
+
+    def execute(self, sql: str):
+        self._reset()
+        return self.session.execute(sql)
+
+    def plan(self, sql: str):
+        self._reset()
+        return self.session.plan(sql)
+
+
+def sample_seeds(node) -> list:
+    """The seeds of the Sample nodes of a plan."""
+    out = [node.seed] if type(node).__name__ == "Sample" else []
+    for attr in ("child", "left", "right"):
+        if hasattr(node, attr):
+            out += sample_seeds(getattr(node, attr))
+    for c in getattr(node, "children", None) or []:
+        out += sample_seeds(c)
+    return out
+
+
+def sample_draws(table, column: str, batch_rows: int, seed: int):
+    """A replay of SampleOp's draws over a scan of `table`: the chunks
+    the scan reads, and for each one `random(bucket_length(n), float32)`
+    from `default_rng(seed)` -> (column values, keys), the keys of each
+    chunk's live rows only, in scan order."""
+    from matrixone_tpu_torch.container.device import bucket_length
+    rng = np.random.default_rng(seed)
+    vals, keys = [], []
+    for arrays, _valid, _dicts, n in table.iter_chunks([column],
+                                                       batch_rows):
+        vals.append(np.asarray(arrays[column][:n]))
+        keys.append(rng.random(bucket_length(n), dtype=np.float32)[:n])
+    return np.concatenate(vals), np.concatenate(keys)
+
+
+def phase_executor_sf1(torch, CK, args, sf1) -> tuple:
+    """Phase 8: the rest of the executor at scale factor 1 on phase 5's
+    tables, read-only: FULL OUTER (8a), window functions (8b), UNION ALL
+    and UNION (8c), SAMPLE and time_bucket (8d), cross and non-equi joins
+    (8e), each as SQL text through `Session.execute` with its gate."""
+    from matrixone_tpu_torch.ops import kernels as TK
+    from matrixone_tpu_torch.sql import plan as P
+    from matrixone_tpu_torch.utils import tpch
+
+    session, lineitem, q3data, v = sf1
+    eng = session.catalog
+    orders = q3data["orders"]
+    n_li, n_ord, n_v = (len(lineitem["l_orderkey"]),
+                        len(orders["o_orderkey"]), len(v["id"]))
+    n_cust = eng.get_table("customer").n_rows
+    batch_rows = int(session.variables.get("batch_rows", 1 << 20))
+    epoch = __import__("datetime").date(1970, 1, 1)
+    report, caps = {}, {}
+
+    def path(key, label, sess, sql, n_rows, check, kernel=None):
+        report[key], caps[key] = sql_path(torch, CK, TK, label, sess, sql,
+                                          n_rows, check, kernel)
+
+    # 8a: FULL OUTER at full width against numpy set arithmetic
+    returned = np.unique(lineitem["l_orderkey"][
+        lineitem["l_returnflag"] == tpch.FLAG_CATS.index("R")])
+    cutoff = (__import__("datetime").date.fromisoformat(FULL_OUTER_CUTOFF)
+              - epoch).days
+    late = np.unique(lineitem["l_orderkey"][lineitem["l_shipdate"] > cutoff])
+    both = int(np.isin(returned, late).sum())
+    want_8a = [(len(returned) - both, len(late) - both, both)]
+    if min(want_8a[0]) < 0.01 * sum(want_8a[0]):
+        raise AssertionError(f"8a: a class under 1% of the keys "
+                             f"{want_8a}: pick another cutoff")
+
+    def check_8a(rows, _batch):
+        if rows != want_8a:
+            raise AssertionError(f"8a FULL OUTER {rows} != numpy {want_8a}")
+
+    path("8a_full_join", "8a FULL OUTER", session, FULL_OUTER_SQL, n_li,
+         check_8a, "sorted_search")
+    report["8a_full_join"]["sides"] = {"returned": len(returned),
+                                    "late": len(late)}
+    log(f"[8a] only returned {want_8a[0][0]}, only late {want_8a[0][1]}, "
+        f"both {both}: numpy's (sides {len(returned)} and {len(late)} "
+        f"keys)")
+
+    # 8b: window functions at full width
+    cust, odate = orders["o_custkey"], orders["o_orderdate"]
+    order = np.lexsort((odate, cust))
+    cs, ds = cust[order], odate[order]
+    head = np.ones(len(cs), bool)
+    head[1:] = cs[1:] != cs[:-1]
+    first = np.maximum.accumulate(np.where(head, np.arange(len(cs)), 0))
+    rank1 = ds[ds == ds[first]].astype("datetime64[D]")
+    years, counts = np.unique(rank1.astype("datetime64[Y]").astype(np.int64)
+                              + 1970, return_counts=True)
+    want_8b1 = [(int(y), int(c)) for y, c in zip(years, counts)]
+    partitions = int(head.sum())
+
+    def check_8b1(rows, _batch):
+        if rows != want_8b1:
+            raise AssertionError(f"8b first orders by year {rows[:3]} != "
+                                 f"the lexsort oracle's {want_8b1[:3]}")
+
+    path("8b_window_rank", "8b rank", session, FIRST_ORDER_SQL, n_ord,
+         check_8b1)
+    report["8b_window_rank"]["partitions"] = partitions
+    log(f"[8b] rank over {partitions} partitions: {len(rank1)} first "
+        f"orders by year, exact")
+
+    ids = np.arange(0, n_v, FRAME_STRIDE)
+    grp, xi, xn = v["grp"], v["xi"], v["xn"]
+    want_8b2 = []
+    for i in ids:
+        members = np.nonzero(grp == grp[i])[0]       # ascending ids
+        p = int(np.searchsorted(members, i))
+        frame = members[max(0, p - 9):p + 1]
+        want_8b2.append((int(i), float(xi[members[:p + 1]].astype(
+            np.float64).sum()), float(xn[frame].astype(np.float64).mean()),
+            float(xn[frame].max())))
+    frame_err = {}
+
+    def check_8b2(rows, _batch):
+        if [r[0] for r in rows] != [w[0] for w in want_8b2]:
+            raise AssertionError(f"8b frames: ids {[r[0] for r in rows][:5]}")
+        for r, w in zip(rows, want_8b2):
+            if r[1] != w[1] or r[3] != w[3]:
+                raise AssertionError(f"8b frames id {r[0]}: running sum "
+                                     f"{r[1]} / max {r[3]}, want {w[1]} / "
+                                     f"{w[3]}")
+        err = np.abs(np.array([r[2] for r in rows]) -
+                     np.array([w[2] for w in want_8b2]))
+        frame_err["avg_max_abs_err"] = float(err.max())
+        if (err > 1e-4 * np.abs([w[2] for w in want_8b2]) + 1e-3).any():
+            raise AssertionError(f"8b frames: moving average max err "
+                                 f"{err.max()} past rtol 1e-4 / atol 1e-3")
+
+    path("8b_window_frames", "8b frames", session, FRAMES_SQL, n_v, check_8b2)
+    report["8b_window_frames"].update(frame_err, rows=len(want_8b2))
+    log(f"[8b] {len(want_8b2)} rows: running sums and frame maxima exact, "
+        f"moving averages within {frame_err['avg_max_abs_err']:.3e}")
+
+    # 8c: UNION ALL under 5c's GROUP BY, and a UNION of two dictionaries
+    xi_exact = np.bincount(grp, weights=xi.astype(np.int64), minlength=1000)
+    xn_f64 = np.bincount(grp, weights=xn.astype(np.float64), minlength=1000)
+    union_err = {}
+
+    def check_8c(rows, _batch):
+        if [r[0] for r in rows] != list(range(1000)):
+            raise AssertionError("8c GROUP BY over UNION ALL: wrong groups")
+        if [r[1] for r in rows] != xi_exact.tolist():
+            raise AssertionError("8c sum(xi) is not the exact integer sum")
+        err = np.abs(np.asarray([r[2] for r in rows], np.float64) - xn_f64)
+        union_err["sum_xn_max_abs_err"] = float(err.max())
+        if (err > 1e-4 * np.abs(xn_f64) + 1e-3).any():
+            raise AssertionError(f"8c sum(xn) max err {err.max()} past "
+                                 f"rtol 1e-4 / atol 1e-3")
+
+    path("8c_union_group_by", "8c UNION ALL GROUP BY", session,
+         UNION_GROUP_BY_SQL, n_v, check_8c, "segment_sum")
+    report["8c_union_group_by"].update(union_err)
+    if {g for _, g in CK.LAUNCHES.shapes("segment_sum")} != {4096}:
+        raise AssertionError("8c: the segment-sum kernel ran at "
+                             f"{CK.LAUNCHES.shapes('segment_sum')}, not "
+                             f"only at G = 4096")
+    want_union = [(s_,) for s_ in sorted(set(tpch.SEGMENTS)
+                                         | set(tpch.FLAG_CATS))]
+
+    def check_union(rows, _batch):
+        if rows != want_union:
+            raise AssertionError(f"8c UNION {rows} != {want_union}")
+
+    path("8c_union_distinct", "8c UNION", session, UNION_DISTINCT_SQL,
+         n_cust + n_li, check_union)
+    log(f"[8c] UNION ALL GROUP BY: 1000 groups, sum(xi) exact, sum(xn) max "
+        f"err {union_err['sum_xn_max_abs_err']:.3e}; UNION of "
+        f"{len(tpch.SEGMENTS)} + {len(tpch.FLAG_CATS)} strings exact")
+
+    # 8d: SAMPLE replayed from the plan's seed and the padded lengths
+    seeded = SeededSession(session, SAMPLE_SEED)
+    for sql in (SAMPLE_PERCENT_SQL, SAMPLE_ROWS_SQL):
+        if sample_seeds(seeded.plan(sql)) != [SAMPLE_SEED]:
+            raise AssertionError(f"8d: the plan of {sql!r} samples with "
+                                 f"seeds {sample_seeds(seeded.plan(sql))}")
+    _, keys = sample_draws(eng.get_table("lineitem"), "l_orderkey",
+                           batch_rows, SAMPLE_SEED)
+    want_pct = int((keys < 0.1).sum())
+    sigma = (n_li * 0.1 * 0.9) ** 0.5
+    if abs(want_pct - 0.1 * n_li) > 5 * sigma:
+        raise AssertionError(f"8d: the replay drew {want_pct} rows, past "
+                             f"5 sigma of {0.1 * n_li}")
+
+    def check_pct(rows, _batch):
+        if rows != [(want_pct,)]:
+            raise AssertionError(f"8d SAMPLE 10 PERCENT {rows} != the "
+                                 f"replay's {want_pct}")
+
+    path("8d_sample_percent", "8d SAMPLE PERCENT", seeded, SAMPLE_PERCENT_SQL,
+         n_li, check_pct)
+    vids, vkeys = sample_draws(eng.get_table("v"), "id", batch_rows,
+                               SAMPLE_SEED)
+    want_ids = vids[np.argsort(vkeys, kind="stable")[:1000]].tolist()
+
+    def check_rows(rows, _batch):
+        got = [r[0] for r in rows]
+        if len(set(got)) != 1000 or not all(0 <= i < n_v for i in got):
+            raise AssertionError(f"8d SAMPLE 1000 ROWS: {len(set(got))} "
+                                 f"distinct ids")
+        if got != want_ids:
+            raise AssertionError("8d SAMPLE 1000 ROWS: not the replay's "
+                                 "rows")
+
+    path("8d_sample_rows", "8d SAMPLE ROWS", seeded, SAMPLE_ROWS_SQL, n_v,
+         check_rows)
+    ship = lineitem["l_shipdate"].astype(np.int64)
+    buckets, counts = np.unique(ship // 30 * 30, return_counts=True)
+    qty = np.bincount(np.searchsorted(buckets, ship // 30 * 30),
+                      weights=lineitem["l_quantity"], minlength=len(buckets))
+    want_tb = [(int(b), int(c), int(q)) for b, c, q in zip(buckets, counts,
+                                                           qty)]
+
+    def check_tb(rows, _batch):
+        got = [((r[0] - epoch).days if hasattr(r[0], "year") else r[0],
+                r[1], round(r[2] * 100)) for r in rows]
+        if got != want_tb:
+            raise AssertionError(f"8d time_bucket {got[:3]} != numpy "
+                                 f"{want_tb[:3]}")
+
+    path("8d_time_bucket", "8d time_bucket", session, TIME_BUCKET_SQL, n_li,
+         check_tb)
+    log(f"[8d] SAMPLE 10 PERCENT drew {want_pct} rows, the replay's "
+        f"({(want_pct - 0.1 * n_li) / sigma:+.2f} sigma); SAMPLE 1000 ROWS "
+        f"the replay's ids in order; time_bucket: {len(want_tb)} buckets "
+        f"exact")
+
+    # 8e: cross and non-equi joins, small by nature
+    oc = orders["o_custkey"][orders["o_orderkey"] <= 4096]
+    want_cross = [(min(2000, n_cust) * len(oc),)]
+    want_ne = [(int(np.clip(oc - 1, 0, min(2000, n_cust)).sum()),)]
+    for key, label, sql, want in (("8e_cross", "8e cross", CROSS_SQL,
+                                   want_cross),
+                                  ("8e_non_equi", "8e non-equi",
+                                   NON_EQUI_SQL, want_ne)):
+        def check_e(rows, _batch, want=want, label=label):
+            if rows != want:
+                raise AssertionError(f"{label} {rows} != numpy {want}")
+        path(key, label, session, sql, n_cust + n_ord, check_e)
+        report[key]["plan"] = P.explain(session.plan(sql))
+    log(f"[8e] cross {want_cross[0][0]} and non-equi {want_ne[0][0]} "
+        f"pairs, exact")
+
+    # both kernels at every shape phase 8 launched them with, on phase
+    # 8's own inputs; each timed at its most launched shape
+    search_rows, segsum_rows = [], []
+    for key, rec in report.items():
+        cap = caps[key]
+        counts = {tuple(r[:-1]): r[-1] for r in
+                  rec["launches"]["sorted_search"]["by_shape"]}
+        top = max(counts, key=counts.get) if counts else None
+        search_rows += [dict(check_sorted_search(
+            torch, CK, f"{key}_n{n_}_m{m_}", *cap.search[(n_, m_)],
+            timed=(n_, m_) == top), path=key, path_launches=c)
+            for (n_, m_), c in sorted(counts.items())]
+        counts = {tuple(r[:-1]): r[-1] for r in
+                  rec["launches"]["segment_sum"]["by_shape"]}
+        segsum_rows += [dict(check_segment_sum(
+            torch, CK, f"{key}_n{n_}_G{g}", *cap.segsum[(n_, g)], g),
+            path=key, path_launches=c)
+            for (n_, g), c in sorted(counts.items())]
+    del caps
+    torch.cuda.empty_cache()
+    return report, search_rows, segsum_rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=1_000_000)
@@ -2345,6 +2718,11 @@ def main(argv=None) -> int:
                                                              args)
     report["tpch"], tpch_search, sf01 = phase_tpch(torch, CK, args, sf1)
     t0 = time.perf_counter()
+    report["executor"], exec_search, exec_segsum = phase_executor_sf1(
+        torch, CK, args, sf1)
+    report["executor"]["seconds"] = time.perf_counter() - t0
+    log(f"[8] phase 8 took {report['executor']['seconds']:.1f}s")
+    t0 = time.perf_counter()
     rf01_report, rf01_search, rf01_segsum = phase_refresh_sf01(
         torch, CK, args, sf01)
     report["refresh"] = {"sf01": rf01_report}
@@ -2354,8 +2732,9 @@ def main(argv=None) -> int:
     report["refresh"]["seconds"] = time.perf_counter() - t0
     log(f"[7] phase 7 took {report['refresh']['seconds']:.1f}s")
     del sf1
-    search_rows += search_path + tpch_search + rf01_search + refresh_search
-    segsum_rows += segsum_path + rf01_segsum + refresh_segsum
+    search_rows += (search_path + tpch_search + rf01_search + refresh_search
+                    + exec_search)
+    segsum_rows += segsum_path + rf01_segsum + refresh_segsum + exec_segsum
     rows += path_rows + pq_rows
     adc_rows += pq_adc_rows
     pq_build = report["ivf_pq"]["build_launches"]
@@ -2387,6 +2766,13 @@ def main(argv=None) -> int:
                  **{f"7b_{k}": rf1[k]["launches"][kernel]["launches"]
                     for k in ("q1", "q3", "q6", "group_by",
                               "snapshot_join")}}
+        for kernel in ("sorted_search", "segment_sum")}
+    executor_launches = {
+        kernel: {p: rec["launches"][kernel]["launches"]
+                 for p, rec in report["executor"].items()
+                 if p != "seconds" and (rec["launches"][kernel]["launches"]
+                                        or p in ("8a_full_join",
+                                                 "8c_union_group_by"))}
         for kernel in ("sorted_search", "segment_sum")}
     record = {"kernels": [{
         "name": "l2_distance_sq", "route": "cuda",
@@ -2439,7 +2825,8 @@ def main(argv=None) -> int:
             **{p: v["sorted_search"]["launches"]
                for p, v in sql_launches.items()},
             **{f"6b_q{q}": v["sorted_search"] for q, v in tpch22.items()},
-            **refresh_launches["sorted_search"]},
+            **refresh_launches["sorted_search"],
+            **executor_launches["sorted_search"]},
         "max_abs_err": max(r["max_abs_err"] for r in search_rows),
         **{key: search_row[key] for key in timed},
         "library_call": "torch.searchsorted on pre-flipped int64",
@@ -2452,7 +2839,8 @@ def main(argv=None) -> int:
             **{p: v["segment_sum"]["launches"]
                for p, v in sql_launches.items()},
             **{f"6b_q{q}": v["segment_sum"] for q, v in tpch22.items()},
-            **refresh_launches["segment_sum"]},
+            **refresh_launches["segment_sum"],
+            **executor_launches["segment_sum"]},
         "max_abs_err": max(r["max_abs_err"] for r in segsum_rows),
         **{key: segsum_row[key] for key in timed},
         **{key: segsum_row[key] for key in (

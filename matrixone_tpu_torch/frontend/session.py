@@ -18,11 +18,11 @@ over the MVCC engine (snapshot isolation, a transaction's workspace,
 first-committer-wins; `set txn_mode = 'pessimistic'` takes row locks
 through the lock service), SET/SHOW VARIABLES, SHOW TABLES/CREATE
 TABLE/COLUMNS, CREATE/DROP/SHOW SNAPSHOT, RESTORE TABLE and EXPLAIN of a
-SELECT.
+SELECT.  A UNION [ALL] runs as a statement, a derived table or a CTE.
 
 Not ported yet (ROADMAP.md, section A): the result and plan caches,
 admission control, tracing, `mo_ctl`, the fault hooks, and every other
-statement (UNION, LOAD DATA, indexes, partitions, materialized views,
+statement (LOAD DATA, indexes, partitions, materialized views,
 UDFs, accounts ...), which raises NotImplementedError.  The session runs
 on `device` (CUDA unless the caller names the CPU); every scan uploads
 its chunks there.
@@ -136,7 +136,7 @@ class Session:
         return self.plan_select(parse_one(sql))
 
     def _execute_stmt(self, stmt: ast.Node) -> Result:
-        if isinstance(stmt, ast.Select):
+        if isinstance(stmt, (ast.Select, ast.Union)):
             return self._select(stmt)
         if isinstance(stmt, ast.CreateTable):
             return self._create_table(stmt)
@@ -150,7 +150,7 @@ class Session:
         if isinstance(stmt, ast.Update):
             return self._update(stmt)
         if isinstance(stmt, ast.Explain):
-            if not isinstance(stmt.stmt, ast.Select):
+            if not isinstance(stmt.stmt, (ast.Select, ast.Union)):
                 raise BindError("EXPLAIN supports SELECT only for now")
             if stmt.analyze:
                 raise _not_ported("EXPLAIN ANALYZE")
@@ -355,7 +355,7 @@ class Session:
         return optimize_plan(node, self.catalog)
 
     # ------------------------------------------------------------- select
-    def _select(self, sel: ast.Select) -> Result:
+    def _select(self, sel) -> Result:
         node = self.plan_select(sel)
         op = compile_plan(node, self._ctx())
         out_batches = [self._to_host(ex, node.schema)
@@ -374,9 +374,9 @@ class Session:
             cols[n] = Vector.from_values(vals, d)
         return Result(batch=Batch(cols))
 
-    def plan_select(self, sel: ast.Select):
+    def plan_select(self, sel):
         from matrixone_tpu_torch.sql.optimize import apply_indices
-        if not isinstance(sel, ast.Select):
+        if not isinstance(sel, (ast.Select, ast.Union)):
             raise _not_ported(f"{type(sel).__name__} statements")
         self._prepare_select(sel)
         node = Binder(self.catalog).bind_statement(sel)

@@ -6,6 +6,9 @@ JAX package's `MO_PLAN_FUSION=0`): no fusion pass.  Every AggOp gets
 `use_pallas=True`, which is what the reference resolves on its TPU
 (`HK.enabled()`), so float32 grouped sums take the segment-sum kernel
 exactly where the reference's do.
+
+`Materialized`, `UdfAggregate`, `FulltextTopK` and `VectorTopK` are not
+ported yet (ROADMAP.md): compiling one raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from matrixone_tpu_torch.sql import plan as P
 from matrixone_tpu_torch.vm import operators as ops
 from matrixone_tpu_torch.vm.join import JoinOp
 from matrixone_tpu_torch.vm.process import ExecContext
+from matrixone_tpu_torch.vm.window import WindowOp
 
 
 def compile_plan(node: P.PlanNode, ctx) -> ops.Operator:
@@ -41,8 +45,17 @@ def _compile_node(node: P.PlanNode, ctx: ExecContext) -> ops.Operator:
         return ops.TopKOp(node, _compile_node(node.child, ctx))
     if isinstance(node, P.Limit):
         return ops.LimitOp(node, _compile_node(node.child, ctx))
+    if isinstance(node, P.Window):
+        return WindowOp(node, _compile_node(node.child, ctx))
     if isinstance(node, P.Distinct):
         return ops.DistinctOp(node, _compile_node(node.child, ctx))
+    if isinstance(node, P.Sample):
+        return ops.SampleOp(node, _compile_node(node.child, ctx))
+    if isinstance(node, P.Fill):
+        return ops.FillOp(node, _compile_node(node.child, ctx))
+    if isinstance(node, P.Union):
+        return ops.UnionOp(node, [_compile_node(c, ctx)
+                                  for c in node.children])
     if isinstance(node, P.Join):
         return JoinOp(node, _compile_node(node.left, ctx),
                       _compile_node(node.right, ctx), ctx=ctx)

@@ -3,12 +3,12 @@
 The port of `matrixone_tpu/vm/exprs.py`: columns, literals, casts,
 CASE, IN lists, IS NULL, LIKE, the `ops/scalar.py` arithmetic, logic,
 comparisons (decimal-exact) and math functions, the date functions
-(`year`/`month`/`day` and the `_DATE_FUNCS` family) and the string
-functions (`vm/strfuncs.py`).  The rest — the numeric-to-string
-functions, `date_add_unit`/`timestampadd`/`timestampdiff`, the period
-functions, `time_bucket`, `to_datetime`, distance, `bit_count`,
-`rand`, `uuid`, `llm_embed` and UDF calls — raises
-`EvalError("not yet ported: ...")` (ROADMAP.md, section A).
+(`year`/`month`/`day`, the `_DATE_FUNCS` family, `date_add_unit`,
+`timestampadd`/`timestampdiff`, `makedate`, the period functions,
+`time_bucket`, `to_datetime`), the string functions (`vm/strfuncs.py`),
+the numeric-to-string functions (`_NUM2STR_FUNCS`), the row-wise vector
+distances, `bit_count`, `rand` and `uuid`.  `llm_embed` and UDF calls
+raise `EvalError("not yet ported: ...")` (ROADMAP.md, section A).
 
 Varchar columns arrive as dictionary codes + a host-side dictionary
 (ExecBatch.dicts): string predicates are evaluated on the *dictionary*
@@ -21,6 +21,8 @@ and gathers the new codes.
 from __future__ import annotations
 
 import dataclasses
+import datetime as _dtm
+import math as _math
 import re
 from typing import Dict, List, Optional
 
@@ -30,6 +32,7 @@ import torch
 from matrixone_tpu_torch.container import dtypes as dt
 from matrixone_tpu_torch.container.device import DeviceBatch, DeviceColumn
 from matrixone_tpu_torch.container.dtypes import DType
+from matrixone_tpu_torch.ops import distance as D, hash as H
 from matrixone_tpu_torch.ops import scalar as S
 from matrixone_tpu_torch.sql.expr import (BoundCase, BoundCast, BoundCol,
                                           BoundExpr, BoundFunc, BoundInList,
@@ -80,6 +83,10 @@ def _dict_of(e: BoundExpr, ex: ExecBatch) -> Optional[List[str]]:
     if isinstance(e, BoundFunc) and e.dtype.is_varlen \
             and e.op in _STRING_FUNCS:
         return string_func_final_dict(e, ex)
+    if isinstance(e, BoundFunc) and e.op in _NUM2STR_FUNCS:
+        return num2str_final_dict(e, ex)
+    if isinstance(e, BoundFunc) and e.op == "uuid":
+        return uuid_dict(ex)
     return None
 
 
@@ -246,6 +253,192 @@ def string_func_final_dict(e: BoundFunc, ex: ExecBatch):
     return list(uniq)
 
 
+#: numeric input -> string output: evaluated over the column's UNIQUE
+#: values on the host (O(distinct)), gathered on the device — the same
+#: cost model as the dictionary-level string functions
+_NUM2STR_FUNCS = {"date_format", "sec_to_time", "inet_ntoa",
+                  "format_num", "hex_int",
+                  "char_fn", "make_set", "export_set", "maketime"}
+
+#: MySQL date_format codes -> strftime (%e/%c handled inline: no-pad
+#: forms are platform-dependent in strftime)
+_MYSQL_FMT = {
+    "%Y": "%Y", "%y": "%y", "%m": "%m", "%d": "%d", "%H": "%H",
+    "%h": "%I", "%i": "%M", "%s": "%S", "%f": "%f", "%M": "%B",
+    "%b": "%b", "%W": "%A", "%a": "%a", "%j": "%j", "%p": "%p",
+    "%T": "%H:%M:%S", "%r": "%I:%M:%S %p", "%%": "%%",
+}
+
+
+def _round_bigint(v, dtype) -> int:
+    """MySQL: round a numeric argument to BIGINT. Integers never
+    round-trip through float (2^53 truncates a BIGINT's low bits);
+    decimals round half away from zero in the exact scaled-integer
+    domain; floats round half away from zero (Python's round() is
+    banker's: hex(254.5) would give 'FE')."""
+    if dtype is not None and dtype.oid == dt.TypeOid.DECIMAL64:
+        scale = 10 ** dtype.scale
+        sv = int(v)
+        q, r = divmod(abs(sv), scale)
+        if 2 * r >= scale:
+            q += 1
+        return -q if sv < 0 else q
+    if isinstance(v, (int, np.integer)) or (
+            dtype is not None and dtype.is_integer):
+        return int(v)
+    x = float(v)
+    n = _math.floor(abs(x) + 0.5)
+    return -n if x < 0 else n
+
+
+def _date_format(fmt: str, base: "_dtm.datetime") -> str:
+    out = []
+    i = 0
+    while i < len(fmt):
+        if fmt[i] == "%" and i + 1 < len(fmt):
+            code = fmt[i:i + 2]
+            i += 2
+            if code == "%e":
+                out.append(str(base.day))
+            elif code == "%c":
+                out.append(str(base.month))
+            elif code in _MYSQL_FMT:
+                out.append(base.strftime(_MYSQL_FMT[code]))
+            else:
+                out.append(code[1])
+        else:
+            out.append(fmt[i])
+            i += 1
+    return "".join(out)
+
+
+def _num2str_value(op, v, lits, dtype) -> Optional[str]:
+    """One unique input value -> output string (None = SQL NULL)."""
+    if op == "hex_int":
+        n = _round_bigint(v, dtype)
+        if n < 0:                        # unsigned 64-bit view (MySQL)
+            n &= 0xFFFFFFFFFFFFFFFF
+        return format(n, "X")
+    if op == "inet_ntoa":
+        n = int(v)
+        if n < 0 or n > 0xFFFFFFFF:
+            return None
+        return ".".join(str((n >> s) & 0xFF) for s in (24, 16, 8, 0))
+    if op == "sec_to_time":
+        n = int(v)
+        sign = "-" if n < 0 else ""
+        n = abs(n)
+        return f"{sign}{n // 3600:02d}:{n % 3600 // 60:02d}:{n % 60:02d}"
+    if op == "format_num":
+        nd = int(lits[1]) if len(lits) > 1 and lits[1] is not None else 0
+        x = float(v)
+        if dtype is not None and dtype.oid == dt.TypeOid.DECIMAL64:
+            x = x / 10 ** dtype.scale      # stored scaled (exact int)
+        return f"{x:,.{max(nd, 0)}f}"
+    if op == "char_fn":
+        n = _round_bigint(v, dtype)
+        if n < 0:
+            return None
+        bs = n.to_bytes(max((n.bit_length() + 7) // 8, 1), "big")
+        return bs.decode("utf-8", "replace")
+    if op == "make_set":
+        # NULL strings are skipped (MySQL), but the bit mask rounds
+        bits = _round_bigint(v, dtype)
+        return ",".join(str(s) for i, s in enumerate(lits[1:])
+                        if s is not None and bits & (1 << i))
+    if op == "export_set":
+        # MySQL: a NULL on/off/separator/count argument -> NULL result
+        if any(x is None for x in lits[1:5]):
+            return None
+        bits = _round_bigint(v, dtype)
+        on = str(lits[1]) if len(lits) > 1 else "1"
+        off = str(lits[2]) if len(lits) > 2 else "0"
+        sep = str(lits[3]) if len(lits) > 3 else ","
+        width = _round_bigint(lits[4], None) if len(lits) > 4 else 64
+        return sep.join(on if bits & (1 << i) else off
+                        for i in range(max(0, min(width, 64))))
+    if op == "maketime":
+        h = _round_bigint(v, dtype)
+        m = (_round_bigint(lits[1], None)
+             if len(lits) > 1 and lits[1] is not None else -1)
+        s = (_round_bigint(lits[2], None)
+             if len(lits) > 2 and lits[2] is not None else -1)
+        if not (0 <= m < 60 and 0 <= s < 60):
+            return None
+        sign = "-" if h < 0 else ""
+        return f"{sign}{abs(h):02d}:{m:02d}:{s:02d}"
+    if op == "date_format":
+        fmt = str(lits[1]) if len(lits) > 1 else "%Y-%m-%d"
+        if dtype is not None and _is_datetime(dtype):
+            base = _dtm.datetime(1970, 1, 1) \
+                + _dtm.timedelta(microseconds=int(v))
+        else:
+            base = _dtm.datetime(1970, 1, 1) + _dtm.timedelta(days=int(v))
+        return _date_format(fmt, base)
+    raise EvalError(op)
+
+
+def _unscaled_literal(a):
+    """Literal argument value with decimals unscaled to their real
+    magnitude (stored scaled: 3.7 at scale 1 is the integer 37)."""
+    if not isinstance(a, BoundLiteral):
+        return None
+    v = a.value
+    if v is not None and a.dtype.oid == dt.TypeOid.DECIMAL64:
+        return v / 10 ** a.dtype.scale
+    return v
+
+
+def _num2str_parts(e: BoundFunc, ex: ExecBatch):
+    """(col, inverse codes, formatted uniques) for a numeric->string
+    function — shared by eval and dictionary derivation so codes and
+    dictionary entries always line up.  Cached per (expression, batch):
+    the projection asks for the dictionary AND the values."""
+    cache = ex.__dict__.setdefault("_num2str_cache", {})
+    key = id(e)
+    if key not in cache:
+        col = eval_expr(e.args[0], ex)
+        uniq, inv = np.unique(col.data.cpu().numpy(), return_inverse=True)
+        lits = [None] + [_unscaled_literal(a) for a in e.args[1:]]
+        strs = [_num2str_value(e.op, u, lits, e.args[0].dtype)
+                for u in uniq]
+        cache[key] = (col, inv, strs)
+    return cache[key]
+
+
+def num2str_final_dict(e: BoundFunc, ex: ExecBatch):
+    _col, _inv, strs = _num2str_parts(e, ex)
+    uniq = {}
+    for v in strs:
+        uniq.setdefault("" if v is None else str(v), len(uniq))
+    return list(uniq)
+
+
+def _eval_num2str(e: BoundFunc, ex: ExecBatch) -> DeviceColumn:
+    col, inv, strs = _num2str_parts(e, ex)
+    uniq = {}
+    remap = np.empty(len(strs), np.int32)
+    nulls = np.empty(len(strs), np.bool_)
+    for i, v in enumerate(strs):
+        remap[i] = uniq.setdefault("" if v is None else str(v), len(uniq))
+        nulls[i] = v is None
+    inv = inv.reshape(-1)
+    codes = torch.from_numpy(remap[inv]).to(ex.device)
+    validity = col.validity & torch.from_numpy(~nulls[inv]).to(ex.device)
+    return DeviceColumn(codes, validity, e.dtype)
+
+
+def uuid_dict(ex: ExecBatch):
+    """uuid() dictionary: one fresh v4 uuid per row position, cached on
+    the batch so the codes and the projection's dictionary agree."""
+    import uuid as _uuid
+    cache = ex.__dict__.get("_uuid_dict")
+    if cache is None or len(cache) != ex.padded_len:
+        cache = [str(_uuid.uuid4()) for _ in range(ex.padded_len)]
+        ex.__dict__["_uuid_dict"] = cache
+    return cache
+
+
 _SIMPLE = {
     "add": S.add, "sub": S.sub, "mul": S.mul, "div": S.div, "mod": S.mod,
     "and": S.logical_and, "or": S.logical_or,
@@ -310,6 +503,15 @@ def _eval_func(e: BoundFunc, ex: ExecBatch) -> DeviceColumn:
         return S.truncate(a, int(digits))
     if op in _DATE_FUNCS:
         return _eval_date_func(e, ex)
+    if op == "time_bucket":
+        if not isinstance(e.args[1], BoundLiteral):
+            raise EvalError("time_bucket width must be a literal")
+        width = int(e.args[1].value)
+        if width <= 0:
+            raise EvalError("time_bucket width must be positive")
+        a = eval_expr(e.args[0], ex)
+        out = (a.data.to(torch.int64) // width) * width   # window start
+        return DeviceColumn(out.to(a.data.dtype), a.validity, e.dtype)
     if op == "date_add_days":
         a = eval_expr(e.args[0], ex)
         delta = eval_expr(e.args[1], ex)
@@ -321,12 +523,170 @@ def _eval_func(e: BoundFunc, ex: ExecBatch) -> DeviceColumn:
         y, m, d = _civil_from_days(a.data.to(torch.int64))
         out = {"year": y, "month": m, "day": d}[op]
         return DeviceColumn(out.to(torch.int32), a.validity, dt.INT32)
+    if op in ("l2_distance", "l2_distance_sq", "cosine_distance",
+              "inner_product", "cosine_similarity"):
+        return _eval_distance(e, ex)
     if op in _STRING_FUNCS:
         return _eval_string_func(e, ex)
+    if op in _NUM2STR_FUNCS:
+        return _eval_num2str(e, ex)
+    if op == "date_add_unit":
+        return _eval_date_add_unit(e, ex)
+    if op in ("timestampadd", "timestampdiff"):
+        return _eval_timestamp_fn(e, ex)
+    if op in ("makedate", "period_add", "period_diff"):
+        return _eval_period_fn(e, ex)
+    if op == "to_datetime":
+        a = eval_expr(e.args[0], ex)
+        data = a.data.to(torch.int64)
+        if a.dtype.oid == dt.TypeOid.DATE:
+            data = data * _US_PER_DAY
+        return DeviceColumn(data, a.validity, dt.DATETIME)
+    if op == "bit_count":
+        a = eval_expr(e.args[0], ex)
+        return DeviceColumn(_popcount64(a.data.to(torch.int64)),
+                            a.validity, dt.INT64)
+    if op == "rand":
+        n = ex.padded_len
+        seed = (int(e.args[0].value) if e.args
+                and isinstance(e.args[0], BoundLiteral) else None)
+        vals = torch.from_numpy(np.random.default_rng(seed).random(n))
+        return DeviceColumn(vals.to(ex.device),
+                            torch.ones((n,), dtype=torch.bool,
+                                       device=ex.device), dt.FLOAT64)
+    if op == "uuid":
+        n = ex.padded_len
+        return DeviceColumn(torch.arange(n, dtype=torch.int32,
+                                         device=ex.device),
+                            torch.ones((n,), dtype=torch.bool,
+                                       device=ex.device), e.dtype)
     if op in _SIMPLE:
         args = [eval_expr(a, ex) for a in e.args]
         return _SIMPLE[op](*args)
     raise EvalError(f"not yet ported: function {op}")
+
+
+def _popcount64(x: torch.Tensor) -> torch.Tensor:
+    """Bits set in each int64's 64-bit pattern (Hacker's Delight).  The
+    masks clear the bits an arithmetic shift brings in, the products
+    wrap as uint64 products do, and the last shift is logical."""
+    x = x - ((x >> 1) & 0x5555555555555555)
+    x = (x & 0x3333333333333333) + ((x >> 2) & 0x3333333333333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F0F0F0F0F
+    return H._shr(x * 0x0101010101010101, 56)
+
+
+def _eval_distance(e: BoundFunc, ex: ExecBatch) -> DeviceColumn:
+    a = eval_expr(e.args[0], ex)
+    b = eval_expr(e.args[1], ex)
+    da, db, valid = S._broadcast2(a, b)
+    fn = {"l2_distance": D.l2_distance_rowwise,
+          "l2_distance_sq": lambda x, y: D.l2_distance_rowwise(x, y) ** 2,
+          "cosine_distance": D.cosine_distance_rowwise,
+          "inner_product": D.inner_product_rowwise,
+          "cosine_similarity":
+              lambda x, y: 1.0 - D.cosine_distance_rowwise(x, y),
+          }[e.op]
+    return DeviceColumn(fn(da, db), valid, dt.FLOAT64)
+
+
+def _micros(col: DeviceColumn, data: torch.Tensor) -> torch.Tensor:
+    """Epoch microseconds of a DATE (days) or DATETIME/TIMESTAMP."""
+    return data.to(torch.int64) * (1 if _is_datetime(col.dtype)
+                                   else _US_PER_DAY)
+
+
+def _eval_date_add_unit(e: BoundFunc, ex: ExecBatch) -> DeviceColumn:
+    """date_add/date_sub with any interval unit.  Calendar units go
+    through the civil decomposition with MySQL day clamping (Jan 31 +
+    1 month = Feb 28); time units ride microseconds."""
+    a = eval_expr(e.args[0], ex)
+    n = int(e.args[1].value)
+    unit = str(e.args[2].value)
+    micros = _micros(a, a.data)
+    if unit in ("microsecond", "second", "minute", "hour"):
+        mult = {"microsecond": 1, "second": 1_000_000,
+                "minute": 60_000_000, "hour": 3_600_000_000}[unit]
+        return DeviceColumn(micros + n * mult, a.validity, dt.DATETIME)
+    days = micros // _US_PER_DAY
+    tod = micros - days * _US_PER_DAY
+    if unit in ("day", "week"):
+        nd = days + n * (7 if unit == "week" else 1)
+    else:
+        months = {"month": n, "quarter": 3 * n, "year": 12 * n}[unit]
+        y, m, d = _civil_from_days(days)
+        tot = y * 12 + (m - 1) + months
+        ny, nm = tot // 12, tot % 12 + 1
+        # clamp to the target month's length (MySQL semantics)
+        mlen = _days_from_civil(ny + (nm == 12).to(ny.dtype),
+                                torch.where(nm == 12, 1, nm + 1), 1) \
+            - _days_from_civil(ny, nm, 1)
+        nd = _days_from_civil(ny, nm, torch.minimum(d, mlen))
+    if e.dtype.oid == dt.TypeOid.DATETIME:
+        return DeviceColumn(nd * _US_PER_DAY + tod, a.validity,
+                            dt.DATETIME)
+    return DeviceColumn(nd.to(torch.int32), a.validity, dt.DATE)
+
+
+def _eval_timestamp_fn(e: BoundFunc, ex: ExecBatch) -> DeviceColumn:
+    unit = str(e.args[0].value).lower().rstrip("s")
+    if e.op == "timestampadd":
+        inner = BoundFunc("date_add_unit",
+                          [e.args[2], BoundLiteral(int(e.args[1].value),
+                                                   dt.INT64),
+                           BoundLiteral(unit, dt.VARCHAR)], dt.DATETIME)
+        return _eval_date_add_unit(inner, ex)
+    # timestampdiff(unit, a, b) = (b - a) in unit, truncated
+    a = eval_expr(e.args[1], ex)
+    b = eval_expr(e.args[2], ex)
+    da, db, valid = S._broadcast2(a, b)
+    ua, ub = _micros(a, da), _micros(b, db)
+    diff = ub - ua
+    if unit in ("microsecond", "second", "minute", "hour", "day", "week"):
+        div = {"microsecond": 1, "second": 1_000_000,
+               "minute": 60_000_000, "hour": 3_600_000_000,
+               "day": _US_PER_DAY, "week": 7 * _US_PER_DAY}[unit]
+        out = torch.sign(diff) * (torch.abs(diff) // div)
+        return DeviceColumn(out, valid, dt.INT64)
+    days_a = ua // _US_PER_DAY
+    days_b = ub // _US_PER_DAY
+    ya, ma, dda = _civil_from_days(days_a)
+    yb, mb, ddb = _civil_from_days(days_b)
+    months = (yb * 12 + mb) - (ya * 12 + ma)
+    # a partial month does not count (MySQL truncation): compare
+    # (day of month, time of day) lexicographically, not just the day
+    toa = ua - days_a * _US_PER_DAY
+    tob = ub - days_b * _US_PER_DAY
+    b_before_a = (ddb < dda) | ((ddb == dda) & (tob < toa))
+    a_before_b = (ddb > dda) | ((ddb == dda) & (tob > toa))
+    months = months - ((months > 0) & b_before_a).to(torch.int64) \
+        + ((months < 0) & a_before_b).to(torch.int64)
+    div = {"month": 1, "quarter": 3, "year": 12}.get(unit)
+    if div is None:
+        raise EvalError(f"unsupported timestampdiff unit {unit!r}")
+    out = torch.sign(months) * (torch.abs(months) // div)
+    return DeviceColumn(out, valid, dt.INT64)
+
+
+def _eval_period_fn(e: BoundFunc, ex: ExecBatch) -> DeviceColumn:
+    a = eval_expr(e.args[0], ex)
+    b = eval_expr(e.args[1], ex)
+    da, db, valid = S._broadcast2(a, b)
+    if e.op == "makedate":
+        y = da.to(torch.int64)
+        doy = db.to(torch.int64)
+        jan1 = _days_from_civil(y, torch.ones_like(y), 1)
+        return DeviceColumn((jan1 + doy - 1).to(torch.int32),
+                            valid & (doy >= 1), dt.DATE)
+    pa = da.to(torch.int64)
+    mo_a = (pa // 100) * 12 + pa % 100 - 1
+    if e.op == "period_add":
+        tot = mo_a + db.to(torch.int64)
+        return DeviceColumn((tot // 12) * 100 + tot % 12 + 1, valid,
+                            dt.INT64)
+    pb = db.to(torch.int64)
+    mo_b = (pb // 100) * 12 + pb % 100 - 1
+    return DeviceColumn(mo_a - mo_b, valid, dt.INT64)
 
 
 def _eval_compare(e: BoundFunc, ex: ExecBatch) -> DeviceColumn:

@@ -11,15 +11,26 @@ The port of the per-operator join of `matrixone_tpu/vm/join.py`
           equality (hashes only route; equality decides) -> gather
 
 Duplicate fan-out beyond max_matches is detected on the host and the
-probe re-runs with a doubled budget.  Inner, left, semi and anti joins;
-build-side min/max runtime filters pushed into the probe scans.
+probe re-runs with a doubled budget.  Inner, left, full outer, semi and
+anti joins; build-side min/max runtime filters pushed into the probe
+scans.  FULL OUTER marks the build rows each probe batch matched and
+ends with the unmatched ones, probe side null-extended.
+
+A join whose ON has no equi-key probes with empty keys: every row
+hashes alike, each probe row meets the whole build side, and the
+residual decides (the JAX package raises a TypeError on such a LEFT
+JOIN; ROADMAP.md, section C).  A cross join is a repeat/tile product of
+each probe batch with the build side, then the residual (reference:
+loopjoin).  Without keys both sides are compacted to their live rows
+first (the reference pairs padded lanes).
+
 Dictionary-coded (varchar) join keys translate the PROBE side's codes
 into the BUILD side's code space through a host O(distinct) LUT before
 hashing.
 
-Not ported yet (ROADMAP.md, section A): full outer and cross joins, the
-Grace spill of a build side past `DEFAULT_BUILD_BUDGET` live rows (both
-raise), and the fused join fragments.
+Not ported yet (ROADMAP.md, section A): the Grace spill of a build side
+past `DEFAULT_BUILD_BUDGET` live rows (it raises) and the fused join
+fragments.
 """
 
 from __future__ import annotations
@@ -68,17 +79,24 @@ def _maybe_compact(out: ExecBatch) -> ExecBatch:
     """Join outputs carry np*mm lanes but typically few live rows; without
     compaction a chain of joins grows lanes multiplicatively.  Compact
     whenever the live fraction drops below 1/4, padding to the bucket."""
-    lanes = int(out.mask.shape[0])
-    if lanes <= 2048:
+    if int(out.mask.shape[0]) <= 2048:
         return out
-    live = int(out.mask.to(torch.int32).sum())
-    cap = bucket_length(max(live, 1))
-    if cap * 4 > lanes:
-        return out
-    db = F.compact(out.batch, out.mask, cap)
-    return ExecBatch(batch=db, dicts=out.dicts,
+    return _compact_live(out, min_shrink=4)
+
+
+def _compact_live(ex: ExecBatch, min_shrink: int = 1) -> ExecBatch:
+    """The live rows of `ex` gathered to the front of their bucket, when
+    that shrinks the lanes at least `min_shrink` times (one host sync).
+    A join without keys pairs every probe lane with every build lane, so
+    both sides go in compacted: a filtered scan keeps its padded lanes."""
+    lanes = int(ex.mask.shape[0])
+    cap = bucket_length(max(int(ex.mask.to(torch.int32).sum()), 1))
+    if cap * min_shrink > lanes:
+        return ex
+    db = F.compact(ex.batch, ex.mask, cap)
+    return ExecBatch(batch=db, dicts=ex.dicts,
                      mask=torch.arange(cap, dtype=torch.int32,
-                                       device=out.device) < db.n_rows)
+                                       device=ex.device) < db.n_rows)
 
 
 # =====================================================================
@@ -137,7 +155,12 @@ def probe_key_columns(node, ex: ExecBatch, bkey_dicts):
 
 def hash_valid_keys(kcols, mask):
     """(row hash, all-keys-valid mask) for one side's key columns; rows
-    with any NULL key never match (SQL equi-join semantics)."""
+    with any NULL key never match (SQL equi-join semantics).  With no
+    keys (an ON without an equi-key) every row hashes to 0, so each
+    probe row meets every build row and the residual decides."""
+    if not kcols:
+        return torch.zeros(mask.shape, dtype=torch.int64,
+                           device=mask.device), mask
     h = H.hash_columns([k.data for k in kcols],
                        [k.validity for k in kcols])
     valid = mask
@@ -198,11 +221,13 @@ def runtime_filter_ranges(specs, bkeys, bvalid):
 
 
 def expand_probe(node, ex: ExecBatch, build: ExecBatch, sorted_hash,
-                 border, phash, pvalid, pkeys, bkeys, mm: int):
+                 border, phash, pvalid, pkeys, bkeys, mm: int,
+                 build_matched=None):
     """One probe batch against a finalized build side: sorted search ->
     expand `mm` duplicate lanes -> verify true key equality -> gather
-    both sides -> residual -> left-join NULL-extension.  Returns
-    (out ExecBatch [np*mm lanes], overflow bool tensor)."""
+    both sides -> residual -> left/full NULL-extension.  Returns
+    (out ExecBatch [np*mm lanes], overflow bool tensor, build_matched':
+    for a full join, the build rows matched so far)."""
     np_ = ex.padded_len
     nb = sorted_hash.shape[0]
     device = ex.device
@@ -250,7 +275,14 @@ def expand_probe(node, ex: ExecBatch, build: ExecBatch, sorted_hash,
     if node.residual is not None:
         pred = eval_expr(node.residual, out)
         out.mask = out.mask & F.predicate_mask(pred, db)
-    if node.kind == "left":
+    if node.kind == "full":
+        # record which build rows matched (post-residual, pre-null-
+        # extension) — monotonic across overflow re-runs
+        hits = torch.zeros(build_matched.shape, dtype=torch.int32,
+                           device=device).index_add_(
+            0, build_idx, out.mask.to(torch.int32))
+        build_matched = build_matched | (hits > 0)
+    if node.kind in ("left", "full"):
         matched_any = out.mask.reshape(np_, mm).any(dim=1)
         lane0 = (lane == 0).repeat(np_)
         null_emit = lane0 & ~matched_any.repeat_interleave(mm) & \
@@ -262,7 +294,7 @@ def expand_probe(node, ex: ExecBatch, build: ExecBatch, sorted_hash,
                 c.data, c.validity & ~null_emit, c.dtype)
         out.mask = out.mask | null_emit
     out.batch.n_rows = out.mask.to(torch.int32).sum()
-    return out, overflow
+    return out, overflow, build_matched
 
 
 def collapse_semi_anti(node, ex: ExecBatch, out_mask, mm: int):
@@ -323,15 +355,16 @@ class JoinOp(Operator):
                 "join_build_budget", self.build_budget))
 
     def execute(self) -> Iterator[ExecBatch]:
-        if self.node.kind not in ("inner", "left", "semi", "anti") \
-                or not self.node.right_keys:
-            raise NotImplementedError(
-                f"{self.node.kind} joins without equi-keys or of kind full "
-                f"or cross are not ported yet (ROADMAP.md, section A)")
         # stream the build side counting live rows; past the budget the
-        # reference switches to its Grace spill
-        build_batches, overflowed = stream_build_side(self.right.execute(),
-                                                      self.build_budget)
+        # reference switches to its Grace spill (cross joins have no key
+        # to partition by — they stay in memory whatever the size)
+        build_iter = self.right.execute()
+        overflowed = False
+        if self.node.kind != "cross" and self.node.right_keys:
+            build_batches, overflowed = stream_build_side(
+                build_iter, self.build_budget)
+        else:
+            build_batches = list(build_iter)
         if overflowed:
             raise NotImplementedError(
                 f"join build side past {self.build_budget} live rows: the "
@@ -340,12 +373,19 @@ class JoinOp(Operator):
             return
         build = (_concat_batches(build_batches, self.node.right.schema)
                  if build_batches else None)
+        keyless = not self.node.right_keys
+        if build is not None and keyless:
+            build = _compact_live(build)
+        if self.node.kind == "cross":
+            yield from self._cross(build)
+            return
         if build is None:
             if self.node.kind == "anti":
                 # NOT EXISTS against nothing: every left row passes
                 yield from self.left.execute()
                 return
-            # LEFT JOIN with empty right side: all left rows null-extended
+            # LEFT/FULL JOIN with empty right side: all left rows
+            # null-extended
             for ex in self.left.execute():
                 yield self._null_extend_all(ex)
             return
@@ -354,9 +394,42 @@ class JoinOp(Operator):
         sorted_hash, order, bvalid = build_sorted_hash(bkeys, build.mask)
         if self.node.kind in ("inner", "semi"):
             self._push_runtime_filters(bkeys, bvalid)
+        build_matched = None
+        probe_dicts = {}
+        if self.node.kind == "full":
+            build_matched = torch.zeros(build.padded_len, dtype=torch.bool,
+                                        device=build.device)
         for ex in self.left.execute():
-            yield from self._probe(ex, build, sorted_hash, order, bkeys,
-                                   bkey_dicts)
+            if keyless:
+                ex = _compact_live(ex)
+            probe_dicts.update(ex.dicts)
+            out, build_matched = self._probe(
+                ex, build, sorted_hash, order, bkeys, bkey_dicts,
+                build_matched)
+            yield out
+        if self.node.kind == "full":
+            yield self._unmatched_build(build, build_matched, probe_dicts)
+
+    def _unmatched_build(self, build: ExecBatch, build_matched,
+                         probe_dicts) -> ExecBatch:
+        """FULL OUTER: the build rows no probe row matched, probe-side
+        columns null-extended (the probe loop already null-extended the
+        unmatched probe rows)."""
+        unmatched = build.mask & ~build_matched
+        nb = build.padded_len
+        cols = {name: _null_column(dtype, nb, build.device)
+                for name, dtype in self.node.left.schema}
+        for name, _ in self.node.right.schema:
+            cols[name] = _broadcast_full(build.batch.columns[name], nb)
+        db = DeviceBatch(columns=cols,
+                         n_rows=unmatched.to(torch.int32).sum())
+        # probe-side varchar columns are all-NULL here but expressions
+        # above the join still resolve them through their dictionary
+        dicts = {**probe_dicts, **build.dicts}
+        for name, dtype in self.node.left.schema:
+            if dtype.is_varlen:
+                dicts.setdefault(name, [""])
+        return ExecBatch(batch=db, dicts=dicts, mask=unmatched)
 
     def _push_runtime_filters(self, bkeys, bvalid) -> None:
         """Build-side key min/max pushed into probe-side scans before the
@@ -385,21 +458,31 @@ class JoinOp(Operator):
                               dt.BOOL))
 
     def _probe(self, ex: ExecBatch, build, sorted_hash, border, bkeys,
-               bkey_dicts):
+               bkey_dicts, build_matched=None):
+        """One probe batch -> (its output batch, build_matched')."""
         pkeys = probe_key_columns(self.node, ex, bkey_dicts)
         phash, pvalid = hash_valid_keys(pkeys, ex.mask)
-        mm = self.max_matches
+        # without keys every live build row matches: start at the whole
+        # build side instead of doubling up to it
+        mm = (self.max_matches if self.node.right_keys
+              else build.padded_len)
         while True:
-            out, overflow = expand_probe(
+            out, overflow, bm = expand_probe(
                 self.node, ex, build, sorted_hash, border, phash,
-                pvalid, pkeys, bkeys, mm)
+                pvalid, pkeys, bkeys, mm, build_matched)
             if not bool(overflow):
                 break
             mm *= 2
         if self.node.kind in ("semi", "anti"):
-            yield collapse_semi_anti(self.node, ex, out.mask, mm)
+            return collapse_semi_anti(self.node, ex, out.mask, mm), bm
+        return _maybe_compact(out), bm
+
+    def _cross(self, build):
+        if build is None:
             return
-        yield _maybe_compact(out)
+        for ex in self.left.execute():
+            yield _maybe_compact(_cross_product(self.node, _compact_live(ex),
+                                                build))
 
     def _null_extend_all(self, ex: ExecBatch) -> ExecBatch:
         np_ = ex.padded_len
@@ -420,3 +503,28 @@ def _null_column(dtype, n: int, device) -> DeviceColumn:
     return DeviceColumn(torch.zeros(shape, dtype=t, device=device),
                         torch.zeros((n,), dtype=torch.bool, device=device),
                         dtype)
+
+
+def _cross_product(node, ex: ExecBatch, build: ExecBatch) -> ExecBatch:
+    """Every live probe row of `ex` against every live build row:
+    np * nb lanes, probe-major, then the residual."""
+    np_, nb = ex.padded_len, build.padded_len
+    device = ex.device
+    probe_idx = torch.arange(np_, device=device).repeat_interleave(nb)
+    build_idx = torch.arange(nb, device=device).repeat(np_)
+    emit = ex.mask.repeat_interleave(nb) & build.mask.repeat(np_)
+    cols = {}
+    for name, _ in node.left.schema:
+        c = _broadcast_full(ex.batch.columns[name], np_)
+        cols[name] = DeviceColumn(c.data[probe_idx], c.validity[probe_idx],
+                                  c.dtype)
+    for name, _ in node.right.schema:
+        c = _broadcast_full(build.batch.columns[name], nb)
+        cols[name] = DeviceColumn(c.data[build_idx], c.validity[build_idx],
+                                  c.dtype)
+    db = DeviceBatch(columns=cols, n_rows=emit.to(torch.int32).sum())
+    out = ExecBatch(batch=db, dicts={**build.dicts, **ex.dicts}, mask=emit)
+    if node.residual is not None:
+        pred = eval_expr(node.residual, out)
+        out.mask = out.mask & F.predicate_mask(pred, db)
+    return out

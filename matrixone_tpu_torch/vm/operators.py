@@ -4,7 +4,7 @@ The port of the per-operator path of `matrixone_tpu/vm/operators.py`
 (reference analogue: `pkg/sql/colexec` + the `vm.Operator` pull loop):
 Scan (pushed filters, zonemap pruning and the runtime filters joins
 inject), Values, Filter, Project, the streaming grouped and scalar
-aggregate, Sort, TopK, Limit and Distinct.  Operators yield ExecBatch
+aggregate, Sort, TopK, Limit, Distinct, Union, Sample and Fill.  Operators yield ExecBatch
 (device tensors + mask): filters produce masks, not compacted rows;
 group-by is the sort/segment kernel (ops/agg) with a streaming partial
 merge into a bounded device-resident group table.
@@ -15,8 +15,8 @@ ids, no hash and no sort, float sums in f64.  DISTINCT dedups by the
 same group ids.
 
 Not ported yet (ROADMAP.md, section A): the aggregate's host spill past
-`max_device_groups` and its distributed `partial_state`, UNION, SAMPLE,
-FILL, aggregate UDFs, and the scan's shard routing and read-ahead
+`max_device_groups` and its distributed `partial_state`, aggregate UDFs,
+materialized host arrays, and the scan's shard routing and read-ahead
 thread.
 """
 
@@ -848,6 +848,55 @@ def _scalar_final(a: AggCall, state, dtype: DType, device) -> DeviceColumn:
     return DeviceColumn(v[None], (c > 0)[None], dtype)
 
 
+# ------------------------------------------------------------------ union
+
+class UnionOp(Operator):
+    """UNION ALL: stream children, renaming to the union schema and
+    re-encoding string columns into one dictionary for the whole union
+    (children's dictionaries are per-table and must not collide).  The
+    dictionary starts empty on every execution."""
+
+    def __init__(self, node: P.Union, children: List[Operator]):
+        self.node = node
+        self.children = children
+        self.schema = node.schema
+        self._union_dicts: Dict[str, List[str]] = {}
+        self._union_lut: Dict[str, Dict[str, int]] = {}
+
+    def _remap_strings(self, name: str, col: DeviceColumn, src_dict):
+        d = self._union_dicts.setdefault(name, [])
+        lut = self._union_lut.setdefault(name, {})
+        remap = np.empty(max(len(src_dict), 1), np.int32)
+        for i, s_ in enumerate(src_dict):
+            if s_ not in lut:
+                lut[s_] = len(d)
+                d.append(s_)
+            remap[i] = lut[s_]
+        return lut_gather(remap, col.data)
+
+    def execute(self) -> Iterator[ExecBatch]:
+        self._union_dicts = {}
+        self._union_lut = {}
+        for child in self.children:
+            child_names = [n for n, _ in child.schema]
+            for ex in child.execute():
+                cols = {}
+                for cn, (out_name, out_t) in zip(child_names, self.schema):
+                    col = ex.batch.columns[cn]
+                    if out_t.is_varlen:
+                        src = ex.dicts.get(cn, [])
+                        col = DeviceColumn(
+                            self._remap_strings(out_name, col, src),
+                            col.validity, out_t)
+                    elif col.dtype.torch_dtype != out_t.torch_dtype \
+                            and out_t.is_numeric:
+                        col = S.cast(col, out_t)
+                    cols[out_name] = col
+                db = DeviceBatch(columns=cols, n_rows=ex.batch.n_rows)
+                yield ExecBatch(batch=db, dicts=dict(self._union_dicts),
+                                mask=ex.mask)
+
+
 # ------------------------------------------------------------- sort / topk
 
 def _sort_key_col(expr: BoundExpr, ex: ExecBatch) -> DeviceColumn:
@@ -953,6 +1002,135 @@ def _apply_offset(db: DeviceBatch, offset: int, k: Optional[int]) -> DeviceBatch
     if k is not None:
         remaining = torch.clamp(remaining, max=k)
     return F.gather(db, idx, remaining)
+
+
+class SampleOp(Operator):
+    """Random sampling (reference: colexec/sample).  PERCENT is a
+    streaming per-row Bernoulli mask; N ROWS is a single-pass reservoir
+    expressed as top-N over per-row random keys.  The keys are drawn on
+    the host, `np.random.default_rng(node.seed).random(padded_len,
+    float32)` per batch, as the reference draws them, so a sample
+    depends on the padded batch lengths (`bucket_length`)."""
+
+    def __init__(self, node: P.Sample, child: Operator):
+        self.node = node
+        self.child = child
+        self.schema = node.schema
+
+    def execute(self) -> Iterator[ExecBatch]:
+        rng = np.random.default_rng(self.node.seed)
+        if self.node.percent is not None:
+            p = self.node.percent / 100.0
+            for ex in self.child.execute():
+                u = torch.from_numpy(rng.random(ex.padded_len,
+                                                dtype=np.float32))
+                ex.mask = ex.mask & (u.to(ex.device) < p)
+                yield ex
+            return
+        n = self.node.n_rows
+        schema_k = list(self.schema) + [("__sample_key", dt.FLOAT32)]
+        winners = None        # running k-row reservoir: O(k + batch) device
+        for ex in self.child.execute():
+            u = torch.from_numpy(rng.random(ex.padded_len,
+                                            dtype=np.float32)).to(ex.device)
+            key = torch.where(ex.mask, u, float("inf"))
+            ex.batch.columns["__sample_key"] = DeviceColumn(
+                key, torch.ones_like(ex.mask), dt.FLOAT32)
+            merged = ex if winners is None else _concat_batches(
+                [winners, ex], schema_k)
+            key = merged.batch.columns["__sample_key"]
+            k = min(n, merged.padded_len)
+            idx, count = msort.top_k_indices(key.data, key.validity, False,
+                                             merged.mask, k)
+            out = F.gather(merged.batch, idx, torch.clamp(count, max=k))
+            winners = ExecBatch(batch=out, dicts=dict(merged.dicts),
+                                mask=out.row_mask())
+        if winners is None:
+            return
+        del winners.batch.columns["__sample_key"]
+        yield winners
+
+
+class FillOp(Operator):
+    """Null-fill of grouped output (reference: colexec/fill), on the
+    host in numpy: materializes the (small, post-aggregate) child,
+    orders rows by the first group key, and fills NULLs in non-key
+    columns: PREV carries the last non-null value forward, LINEAR
+    interpolates between the surrounding non-null values on the order
+    axis, VALUE writes a constant."""
+
+    def __init__(self, node: P.Fill, child: Operator):
+        self.node = node
+        self.child = child
+        self.schema = node.schema
+
+    def execute(self) -> Iterator[ExecBatch]:
+        batches = list(self.child.execute())
+        if not batches:
+            return
+        ex = _concat_batches(batches, self.schema)
+        mask = ex.mask.cpu().numpy()
+        host, val = {}, {}
+        for name, _dtype in self.schema:
+            c = _broadcast_full(ex.batch.columns[name], ex.padded_len)
+            host[name] = c.data.cpu().numpy()[mask]
+            val[name] = c.validity.cpu().numpy()[mask]
+        ocol = self.node.order_col
+        if dict(self.schema)[ocol].is_varlen:
+            # order by decoded strings, not dict codes (insertion order)
+            d = ex.dicts.get(ocol, [])
+            decoded = np.array([d[c] if 0 <= c < len(d) else ""
+                                for c in host[ocol]], dtype=object)
+            order = np.argsort(decoded, kind="stable")
+            # LINEAR has no numeric axis over strings: use row positions
+            x = np.arange(len(order), dtype=np.float64)
+        else:
+            order = np.argsort(host[ocol], kind="stable")
+            x = host[ocol][order].astype(np.float64)
+        keyset = set(self.node.key_cols)
+        for name, dtype in self.schema:
+            a = host[name][order].copy()
+            v = val[name][order].copy()
+            if name not in keyset and (~v).any():
+                a, v = self._fill(dtype, a, v, x)
+            host[name] = a
+            val[name] = v
+        dtypes = {n: (dt.INT32 if d.is_varlen else d)
+                  for n, d in self.schema}
+        db = dev.from_numpy(host, dtypes, val, n_rows=len(order),
+                            device=ex.device)
+        for name, dtype in self.schema:
+            if dtype.is_varlen:
+                c = db.columns[name]
+                db.columns[name] = DeviceColumn(c.data, c.validity, dtype)
+        yield ExecBatch(batch=db, dicts=dict(ex.dicts), mask=db.row_mask())
+
+    def _fill(self, dtype, a, v, x):
+        miss = ~v
+        if self.node.mode == "value":
+            if dtype.is_varlen:
+                raise EvalError("FILL(VALUE) on string column")
+            cv = self.node.const
+            if dtype.oid == TypeOid.DECIMAL64:
+                cv = round(cv * 10 ** dtype.scale)
+            a[miss] = np.asarray(cv).astype(a.dtype)
+            v[:] = True
+        elif self.node.mode == "prev":
+            idx = np.maximum.accumulate(np.where(v, np.arange(len(a)), -1))
+            ok = idx >= 0
+            a[ok] = a[np.maximum(idx[ok], 0)]
+            v = ok
+        elif self.node.mode == "linear":
+            if dtype.is_varlen:
+                raise EvalError("FILL(LINEAR) on string column")
+            good = np.nonzero(v)[0]
+            if len(good) >= 2:
+                # outside the known range np.interp clamps — FILL(LINEAR)'s
+                # edge-hold behavior
+                interp = np.interp(x, x[good], a[good].astype(np.float64))
+                a[miss] = interp[miss].astype(a.dtype)
+                v = np.ones_like(v)
+        return a, v
 
 
 class LimitOp(Operator):

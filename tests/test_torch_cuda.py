@@ -855,3 +855,78 @@ def test_dml_on_the_card_matches_the_cpu(cuda):
         outs[dev] = out
     assert outs["cuda"] == outs["cpu"]
     assert len(outs["cpu"][-1][0]) == 2000 - 2000 // 9
+
+
+def _port_outcomes(device, steps):
+    """Each step's outcome on a fresh port session on `device`, the
+    Sample seed counter reset first (the draws must be the CPU's)."""
+    import itertools
+    from matrixone_tpu_torch.frontend import Session
+    from matrixone_tpu_torch.sql import binder
+    from torch_scripts import run_step
+    binder._sample_seed = itertools.count(1)
+    s = Session(device=device)
+    return [run_step(s, st.lstrip("!")) for st in steps]
+
+
+def _executor_cases():
+    from torch_scripts import BUILTINS, SETOPS, WINDOW
+    for group, cases in (("window", WINDOW), ("setops", SETOPS),
+                         ("builtins", BUILTINS)):
+        for name in cases:
+            yield f"{group}:{name}"
+
+
+@pytest.mark.parametrize("case", list(_executor_cases()))
+def test_executor_script_on_the_card_matches_the_cpu(cuda, case):
+    """The window, set-operation and function scripts of the CPU tests
+    on a CUDA session give the CPU session's outcomes: rows exact, float
+    window sums and averages within rtol 1e-4 / atol 1e-3 and vector
+    distances within 1e-12, the same exception classes."""
+    import torch_scripts as TS
+    group, name = case.split(":")
+    steps = {"window": TS.WINDOW, "setops": TS.SETOPS,
+             "builtins": TS.BUILTINS}[group][name]
+    tol = {"window": (1e-4, 1e-3),
+           "builtins": (1e-12, 1e-12)}.get(group, (None, None))
+    want = _port_outcomes("cpu", steps)
+    got = _port_outcomes("cuda", steps)
+    for step, g, w in zip(steps, got, want):
+        assert (w[0] == "err") == step.startswith("!"), (step, w)
+        assert TS.same_outcome(g, w, *tol), (step, g, w)
+
+
+def test_full_outer_join_on_the_card_launches_the_sorted_search(cuda):
+    """FULL OUTER over 20K x 12K rows with duplicate and NULL keys: the
+    probe goes through the sorted-search kernel, and the rows, the
+    unmatched build rows included, are the CPU session's."""
+    from matrixone_tpu_torch.frontend import Session
+    from torch_scripts import insert_sql
+    rng = np.random.default_rng(9)
+    a = [(i, None if i % 31 == 0 else int(rng.integers(0, 9000)))
+         for i in range(20_000)]
+    b = [(i, None if i % 29 == 0 else int(rng.integers(6000, 15000)))
+         for i in range(12_000)]
+    steps = ["create table fa (id bigint, k bigint)",
+             "create table fb (id bigint, k bigint)",
+             insert_sql("fa", a), insert_sql("fb", b),
+             "set batch_rows = 8192"]
+    sql = ("select count(*), sum(case when fa.id is null then 1 else 0 "
+           "end), sum(case when fb.id is null then 1 else 0 end), "
+           "sum(fa.id), sum(fb.id) from fa full outer join fb "
+           "on fa.k = fb.k")
+    rows = {}
+    for dev in ("cpu", "cuda"):
+        s = Session(device=dev)
+        for st in steps:
+            s.execute(st)
+        CK.LAUNCHES.reset()
+        rows[dev] = s.execute(sql).rows()
+        if dev == "cuda":
+            assert CK.LAUNCHES.get("sorted_search") > 0
+    assert rows["cuda"] == rows["cpu"]
+    ka = {k for _, k in a if k is not None}
+    kb = {k for _, k in b if k is not None}
+    only_b = sum(1 for _, k in b if k is None or k not in ka)
+    only_a = sum(1 for _, k in a if k is None or k not in kb)
+    assert rows["cpu"][0][1:3] == (only_b, only_a)

@@ -7,7 +7,9 @@ NULL keys on both sides, padded batches — and must agree bit for bit.
 Then joins run from SQL text through both sessions over the same
 tables (the JAX package on its per-operator path, MO_PLAN_FUSION=0,
 with its Pallas kernels in interpret mode, MO_HAND_KERNELS=1): inner,
-left, semi and anti joins, empty build and probe sides.
+left, semi and anti joins, empty build and probe sides.  FULL OUTER's
+build-row tracking is held bit for bit too; its SQL cases, with cross
+and non-equi joins, are in tests/test_torch_setops.py.
 """
 
 from types import SimpleNamespace
@@ -107,8 +109,8 @@ def test_build_and_expand_probe_bit_identical(kind):
     for mm in (4, 8, 16):
         jout, jov, _ = JJ.expand_probe(jnode, jprobe, jbuild, jsh, jorder,
                                        jph, jpv, jpk, jbk, mm)
-        tout, tov = TJ.expand_probe(tnode, tprobe, tbuild, tsh, torder,
-                                    tph, tpv, tpk, tbk, mm)
+        tout, tov, _ = TJ.expand_probe(tnode, tprobe, tbuild, tsh, torder,
+                                       tph, tpv, tpk, tbk, mm)
         assert bool(tov) == bool(jov)
         overflows.append(bool(tov))
         m = np.asarray(jout.mask)
@@ -122,6 +124,34 @@ def test_build_and_expand_probe_bit_identical(kind):
                                   np.asarray(jc.data)[m])
     # 12 duplicates: 4 and 8 lanes overflow, 16 holds them all
     assert overflows == [True, True, False]
+
+
+def test_full_expand_probe_and_build_matched_bit_identical():
+    """FULL OUTER: the probe lanes as a left join's, and the build rows
+    matched so far, across the overflow re-runs."""
+    bkeys, bvalid, pkeys, pvalid = _inputs(5)
+    jbuild, tbuild, rnames = _side("b", bkeys, bvalid, 880, 1024)
+    jprobe, tprobe, lnames = _side("a", pkeys, pvalid, 2990, 4096)
+    jnode, tnode = _nodes("full", lnames, rnames)
+    jbk, jbd = JJ.build_key_columns(jnode, jbuild)
+    tbk, tbd = TJ.build_key_columns(tnode, tbuild)
+    jsh, jorder, _ = JJ.build_sorted_hash(jbk, jbuild.mask)
+    tsh, torder, _ = TJ.build_sorted_hash(tbk, tbuild.mask)
+    jpk = JJ.probe_key_columns(jnode, jprobe, jbd)
+    tpk = TJ.probe_key_columns(tnode, tprobe, tbd)
+    jph, jpv = JJ.hash_valid_keys(jpk, jprobe.mask)
+    tph, tpv = TJ.hash_valid_keys(tpk, tprobe.mask)
+    jbm = jnp.zeros(1024, jnp.bool_)
+    tbm = torch.zeros(1024, dtype=torch.bool)
+    for mm in (4, 16):
+        jout, jov, jbm = JJ.expand_probe(jnode, jprobe, jbuild, jsh, jorder,
+                                         jph, jpv, jpk, jbk, mm, jbm)
+        tout, tov, tbm = TJ.expand_probe(tnode, tprobe, tbuild, tsh, torder,
+                                         tph, tpv, tpk, tbk, mm, tbm)
+        assert bool(tov) == bool(jov)
+        assert np.array_equal(tout.mask.numpy(), np.asarray(jout.mask))
+        assert np.array_equal(tbm.numpy(), np.asarray(jbm))
+    assert 0 < int(tbm.sum()) < 880
 
 
 def test_collapse_semi_anti_bit_identical():
@@ -140,8 +170,8 @@ def test_collapse_semi_anti_bit_identical():
         tph, tpv = TJ.hash_valid_keys(tpk, tprobe.mask)
         jout, _, _ = JJ.expand_probe(jnode, jprobe, jbuild, jsh, jorder,
                                      jph, jpv, jpk, jbk, 16)
-        tout, _ = TJ.expand_probe(tnode, tprobe, tbuild, tsh, torder,
-                                  tph, tpv, tpk, tbk, 16)
+        tout, _, _ = TJ.expand_probe(tnode, tprobe, tbuild, tsh, torder,
+                                     tph, tpv, tpk, tbk, 16)
         jc = JJ.collapse_semi_anti(jnode, jprobe, jout.mask, 16)
         tc = TJ.collapse_semi_anti(tnode, tprobe, tout.mask, 16)
         assert np.array_equal(tc.mask.numpy(), np.asarray(jc.mask))

@@ -305,7 +305,7 @@ def test_explain_equals_reference():
 
 
 @pytest.mark.parametrize("sql", [
-    "select 1 union select 2",
+    "load data infile 'rows.csv' into table t",
     "create index ix on t (id)",
     "set fault_point = 'commit.before:fail'",
     "explain analyze select id from t",
