@@ -148,6 +148,28 @@ Phases, each of which raises on failure:
     then both kernels held against their plain versions at every shape
     phase 8 launched them with, on phase 8's own inputs.
 
+ 9. the fused fragments (fusion on, default knobs: each step one CUDA
+    graph, replayed once per batch), after phase 8 and before phase 7
+    writes; phases 5-8 run with `plan_fusion = 0`.  Each path's cold
+    run, counted warm run (captures, replays, batches, exec modes, peak
+    device memory), best of 3 warm runs and one profiled run:
+    a. Q3 (probe fragments), Q1 (dense grouped terminal, at most one
+       replay a batch), Q6 (scalar terminal) at SF1, each exact to its
+       oracle and equal to the per-operator rows of this run; 5c's
+       GROUP BY (integer key) not fused; an f32 sum under a varchar key
+       with the default MO_NARROW_ENCODINGS (bf16 lanes on the card)
+       within the reference's 0.4% of the f64 sums and off them by more
+       than 1e-4, and with MO_NARROW_ENCODINGS=0 equal to the
+       per-operator rows;
+    b. 8b's rank() (a window fragment) and an ORDER BY .. LIMIT top-k
+       over lineitem, exact to numpy;
+    c. the 22 at SF 0.1, each equal to sqlite3 and to 6b's rows;
+    d. the sorted search inside Q3's captured probe graphs, bit for bit
+       against its plain version on each replay's inputs;
+    e. 9a's Q3, Q1 and Q6 again after the 22 without clearing the
+       fragment cache: beside each query's own graphs, the cached graphs
+       hold no more than the cache's byte bound (an eighth of the card).
+
 The second-to-last line of output is the kernels' JSON record and the
 last is {"ok": true, "device": {...}}.  Without CUDA, or outside a
 checkout of the repository, it exits non-zero and prints no result.
@@ -1546,6 +1568,100 @@ def sql_path(torch, CK, TK, label: str, session, sql: str, n_rows: int,
     return out, cap
 
 
+# --------------------------------------------- oracles shared by phases
+
+def q3_rows_check(oracle, label: str):
+    """Q3's rows against `q3_oracle`, in its integer domain."""
+    epoch = __import__("datetime").date(1970, 1, 1)
+
+    def check(rows, _batch):
+        got = [(r[0], round(r[1] * 10000), (r[2] - epoch).days)
+               for r in rows]
+        if len(rows) != 10 or got != oracle:
+            raise AssertionError(f"{label} Q3 rows differ from q3_oracle: "
+                                 f"{got[:3]} vs {oracle[:3]}")
+    return check
+
+
+def group_by_check(v, errs: dict, label: str):
+    """5c's GROUP BY against numpy: sum(xi) exact, sum(xn) within rtol
+    1e-4 / atol 1e-3 of the f64 sum (its max error goes into `errs`)."""
+    grp = v["grp"]
+    xi_exact = np.bincount(grp, weights=v["xi"].astype(np.int64),
+                           minlength=1000)
+    xn_f64 = np.bincount(grp, weights=v["xn"].astype(np.float64),
+                         minlength=1000)
+
+    def check(rows, _batch):
+        if [r[0] for r in rows] != list(range(1000)):
+            raise AssertionError(f"{label} GROUP BY: wrong groups")
+        if [r[1] for r in rows] != xi_exact.tolist():
+            raise AssertionError(f"{label} sum(xi) is not the exact "
+                                 f"integer sum")
+        got = np.asarray([r[2] for r in rows], np.float64)
+        err = np.abs(got - xn_f64)
+        errs["sum_xn_max_abs_err"] = float(err.max())
+        if (err > 1e-4 * np.abs(xn_f64) + 1e-3).any():
+            raise AssertionError(f"{label} sum(xn) max err {err.max()} past "
+                                 f"rtol 1e-4 / atol 1e-3")
+    return check
+
+
+def q1_rows_check(lineitem, store: dict, label: str):
+    """Q1 against `q1_oracle` exactly (`q1_exact`); `q1_check`'s own
+    verdict goes into `store`."""
+    from matrixone_tpu_torch.utils import tpch
+    want = tpch.q1_oracle(lineitem)
+
+    def check(rows, batch):
+        bad = q1_exact(batch, want)
+        if bad:
+            raise AssertionError(f"{label} Q1 differs from q1_oracle: "
+                                 f"{bad[:4]}")
+        store["q1_check"] = tpch.q1_check(rows, want)
+    return check
+
+
+def q6_rows_check(lineitem, label: str):
+    """Q6 against its integer oracle."""
+    sel = ((lineitem["l_shipdate"] >= 8766) & (lineitem["l_shipdate"] < 9131)
+           & (lineitem["l_discount"] >= 5) & (lineitem["l_discount"] <= 7)
+           & (lineitem["l_quantity"] < 2400))
+    rev = int((lineitem["l_extendedprice"][sel].astype(object)
+               * lineitem["l_discount"][sel]).sum())
+
+    def check(rows, _batch):
+        if len(rows) != 1 or abs(rows[0][0] - rev / 10000) >= 1e-9:
+            raise AssertionError(f"{label} Q6 {rows} differs from the "
+                                 f"integer oracle {rev / 10000}")
+    return check
+
+
+def first_orders_by_year(orders):
+    """8b's oracle: each customer's first orders (rank 1 by date)
+    counted by year -> (rows, partitions, first orders)."""
+    cust, odate = orders["o_custkey"], orders["o_orderdate"]
+    order = np.lexsort((odate, cust))
+    cs, ds = cust[order], odate[order]
+    head = np.ones(len(cs), bool)
+    head[1:] = cs[1:] != cs[:-1]
+    first = np.maximum.accumulate(np.where(head, np.arange(len(cs)), 0))
+    rank1 = ds[ds == ds[first]].astype("datetime64[D]")
+    years, counts = np.unique(rank1.astype("datetime64[Y]").astype(np.int64)
+                              + 1970, return_counts=True)
+    return ([(int(y), int(c)) for y, c in zip(years, counts)],
+            int(head.sum()), len(rank1))
+
+
+def equal_rows_check(want, label: str):
+    def check(rows, _batch):
+        if rows != want:
+            raise AssertionError(f"{label} {rows[:3]} != the oracle's "
+                                 f"{want[:3]}")
+    return check
+
+
+
 def phase_sql(torch, CK, args):
     """Phase 5: TPC-H Q3 and the float GROUP BY at scale factor 1."""
     from matrixone_tpu_torch.container import dtypes as dt
@@ -1583,17 +1699,12 @@ def phase_sql(torch, CK, args):
         f"{report['load']['host_bytes']}")
 
     session = Session(catalog=eng, device="cuda")
+    # phases 5-8 measure the per-operator path; phase 9 the fused one
+    session.execute("set plan_fusion = 0")
     plan = P.explain(session.plan(tpch.Q3_SQL))
     log("[5b] the port's Q3 plan:\n" + plan)
     oracle = tpch.q3_oracle(lineitem, q3data)
-    epoch = __import__("datetime").date(1970, 1, 1)
-
-    def check_q3(rows, _batch):
-        got = [(r[0], round(r[1] * 10000), (r[2] - epoch).days)
-               for r in rows]
-        if len(rows) != 10 or got != oracle:
-            raise AssertionError(f"5b Q3 rows differ from q3_oracle: "
-                                 f"{got[:3]} vs {oracle[:3]}")
+    check_q3 = q3_rows_check(oracle, "5b")
 
     report["q3"], q3cap = sql_path(torch, CK, TK, "5b Q3", session,
                                    tpch.Q3_SQL, args.sf1_lineitem,
@@ -1601,24 +1712,8 @@ def phase_sql(torch, CK, args):
     report["q3"]["plan"] = plan
     log(f"[5b] Q3 rows exactly q3_oracle's; top row {oracle[0]}")
 
-    grp = v["grp"]
-    xi_exact = np.bincount(grp, weights=v["xi"].astype(np.int64),
-                           minlength=1000)
-    xn_f64 = np.bincount(grp, weights=v["xn"].astype(np.float64),
-                         minlength=1000)
     gb_err = {}
-
-    def check_group_by(rows, _batch):
-        if [r[0] for r in rows] != list(range(1000)):
-            raise AssertionError("5c GROUP BY: wrong groups")
-        if [r[1] for r in rows] != xi_exact.tolist():
-            raise AssertionError("5c sum(xi) is not the exact integer sum")
-        got = np.asarray([r[2] for r in rows], np.float64)
-        err = np.abs(got - xn_f64)
-        gb_err["sum_xn_max_abs_err"] = float(err.max())
-        if (err > 1e-4 * np.abs(xn_f64) + 1e-3).any():
-            raise AssertionError(f"5c sum(xn) max err {err.max()} past "
-                                 f"rtol 1e-4 / atol 1e-3")
+    check_group_by = group_by_check(v, gb_err, "5c")
 
     report["group_by"], gbcap = sql_path(
         torch, CK, TK, "5c GROUP BY", session, GROUP_BY_SQL, n_v,
@@ -1779,15 +1874,8 @@ def phase_tpch(torch, CK, args, sf1) -> tuple:
     session, lineitem = sf1[:2]
     n = args.sf1_lineitem
     report = {}
-    q1_want = tpch.q1_oracle(lineitem)
-
     q1_float = {}
-
-    def check_q1(rows, batch):
-        bad = q1_exact(batch, q1_want)
-        if bad:
-            raise AssertionError(f"6a Q1 differs from q1_oracle: {bad[:4]}")
-        q1_float["q1_check"] = tpch.q1_check(rows, q1_want)
+    check_q1 = q1_rows_check(lineitem, q1_float, "6a")
 
     report["q1"], _ = sql_path(torch, CK, TK, "6a Q1", session,
                                tpch.Q1_SQL, n, check_q1)
@@ -1799,17 +1887,7 @@ def phase_tpch(torch, CK, args, sf1) -> tuple:
     if chunks["dense"] == 0 or chunks["general"] != 0:
         raise AssertionError(f"6a Q1's aggregate did not take the dense "
                              f"path on every chunk: {chunks}")
-    sel = ((lineitem["l_shipdate"] >= 8766) & (lineitem["l_shipdate"] < 9131)
-           & (lineitem["l_discount"] >= 5) & (lineitem["l_discount"] <= 7)
-           & (lineitem["l_quantity"] < 2400))
-    q6_rev = int((lineitem["l_extendedprice"][sel].astype(object)
-                  * lineitem["l_discount"][sel]).sum())
-
-    def check_q6(rows, _batch):
-        if len(rows) != 1 or abs(rows[0][0] - q6_rev / 10000) >= 1e-9:
-            raise AssertionError(f"6a Q6 {rows} differs from the integer "
-                                 f"oracle {q6_rev / 10000}")
-
+    check_q6 = q6_rows_check(lineitem, "6a")
     report["q6"], _ = sql_path(torch, CK, TK, "6a Q6", session,
                                tpch.Q6_SQL, n, check_q6)
     for q in ("q1", "q6"):
@@ -1837,6 +1915,7 @@ def phase_tpch(torch, CK, args, sf1) -> tuple:
     log(f"[6b] TPC-H sf {TPCH_SF}: {rows_of}, loaded in "
         f"{load_s:.2f}s, sqlite3 oracle in {sqlite_s:.2f}s")
     sess = Session(catalog=eng, device="cuda")
+    sess.execute("set plan_fusion = 0")
     captured = {}
     for q in sorted(tpch_full.QUERIES):
         sql = tpch_full.QUERIES[q]
@@ -2133,6 +2212,7 @@ def phase_refresh_sf1(torch, CK, args, sf1) -> tuple:
     report = {}
     q3_pre = session.execute(tpch.Q3_SQL).rows()
     reader = Session(catalog=eng, device="cuda")
+    reader.execute("set plan_fusion = 0")
     reader.execute("begin")
     tables = {"lineitem": lineitem, "orders": q3data["orders"]}
     rf1 = tpch_full.rf1(tables, 1.0, seed=args.seed + 4, q3data=q3data)
@@ -2474,27 +2554,11 @@ def phase_executor_sf1(torch, CK, args, sf1) -> tuple:
         f"keys)")
 
     # 8b: window functions at full width
-    cust, odate = orders["o_custkey"], orders["o_orderdate"]
-    order = np.lexsort((odate, cust))
-    cs, ds = cust[order], odate[order]
-    head = np.ones(len(cs), bool)
-    head[1:] = cs[1:] != cs[:-1]
-    first = np.maximum.accumulate(np.where(head, np.arange(len(cs)), 0))
-    rank1 = ds[ds == ds[first]].astype("datetime64[D]")
-    years, counts = np.unique(rank1.astype("datetime64[Y]").astype(np.int64)
-                              + 1970, return_counts=True)
-    want_8b1 = [(int(y), int(c)) for y, c in zip(years, counts)]
-    partitions = int(head.sum())
-
-    def check_8b1(rows, _batch):
-        if rows != want_8b1:
-            raise AssertionError(f"8b first orders by year {rows[:3]} != "
-                                 f"the lexsort oracle's {want_8b1[:3]}")
-
+    want_8b1, partitions, n_first = first_orders_by_year(orders)
     path("8b_window_rank", "8b rank", session, FIRST_ORDER_SQL, n_ord,
-         check_8b1)
+         equal_rows_check(want_8b1, "8b first orders by year"))
     report["8b_window_rank"]["partitions"] = partitions
-    log(f"[8b] rank over {partitions} partitions: {len(rank1)} first "
+    log(f"[8b] rank over {partitions} partitions: {n_first} first "
         f"orders by year, exact")
 
     ids = np.arange(0, n_v, FRAME_STRIDE)
@@ -2661,6 +2725,445 @@ def phase_executor_sf1(torch, CK, args, sf1) -> tuple:
     return report, search_rows, segsum_rows
 
 
+# ------------------------------------------------ phase 9: fused fragments
+
+#: 9b: ORDER BY .. LIMIT over lineitem (the fused top-k terminal)
+TOPK_SQL = ("select l_orderkey, l_linenumber, l_extendedprice from lineitem "
+            "where l_shipdate > date '1995-03-15' order by l_extendedprice "
+            "desc, l_orderkey, l_linenumber limit 10")
+FUSION_MODES = ("fused", "eager", "fallback", "degraded")
+#: 9a: an f32 sum under a varchar key: the fused dense grouped terminal
+#: rounds its f32 input lane to bf16 on the card by default
+F32_VARCHAR_SQL = ("select g, sum(x) sx, count(*) n from vf group by g "
+                   "order by g")
+#: the reference's documented tolerance of such a sum (ops/encodings.py:
+#: bf16's 8 significant bits, same-signed elements)
+BF16_RTOL = 0.004
+
+
+def load_vf(eng, n: int, seed: int):
+    """`vf`: n rows of a varchar key over 40 strings and an f32 x in
+    [1, 2) that sits 0.003 above a bf16 step (1/128 apart there), so
+    every element narrowed to bf16 rounds down and a narrowed sum is
+    0.15-0.3% low.  -> (codes, x, the strings)."""
+    from matrixone_tpu_torch.container import dtypes as dt
+    from matrixone_tpu_torch.storage.engine import TableMeta
+    rng = np.random.default_rng(seed + 9)
+    cats = [f"g{i:02d}" for i in range(40)]
+    codes = (np.arange(n) % len(cats)).astype(np.int32)
+    x = (1 + rng.integers(0, 128, n) / 128 + 0.003).astype(np.float32)
+    eng.create_table(TableMeta("vf", [("g", dt.varchar(8)),
+                                      ("x", dt.FLOAT32)], []))
+    eng.get_table("vf").insert_numpy({"x": x},
+                                     strings={"g": (codes, cats)})
+    return codes, x, cats
+
+
+def f32_varchar_check(codes, x, cats, errs: dict, label: str,
+                      narrowed: bool):
+    """F32_VARCHAR_SQL against the f64 sums: groups and counts exact;
+    narrowed, each sum within BF16_RTOL of the f64 sum and off it by
+    more than 1e-4 (the lane was rounded); else within rtol 1e-4 / atol
+    1e-3.  The largest relative error goes into `errs[label]`."""
+    want = np.bincount(codes, weights=x.astype(np.float64),
+                       minlength=len(cats))
+    counts = np.bincount(codes, minlength=len(cats)).tolist()
+
+    def check(rows, _batch):
+        if [r[0] for r in rows] != cats or [r[2] for r in rows] != counts:
+            raise AssertionError(f"{label}: wrong groups or counts")
+        got = np.asarray([r[1] for r in rows], np.float64)
+        rel = np.abs(got - want) / want
+        errs[label] = float(rel.max())
+        if narrowed and not (rel.max() <= BF16_RTOL and rel.min() > 1e-4):
+            raise AssertionError(f"{label}: relative errors "
+                                 f"{rel.min():.2e}-{rel.max():.2e}, not "
+                                 f"the bf16 lane's (1e-4, {BF16_RTOL}]")
+        if not narrowed and (np.abs(got - want)
+                             > 1e-4 * want + 1e-3).any():
+            raise AssertionError(f"{label}: sums past rtol 1e-4 / atol "
+                                 f"1e-3 of the f64 sums")
+    return check
+
+
+def f32_varchar_path(torch, CK, eng, perop_session, fsess, n: int,
+                     seed: int) -> dict:
+    """9a's f32 sum under a varchar key: the per-operator rows against
+    the f64 sums, the fused rows with the default MO_NARROW_ENCODINGS
+    (bf16 lanes on the card) within the reference's bf16 tolerance, and
+    with MO_NARROW_ENCODINGS=0 the per-operator rows."""
+    codes, x, cats = load_vf(eng, n, seed)
+    errs: dict = {}
+    perop = perop_session.execute(F32_VARCHAR_SQL).rows()
+    f32_varchar_check(codes, x, cats, errs, "9a_f32_varchar per-operator",
+                      False)(perop, None)
+    saved = os.environ.pop("MO_NARROW_ENCODINGS", None)
+    try:
+        out = fused_path(torch, CK, "9a_f32_varchar", fsess,
+                         F32_VARCHAR_SQL, n,
+                         f32_varchar_check(codes, x, cats, errs,
+                                           "9a_f32_varchar", True), None)
+        os.environ["MO_NARROW_ENCODINGS"] = "0"
+        out["narrow_off"] = fused_path(
+            torch, CK, "9a_f32_varchar narrow=0", fsess, F32_VARCHAR_SQL,
+            n, f32_varchar_check(codes, x, cats, errs,
+                                 "9a_f32_varchar narrow=0", False), perop)
+    finally:
+        os.environ.pop("MO_NARROW_ENCODINGS", None)
+        if saved is not None:
+            os.environ["MO_NARROW_ENCODINGS"] = saved
+    for r in (out, out["narrow_off"]):
+        if not r["warm"]["fused"] or r["warm"]["eager"]:
+            raise AssertionError(f"9a_f32_varchar: not fused: {r['warm']}")
+    out["max_rel_err"] = errs
+    log(f"[9a_f32_varchar] largest relative error against the f64 sums: "
+        f"{errs}")
+    return out
+
+
+def held_bytes_beside(entries_before: dict) -> tuple:
+    """(bytes the cached graphs hold, of it the graphs a query run since
+    `entries_before` = {id(graph): replays} captured or replayed)."""
+    held = mine = 0
+    for e in _fusion_cache_entries():
+        for g in e["graphs"].values():
+            held += g.held_bytes
+            if entries_before.get(id(g)) != g.replays:
+                mine += g.held_bytes
+    return held, mine
+
+
+def graph_replays() -> dict:
+    return {id(g): g.replays for e in _fusion_cache_entries()
+            for g in e["graphs"].values()}
+
+
+def fusion_counts() -> dict:
+    """The fused fragments' counters, so far."""
+    from matrixone_tpu_torch.utils import metrics as M
+    return {"captures": M.fusion_graphs.get(event="capture"),
+            "replays": M.fusion_graphs.get(event="replay"),
+            "batches": M.fusion_batches.get(),
+            "capture_seconds": M.fusion_trace_seconds.get(),
+            "cache_hits": M.fusion_compile.get(outcome="hit"),
+            "cache_misses": M.fusion_compile.get(outcome="miss"),
+            **{m: M.fusion_exec.get(mode=m) for m in FUSION_MODES}}
+
+
+def counts_since(before: dict) -> dict:
+    now = fusion_counts()
+    return {k: now[k] - before[k] for k in now}
+
+
+def rows_agree(got, want, rtol=1e-4, atol=1e-3) -> bool:
+    """Row for row: floats within rtol / atol (the card's f64
+    index_add_ lanes are not the same bits from run to run), every other
+    value equal."""
+    if len(got) != len(want):
+        return False
+    for g, w in zip(got, want):
+        if len(g) != len(w):
+            return False
+        for x, y in zip(g, w):
+            if isinstance(x, float) and isinstance(y, float):
+                if not abs(x - y) <= atol + rtol * abs(y):
+                    return False
+            elif x != y:
+                return False
+    return True
+
+
+class GraphSearchSpy:
+    """Keeps, for each call of the sorted-search seam made while a CUDA
+    graph is captured, the tensors the graph reads and writes there: the
+    sorted hashes, the probe hashes and the positions.  After any replay
+    they hold that replay's values, so the kernel inside the graph can be
+    held against its plain version on its own inputs."""
+
+    def __init__(self, torch, TK):
+        self.torch, self.TK = torch, TK
+        self.seen = []
+
+    def __enter__(self):
+        real = self._real = self.TK.sorted_lookup
+
+        def lookup(sorted_hash, queries):
+            out = real(sorted_hash, queries)
+            if self.torch.cuda.is_current_stream_capturing():
+                self.seen.append((sorted_hash, queries, out))
+            return out
+
+        self.TK.sorted_lookup = lookup
+        return self
+
+    def __exit__(self, *exc):
+        self.TK.sorted_lookup = self._real
+        return False
+
+
+def fused_path(torch, CK, label: str, session, sql: str, n_rows: int,
+               check, perop_rows, top: int = 8,
+               warm_captures: bool = False) -> dict:
+    """One query through the fused fragments: the cold run (captures the
+    graphs; checked against the oracle and, row for row, the per-operator
+    rows of this run, unless `perop_rows` is None), the counted warm run (kernel launches, graph replays, batches,
+    peak device memory), the best of 3 warm runs as rows/s, and one
+    profiled run.  With `warm_captures`, the warm run may capture (a
+    decorrelated subquery's column names key its fragments anew on every
+    run)."""
+    c0 = fusion_counts()
+    rows, batch, cold_s = run_sql(torch, session, sql)
+    cold = counts_since(c0)
+    check(rows, batch)
+    if perop_rows is not None and not rows_agree(rows, perop_rows):
+        raise AssertionError(f"{label}: fused rows differ from the "
+                             f"per-operator rows: {rows[:3]} vs "
+                             f"{perop_rows[:3]}")
+    CK.LAUNCHES.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    c0 = fusion_counts()
+    rows, batch, _ = run_sql(torch, session, sql)
+    warm = counts_since(c0)
+    peak = torch.cuda.max_memory_allocated()
+    launches = kernel_launches(CK, label, ("sorted_search", "segment_sum",
+                                           "segment_sum_walk"))
+    check(rows, batch)
+    if perop_rows is not None and not rows_agree(rows, perop_rows):
+        raise AssertionError(f"{label}: warm fused rows differ from the "
+                             f"per-operator rows")
+    if warm["captures"] and not warm_captures:
+        raise AssertionError(f"{label}: the warm run captured graphs "
+                             f"again: {warm}")
+    warm_s = [run_sql(torch, session, sql)[2] for _ in range(3)]
+    prof = profile_run(torch, lambda: session.execute(sql), label, top=top)
+    out = {"cold_seconds": cold_s, "cold": cold, "warm": warm,
+           "warm_seconds": warm_s, "rows_per_sec_best": n_rows / min(warm_s),
+           "peak_device_bytes": peak, "launches": launches,
+           "device_busy_share": prof["device_busy_share"], "profile": prof,
+           "graphs_cached": len([g for e in _fusion_cache_entries()
+                                 for g in e["graphs"].values()])}
+    log(f"[{label}] cold {cold_s:.3f}s ({cold['captures']:.0f} captures, "
+        f"{cold['capture_seconds']:.3f}s) warm {['%.4f' % w for w in warm_s]}"
+        f" best {out['rows_per_sec_best']:.0f} rows/s; warm run: "
+        f"{warm['batches']:.0f} batches, {warm['replays']:.0f} replays, "
+        f"fused {warm['fused']:.0f} eager {warm['eager']:.0f} degraded "
+        f"{warm['degraded']:.0f}; peak {peak / 2 ** 20:.0f} MiB")
+    return out
+
+
+def _fusion_cache_entries():
+    from matrixone_tpu_torch.vm import fusion
+    return fusion.CACHE._lru.snapshot()
+
+
+def compare_paths(fused: dict, perop: dict) -> dict:
+    """The fused path's warm numbers beside the per-operator path's,
+    from this run."""
+    f_best, p_best = min(fused["warm_seconds"]), min(perop["warm_seconds"])
+    return {"fused_warm_best_s": f_best, "per_operator_warm_best_s": p_best,
+            "speedup": p_best / f_best,
+            "fused_busy_share": fused["device_busy_share"],
+            "per_operator_busy_share":
+                perop["profile"]["device_busy_share"]}
+
+
+def phase_fusion(torch, CK, args, sf1, sf01, earlier) -> tuple:
+    """Phase 9: the fused path (fusion on, default knobs) on phase 5's
+    SF1 tables and 6b's SF 0.1 tables: each fragment's step one CUDA
+    graph, replayed once per batch.  Runs before phase 7 writes."""
+    from matrixone_tpu_torch.frontend import Session
+    from matrixone_tpu_torch.ops import kernels as TK
+    from matrixone_tpu_torch.utils import tpch, tpch_full
+
+    perop_session, lineitem, q3data, v = sf1
+    eng = perop_session.catalog
+    fsess = Session(catalog=eng, device="cuda")
+    n_li, n_v = args.sf1_lineitem, len(v["id"])
+    report = {"min_fused_rows": int(os.environ.get("MO_FUSION_MIN_ROWS",
+                                                   "65536"))}
+
+    # 9a: Q3 (probe fragments), Q1 (dense grouped), Q6 (scalar), 5c
+    gb_err, q1_store = {}, {}
+    paths = (("9a_q3", "q3", tpch.Q3_SQL, n_li,
+              q3_rows_check(tpch.q3_oracle(lineitem, q3data), "9a")),
+             ("9a_q1", "q1", tpch.Q1_SQL, n_li,
+              q1_rows_check(lineitem, q1_store, "9a")),
+             ("9a_q6", "q6", tpch.Q6_SQL, n_li, q6_rows_check(lineitem, "9a")),
+             ("9a_group_by", "group_by", GROUP_BY_SQL, n_v,
+              group_by_check(v, gb_err, "9a")))
+    perop = {"q3": earlier["sql"]["q3"], "group_by":
+             earlier["sql"]["group_by"], "q1": earlier["tpch"]["q1"],
+             "q6": earlier["tpch"]["q6"]}
+    spy = None
+    for key, name, sql, n_rows, check in paths:
+        want = perop_session.execute(sql).rows()
+        if name == "q3":
+            with GraphSearchSpy(torch, TK) as spy:
+                report[key] = fused_path(torch, CK, key, fsess, sql, n_rows,
+                                         check, want)
+        else:
+            report[key] = fused_path(torch, CK, key, fsess, sql, n_rows,
+                                     check, want)
+        report[key]["vs_per_operator"] = compare_paths(report[key],
+                                                       perop[name])
+        warm = report[key]["warm"]
+        if name == "group_by":
+            if warm["fused"] or warm["batches"]:
+                raise AssertionError(f"9a: 5c's GROUP BY (integer key) "
+                                     f"fused: {warm}")
+            continue
+        if not warm["fused"] or warm["eager"]:
+            raise AssertionError(f"{key}: not fused at SF1 with default "
+                                 f"knobs: {warm}")
+        if name == "q1" and warm["replays"] > warm["batches"]:
+            raise AssertionError(f"9a Q1: {warm['replays']} replays for "
+                                 f"{warm['batches']} batches")
+    if not report["9a_q3"]["launches"]["sorted_search"]["launches"]:
+        raise AssertionError("9a Q3 never launched the sorted search")
+    report["9a_group_by"].update(gb_err)
+    report["9a_f32_varchar"] = f32_varchar_path(torch, CK, eng,
+                                                perop_session, fsess, n_v,
+                                                args.seed)
+
+    # 9d: the sorted search inside the captured probe graphs, against its
+    # plain version on the inputs of the last replay, bit for bit
+    search_rows = []
+    if not spy.seen:
+        raise AssertionError("9d: no sorted search was captured in a graph")
+    q3_counts = {tuple(r[:-1]): r[-1] for r in report["9a_q3"]["launches"][
+        "sorted_search"]["by_shape"]}
+    checked = set()
+    for srt, q, out in spy.seen:
+        shape = (srt.shape[0], q.shape[0])
+        want = CK.sorted_search_plain(srt, q)
+        if not torch.equal(out, want):
+            raise AssertionError(f"9d: the sorted search in the graph at "
+                                 f"{shape} differs from its plain version")
+        if shape in checked:
+            continue
+        checked.add(shape)
+        row = check_sorted_search(torch, CK, f"9d_graph_n{shape[0]}_m"
+                                  f"{shape[1]}", srt.clone(), q.clone(),
+                                  timed=shape == max(q3_counts,
+                                                     key=q3_counts.get))
+        search_rows.append(dict(row, path="9a_q3_graph",
+                                path_launches=q3_counts.get(shape, 0),
+                                in_graph_bit_identical=True))
+    report["9d_graph_search"] = {"shapes": sorted(checked),
+                                 "captured_calls": len(spy.seen)}
+    log(f"[9d] sorted search in {len(spy.seen)} captured probe graph(s) "
+        f"bit-identical to its plain version at {sorted(checked)}")
+    del spy
+
+    # 9b: 8b's rank() window fragment and a top-k terminal over lineitem
+    want_8b1, _, _ = first_orders_by_year(q3data["orders"])
+    ship = lineitem["l_shipdate"] > (__import__("datetime").date(1995, 3, 15)
+                                     - __import__("datetime").date(1970, 1,
+                                                                   1)).days
+    idx = np.nonzero(ship)[0]
+    order = np.lexsort((lineitem["l_linenumber"][idx],
+                        lineitem["l_orderkey"][idx],
+                        -lineitem["l_extendedprice"][idx]))[:10]
+    want_topk = [(int(lineitem["l_orderkey"][i]),
+                  int(lineitem["l_linenumber"][i]),
+                  int(lineitem["l_extendedprice"][i])) for i in idx[order]]
+
+    def check_topk(rows, _batch):
+        got = [(r[0], r[1], round(r[2] * 100)) for r in rows]
+        if got != want_topk:
+            raise AssertionError(f"9b top-k {got[:3]} != numpy "
+                                 f"{want_topk[:3]}")
+
+    for key, sql, n_rows, check, ref in (
+            ("9b_window_rank", FIRST_ORDER_SQL, len(q3data["orders"][
+                "o_orderkey"]), equal_rows_check(want_8b1, "9b rank"),
+             earlier["executor"]["8b_window_rank"]),
+            ("9b_topk", TOPK_SQL, n_li, check_topk, None)):
+        want = perop_session.execute(sql).rows()
+        report[key] = fused_path(torch, CK, key, fsess, sql, n_rows, check,
+                                 want)
+        if ref is not None:
+            report[key]["vs_per_operator"] = compare_paths(report[key], ref)
+        if not report[key]["warm"]["fused"]:
+            raise AssertionError(f"{key}: not fused: {report[key]['warm']}")
+
+    # 9c: the 22 at SF 0.1 on 6b's tables, fused, against sqlite3 and 6b
+    perop_sess, conn, _tables = sf01
+    fsess01 = Session(catalog=perop_sess.catalog, device="cuda")
+    rows_of = {t: perop_sess.catalog.get_table(t).n_rows
+               for t in perop_sess.catalog.tables}
+    q22 = {}
+    for q in sorted(tpch_full.QUERIES):
+        sql = tpch_full.QUERIES[q]
+        want = tpch_full.normalize_rows(
+            conn.execute(tpch_full.to_sqlite_sql(sql)).fetchall())
+        perop_rows = tpch_full.normalize_rows(perop_sess.execute(sql).rows())
+
+        def check(rows, _batch, q=q, want=want, perop_rows=perop_rows):
+            got = tpch_full.normalize_rows(rows)
+            if not tpch_full.rows_match(got, want):
+                raise AssertionError(f"9c Q{q}: rows differ from sqlite3")
+            if not tpch_full.rows_match(got, perop_rows):
+                raise AssertionError(f"9c Q{q}: rows differ from 6b's")
+
+        r = fused_path(torch, CK, f"9c Q{q}", fsess01, sql,
+                       rows_of["lineitem"], check, None, top=0,
+                       warm_captures=True)
+        p6 = earlier["tpch"]["tpch22"]["queries"][q]
+        q22[q] = {"warm_seconds_best": min(r["warm_seconds"]),
+                  "per_operator_warm_seconds_best": p6["warm_seconds_best"],
+                  "device_busy_share": r["device_busy_share"],
+                  "per_operator_busy_share": p6["device_busy_share"],
+                  "warm": r["warm"], "cold": r["cold"],
+                  "peak_device_bytes": r["peak_device_bytes"],
+                  "sorted_search": r["launches"]["sorted_search"]["launches"],
+                  "per_operator_sorted_search": p6["sorted_search"]}
+    report["9c_tpch22"] = {"sf": TPCH_SF, "queries": q22}
+    fused_q = sum(1 for r in q22.values() if r["warm"]["fused"])
+    log(f"[9c] 22 queries fused at sf {TPCH_SF} equal sqlite3 and 6b's "
+        f"rows; {fused_q} of them ran fused fragments; warm best sums: "
+        f"fused {sum(r['warm_seconds_best'] for r in q22.values()):.3f}s, "
+        f"per-operator "
+        f"{sum(r['per_operator_warm_seconds_best'] for r in q22.values()):.3f}s")
+    from matrixone_tpu_torch.vm import fusion
+    report["cache_after_22"] = dict(
+        fusion.stats()["compile_cache"],
+        allocated_bytes=torch.cuda.memory_allocated(),
+        reserved_bytes=torch.cuda.memory_reserved())
+
+    # 9e: 9a's SF1 queries again after the 22, the cache not cleared
+    # (phase 7 then runs beside it): after each, what the cached graphs
+    # hold apart from the query's own is within the cache's byte bound
+    bound = fusion.CACHE.max_held_bytes(torch.device("cuda"))
+    again = {}
+    for key, name, sql, n_rows, check in paths[:3]:
+        before = graph_replays()
+        rows, batch, secs = run_sql(torch, fsess, sql)
+        check(rows, batch)
+        held, mine = held_bytes_beside(before)
+        again[key] = {"seconds": secs, "held_bytes": held,
+                      "query_held_bytes": mine,
+                      "allocated_bytes": torch.cuda.memory_allocated(),
+                      "reserved_bytes": torch.cuda.memory_reserved()}
+        if held - mine > bound:
+            raise AssertionError(f"9e {key}: the cached graphs hold "
+                                 f"{held - mine} bytes beside the query's "
+                                 f"{mine}, past the bound {bound}")
+    report["9e_cache_bound"] = {
+        "bound_bytes": bound, "paths": again,
+        "cache": fusion.stats()["compile_cache"]}
+    st = report["9e_cache_bound"]["cache"]
+    log(f"[9e] bound {bound / 2 ** 30:.2f} GiB: after the 22 the cache "
+        f"held {report['cache_after_22']['held_bytes'] / 2 ** 30:.2f} GiB "
+        f"({report['cache_after_22']['entries']} entries); after 9a's "
+        f"three again {st['held_bytes'] / 2 ** 30:.2f} GiB ({st['entries']}"
+        f" entries), {st['evicted_graphs']} graphs evicted so far; "
+        f"allocated {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB, "
+        f"reserved {torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB")
+    return report, search_rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=1_000_000)
@@ -2723,6 +3226,11 @@ def main(argv=None) -> int:
     report["executor"]["seconds"] = time.perf_counter() - t0
     log(f"[8] phase 8 took {report['executor']['seconds']:.1f}s")
     t0 = time.perf_counter()
+    report["fusion"], fusion_search = phase_fusion(torch, CK, args, sf1,
+                                                   sf01, report)
+    report["fusion"]["seconds"] = time.perf_counter() - t0
+    log(f"[9] phase 9 took {report['fusion']['seconds']:.1f}s")
+    t0 = time.perf_counter()
     rf01_report, rf01_search, rf01_segsum = phase_refresh_sf01(
         torch, CK, args, sf01)
     report["refresh"] = {"sf01": rf01_report}
@@ -2733,7 +3241,7 @@ def main(argv=None) -> int:
     log(f"[7] phase 7 took {report['refresh']['seconds']:.1f}s")
     del sf1
     search_rows += (search_path + tpch_search + rf01_search + refresh_search
-                    + exec_search)
+                    + exec_search + fusion_search)
     segsum_rows += segsum_path + rf01_segsum + refresh_segsum + exec_segsum
     rows += path_rows + pq_rows
     adc_rows += pq_adc_rows
@@ -2774,6 +3282,15 @@ def main(argv=None) -> int:
                                         or p in ("8a_full_join",
                                                  "8c_union_group_by"))}
         for kernel in ("sorted_search", "segment_sum")}
+    fusion = report["fusion"]
+    # under fusion the sorted search launches in graph replays: counted
+    # as replays x launches per graph (vm/graphs.py)
+    fusion_launches = {
+        k: fusion[k]["launches"]["sorted_search"]["launches"]
+        for k in ("9a_q3", "9a_q1", "9a_q6", "9b_window_rank", "9b_topk")}
+    fusion_launches.update({
+        f"9c_q{q}": r["sorted_search"]
+        for q, r in fusion["9c_tpch22"]["queries"].items()})
     record = {"kernels": [{
         "name": "l2_distance_sq", "route": "cuda",
         "source": "matrixone_tpu_torch/csrc/l2_distance.cu",
@@ -2826,7 +3343,9 @@ def main(argv=None) -> int:
                for p, v in sql_launches.items()},
             **{f"6b_q{q}": v["sorted_search"] for q, v in tpch22.items()},
             **refresh_launches["sorted_search"],
-            **executor_launches["sorted_search"]},
+            **executor_launches["sorted_search"],
+            **fusion_launches},
+        "launches_under_fusion": fusion_launches["9a_q3"],
         "max_abs_err": max(r["max_abs_err"] for r in search_rows),
         **{key: search_row[key] for key in timed},
         "library_call": "torch.searchsorted on pre-flipped int64",

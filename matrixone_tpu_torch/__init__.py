@@ -5,8 +5,11 @@ slices so far are vector search — IVF-Flat served by `WorkerCore`, and
 IVF-PQ (`vectorindex/ivf_pq.py`) — and the relational path from SQL
 text to the device: `frontend.Session.execute` over the SQL front end
 (`sql/`), an in-memory MVCC engine (`storage/engine.py`) and the
-per-operator executor (`vm/`: scans, filters, projections, hash joins,
-grouped aggregates, sort, top-k, limit), as TPC-H Q3 runs it.  It
+executor (`vm/`: scans, filters, projections, hash joins, grouped
+aggregates, windows, sort, top-k, limit), whose fusable chains run as
+fused fragments, each step one CUDA graph replayed once per batch
+(`vm/fusion.py`, `vm/graphs.py`), as the JAX package runs them by
+default.  It
 mirrors the JAX package's layout (`container/`, `ops/`, `sql/`, `vm/`,
 `frontend/`, `vectorindex/`, `worker/`, `utils/`) so each module's
 counterpart is easy to find, and it is held against that package on

@@ -19,6 +19,7 @@ A "const" (scalar) column is a length-1 tensor broadcast by kernels.
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Dict, Optional
 
 import numpy as np
@@ -60,8 +61,15 @@ class DeviceColumn:
 
     @classmethod
     def const(cls, value, dtype: DType, device) -> "DeviceColumn":
-        """Length-1 'const' column (reference: const-class vectors)."""
-        data = torch.tensor([value], dtype=dtype.torch_dtype, device=device)
+        """Length-1 'const' column (reference: const-class vectors).  A
+        fill, not a host copy, so a CUDA graph can capture it."""
+        try:
+            data = torch.full((1,), value, dtype=dtype.torch_dtype,
+                              device=device)
+        except RuntimeError:
+            # a float past the dtype's range: the copy rounds it to inf
+            data = torch.tensor([value], dtype=dtype.torch_dtype,
+                                device=device)
         return cls(data=data,
                    validity=torch.ones((1,), dtype=torch.bool, device=device),
                    dtype=dtype)
@@ -77,6 +85,78 @@ class DeviceColumn:
     @property
     def is_const(self) -> bool:
         return self.data.shape[0] == 1
+
+
+# ------------------------------------------------ host arrays on the device
+
+_TAPE = threading.local()
+
+
+class ConstTape:
+    """The device copies of the host arrays (dictionary LUTs, slot
+    maps) that one fused step makes, in the order it makes them.
+
+    A CUDA graph cannot capture a copy from pageable host memory (it
+    syncs the stream), and it bakes the address of every tensor it
+    reads.  So the step's warm-up run records each copy here
+    (`mode="record"`); while the graph is captured the same calls
+    (`mode="replay"`) get the recorded tensors back, which live as
+    long as the tape does.  A replayed call must ask for the same bytes
+    it recorded: anything else means the step's cache key missed what
+    the step baked, and raises."""
+
+    def __init__(self):
+        self.items = []
+        self.mode = "record"
+        self.pos = 0
+
+    def take(self, host: torch.Tensor, device) -> torch.Tensor:
+        if self.mode == "record":
+            dev = host.to(device)
+            self.items.append((host.clone(), dev))
+            return dev
+        if self.pos >= len(self.items):
+            raise RuntimeError("fused step made more host constants while "
+                               "captured than in its warm-up")
+        want, dev = self.items[self.pos]
+        self.pos += 1
+        if want.dtype != host.dtype or want.shape != host.shape \
+                or not torch.equal(want, host):
+            raise RuntimeError("fused step baked other host constants "
+                               "while captured than in its warm-up: its "
+                               "cache key misses what it baked")
+        return dev
+
+
+class const_tape:
+    """Route `to_device` through `tape` for the scope's duration."""
+
+    def __init__(self, tape: ConstTape, mode: str):
+        self._tape = tape
+        self._mode = mode
+
+    def __enter__(self):
+        self._prev = getattr(_TAPE, "tape", None)
+        self._tape.mode = self._mode
+        self._tape.pos = 0
+        _TAPE.tape = self._tape
+        return self._tape
+
+    def __exit__(self, *exc):
+        _TAPE.tape = self._prev
+        return False
+
+
+def to_device(arr, device) -> torch.Tensor:
+    """A host numpy array as a tensor on `device`.  Under a
+    `const_tape` (a fused step being warmed up or captured on the card)
+    the copy goes through the tape."""
+    host = torch.from_numpy(np.ascontiguousarray(arr))
+    device = torch.device(device)
+    tape = getattr(_TAPE, "tape", None)
+    if tape is None or device.type != "cuda":
+        return host.to(device)
+    return tape.take(host, device)
 
 
 @dataclasses.dataclass

@@ -6,8 +6,8 @@ goes
 
     parse -> _prepare_select (decorrelate, inline uncorrelated
     subqueries) -> Binder.bind_statement -> cost-based join reordering
-    -> index rewrites -> compile_plan -> pull loop on the device ->
-    host Batch
+    -> index rewrites -> compile_plan (with the fusion pass, on unless
+    `SET plan_fusion = 0`) -> pull loop on the device -> host Batch
 
 DDL, DML and transaction control run against the engine: CREATE/DROP
 TABLE, INSERT (VALUES or SELECT, AUTO_INCREMENT and LAST_INSERT_ID()),
@@ -18,7 +18,7 @@ over the MVCC engine (snapshot isolation, a transaction's workspace,
 first-committer-wins; `set txn_mode = 'pessimistic'` takes row locks
 through the lock service), SET/SHOW VARIABLES, SHOW TABLES/CREATE
 TABLE/COLUMNS, CREATE/DROP/SHOW SNAPSHOT, RESTORE TABLE and EXPLAIN of a
-SELECT.  A UNION [ALL] runs as a statement, a derived table or a CTE.
+SELECT (which marks each fused node `fragment=fN`).  A UNION [ALL] runs as a statement, a derived table or a CTE.
 
 Not ported yet (ROADMAP.md, section A): the result and plan caches,
 admission control, tracing, `mo_ctl`, the fault hooks, and every other
@@ -154,7 +154,9 @@ class Session:
                 raise BindError("EXPLAIN supports SELECT only for now")
             if stmt.analyze:
                 raise _not_ported("EXPLAIN ANALYZE")
-            return Result(text=P.explain(self.plan_select(stmt.stmt)))
+            node = self.plan_select(stmt.stmt)
+            return Result(text=P.explain(
+                node, annotate=self._fragment_annotator(node)))
         if isinstance(stmt, ast.ShowTables):
             return _show({"Tables": sorted(self.catalog.tables)})
         if isinstance(stmt, ast.ShowCreateTable):
@@ -373,6 +375,23 @@ class Session:
                 vals.extend(b.columns[n].to_pylist())
             cols[n] = Vector.from_values(vals, d)
         return Result(batch=Batch(cols))
+
+    def _fragment_annotator(self, node):
+        """EXPLAIN decoration: compile the operator tree (no execution)
+        and mark which plan nodes fused into which fragment, with the
+        role of a join, window or top-k node in its fragment."""
+        from matrixone_tpu_torch.vm import fusion
+        if not fusion.enabled(self._ctx()):
+            return None
+        op = compile_plan(node, self._ctx())
+        fmap = fusion.fragment_map(op)
+        if not fmap:
+            return None
+        roles = fusion.fragment_roles(op)
+        return lambda n: ((f" fragment=f{fmap[id(n)]}"
+                           + (f" {roles[id(n)]}" if id(n) in roles
+                              else ""))
+                          if id(n) in fmap else "")
 
     def plan_select(self, sel):
         from matrixone_tpu_torch.sql.optimize import apply_indices

@@ -50,18 +50,29 @@ class LaunchCounts:
     shape: a wrapper adds one where it launches its kernel and nowhere
     else, so a run can show that its path went through the kernels, and
     at which shapes.  The segment sum also counts the walk each launch
-    took under "segment_sum_walk"."""
+    took under "segment_sum_walk".  A wrapper called while a CUDA graph
+    is captured launches nothing then: vm/graphs.py takes those adds
+    back and adds them again at each replay of the graph."""
 
     def __init__(self):
         self._lock = threading.Lock()
         self._counts = {}
         self._shapes = {}
 
-    def add(self, name: str, shape: tuple = ()) -> None:
+    def add(self, name: str, shape: tuple = (), n: int = 1) -> None:
         with self._lock:
-            self._counts[name] = self._counts.get(name, 0) + 1
+            self._counts[name] = self._counts.get(name, 0) + n
             by_shape = self._shapes.setdefault(name, {})
-            by_shape[shape] = by_shape.get(shape, 0) + 1
+            by_shape[shape] = by_shape.get(shape, 0) + n
+
+    def events(self) -> dict:
+        """{(name, shape): launches} since the last reset: what a CUDA
+        graph's capture reads before and after itself (vm/graphs.py),
+        to move the launches it recorded onto its replays."""
+        with self._lock:
+            return {(name, shape): n
+                    for name, by_shape in self._shapes.items()
+                    for shape, n in by_shape.items()}
 
     def get(self, name: str) -> int:
         with self._lock:

@@ -4,7 +4,8 @@ Counterpart of `matrixone_tpu/ops/kernels.py`: callers name these
 functions and never a kernel.  The choice is made by where the tensors
 live and by nothing else: a CUDA tensor runs the CUDA kernel (and
 raises if it cannot build or launch), a CPU tensor runs the kernel's
-plain PyTorch version.  There is no switch and no fallback.
+plain PyTorch version.  There is no switch and no fallback, so the
+routing `signature` puts in a fused fragment's cache key is a constant.
 """
 
 from __future__ import annotations
@@ -12,6 +13,12 @@ from __future__ import annotations
 import torch
 
 from matrixone_tpu_torch.ops import cuda_kernels as CK
+
+
+def signature() -> tuple:
+    """Fragment-key component, as in the JAX package, where the routing
+    is a switch: here the device alone decides, so it is constant."""
+    return ("hand_kernels", True)
 
 
 def _l2_operands(x: torch.Tensor, q: torch.Tensor):

@@ -1,10 +1,12 @@
 """The counters the port increments.
 
 Counterpart of the vector-search part of `matrixone_tpu/utils/metrics.py`
-(same metric names, same labels), as a minimal thread-safe registry of
-its own: the port keeps no dependency on the JAX package's registry.
-`agg_chunks` is the port's own: which path each input chunk of a
-grouped aggregate took.
+and of its fusion and key-auditor parts (same metric names, same
+labels), as a minimal thread-safe registry of its own: the port keeps no
+dependency on the JAX package's registry.  `agg_chunks` is the port's
+own: which path each input chunk of a grouped aggregate took; so are
+`fusion_graphs`, the CUDA graphs captured and replayed by the fused
+fragments (vm/graphs.py), and `fusion_batches`, the batches they took.
 """
 
 from __future__ import annotations
@@ -53,3 +55,45 @@ agg_chunks = Counter(
     "mo_agg_chunks_total",
     "grouped-aggregate input chunks by path (dense: the small-key dense "
     "accumulator; general: hash, sort and segment scatter)")
+
+# ---- whole-plan fusion (vm/fusion.py)
+fusion_dispatch = Counter(
+    "mo_fusion_dispatch_total",
+    "fused-fragment step executions by kind (step = one step function "
+    "per batch: a graph replay on the card, the eager step on the CPU; "
+    "eager = degraded per-op evaluation)")
+fusion_compile = Counter(
+    "mo_fusion_compile_total",
+    "fragment compile-cache lookups by outcome (hit/miss/trace_fail)")
+fusion_trace_seconds = Counter(
+    "mo_fusion_trace_seconds_total",
+    "seconds spent warming up and capturing fused fragment graphs")
+fusion_exec = Counter(
+    "mo_fusion_exec_total",
+    "fragment executions by mode (fused/eager/fallback/degraded)")
+fusion_step_seconds = Counter(
+    "mo_fusion_step_seconds_total",
+    "fused step wall seconds by kind (device vs host bookkeeping; "
+    "filled under MO_FUSION_PROFILE=1 diagnostic runs)")
+fusion_graphs = Counter(
+    "mo_fusion_graphs_total",
+    "CUDA graphs of fused fragment steps by event (capture/replay/"
+    "evict: a graph dropped with its cache entry to keep what the "
+    "cached graphs hold under the cache's byte bound)")
+fusion_batches = Counter(
+    "mo_fusion_batches_total",
+    "source batches that entered a fused step (a probe batch re-run "
+    "for duplicate fan-out counts once)")
+
+# ---- trace-capture / cache-key auditor (utils/keys.py)
+key_captures = Counter(
+    "mo_key_captures_total",
+    "capture content hashes recorded at compile time by the armed "
+    "key auditor (one per dep per first-sighted cache key)")
+key_audits = Counter(
+    "mo_key_audits_total",
+    "cache-hit re-hash audits by outcome (ok/mismatch)")
+key_findings = Counter(
+    "mo_key_findings_total",
+    "capture-content mismatches under a colliding cache key, by "
+    "audited site label (fragment/joinbuild/joinprobe)")

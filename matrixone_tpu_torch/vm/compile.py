@@ -1,11 +1,15 @@
 """Plan -> operator tree (reference: pkg/sql/compile/compile.go:670
 compileScope, collapsed: one process, one pipeline per plan).
 
-The port of the per-operator path of `matrixone_tpu/vm/compile.py` (the
-JAX package's `MO_PLAN_FUSION=0`): no fusion pass.  Every AggOp gets
-`use_pallas=True`, which is what the reference resolves on its TPU
-(`HK.enabled()`), so float32 grouped sums take the segment-sum kernel
-exactly where the reference's do.
+The port of `matrixone_tpu/vm/compile.py`.  After the tree is built,
+the whole-plan fusion pass (vm/fusion.py) replaces maximal fusable
+operator chains with fused fragments, each step of which is one CUDA
+graph on the card, replayed once per batch.  It is on by default, as in
+the JAX package; `MO_PLAN_FUSION=0` (or `SET plan_fusion = 0`) keeps
+the per-operator path.  Every AggOp gets `use_pallas=True`, which is
+what the reference resolves on its TPU (`HK.enabled()`), so float32
+grouped sums take the segment-sum kernel exactly where the reference's
+do.
 
 `Materialized`, `UdfAggregate`, `FulltextTopK` and `VectorTopK` are not
 ported yet (ROADMAP.md): compiling one raises NotImplementedError.
@@ -23,7 +27,28 @@ from matrixone_tpu_torch.vm.window import WindowOp
 def compile_plan(node: P.PlanNode, ctx) -> ops.Operator:
     if not isinstance(ctx, ExecContext):
         ctx = ExecContext(catalog=ctx)
-    return _compile_node(node, ctx)
+    op = _compile_node(node, ctx)
+    from matrixone_tpu_torch.vm import fusion
+    if fusion.enabled(ctx):
+        op = fusion.fuse_operator_tree(op, ctx)
+    return op
+
+
+def iter_ops(root: ops.Operator):
+    """Every operator reachable through the standard tree attributes
+    (fragments expose their source as `child`, so this walks through
+    them)."""
+    stack = [root]
+    while stack:
+        op = stack.pop()
+        yield op
+        for attr in ("child", "left", "right"):
+            c = getattr(op, attr, None)
+            if isinstance(c, ops.Operator):
+                stack.append(c)
+        for c in getattr(op, "children", None) or []:
+            if isinstance(c, ops.Operator):
+                stack.append(c)
 
 
 def _compile_node(node: P.PlanNode, ctx: ExecContext) -> ops.Operator:

@@ -30,7 +30,8 @@ import numpy as np
 import torch
 
 from matrixone_tpu_torch.container import dtypes as dt
-from matrixone_tpu_torch.container.device import DeviceBatch, DeviceColumn
+from matrixone_tpu_torch.container.device import (DeviceBatch, DeviceColumn,
+                                                  to_device)
 from matrixone_tpu_torch.container.dtypes import DType
 from matrixone_tpu_torch.ops import distance as D, hash as H
 from matrixone_tpu_torch.ops import scalar as S
@@ -65,6 +66,30 @@ class ExecBatch:
         return self.mask.device
 
 
+#: literal lifting (vm/fusion.py): inside a fused step, selected numeric
+#: literals evaluate to input tensors instead of baked constants, so one
+#: cached step (one CUDA graph) serves every value of the same plan
+#: shape.  The binding is thread-local and active only while a step runs.
+_LIFT_TLS = __import__("threading").local()
+
+
+class lifted_literal_scope:
+    """Bind {id(BoundLiteral): [1]-shaped tensor} for the duration of a
+    fused step; nests (the previous map is restored on exit)."""
+
+    def __init__(self, mapping: Dict[int, object]):
+        self._mapping = mapping
+
+    def __enter__(self):
+        self._prev = getattr(_LIFT_TLS, "map", None)
+        _LIFT_TLS.map = self._mapping
+        return self
+
+    def __exit__(self, *exc):
+        _LIFT_TLS.map = self._prev
+        return False
+
+
 def _is_varchar(dtype: DType) -> bool:
     return dtype.is_varlen
 
@@ -94,7 +119,7 @@ def lut_gather(lut: np.ndarray, codes: torch.Tensor) -> torch.Tensor:
     """lut[codes] on the codes' device, codes clipped into the LUT (a
     narrow int8/int16 code tensor indexes like an int32 one)."""
     idx = torch.clamp(codes.to(torch.int64), 0, len(lut) - 1)
-    return torch.from_numpy(np.ascontiguousarray(lut)).to(codes.device)[idx]
+    return to_device(lut, codes.device)[idx]
 
 
 def eval_expr(e: BoundExpr, ex: ExecBatch) -> DeviceColumn:
@@ -102,6 +127,13 @@ def eval_expr(e: BoundExpr, ex: ExecBatch) -> DeviceColumn:
     if isinstance(e, BoundCol):
         return ex.batch.columns[e.name]
     if isinstance(e, BoundLiteral):
+        lifted = getattr(_LIFT_TLS, "map", None)
+        if lifted is not None:
+            v = lifted.get(id(e))
+            if v is not None:
+                # fused step: the literal is one of the step's inputs
+                return DeviceColumn(v, torch.ones((1,), dtype=torch.bool,
+                                                  device=dev), e.dtype)
         if e.value is None:
             return DeviceColumn.const_null(e.dtype, dev)
         if e.dtype.is_vector:

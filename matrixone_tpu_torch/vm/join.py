@@ -28,9 +28,14 @@ Dictionary-coded (varchar) join keys translate the PROBE side's codes
 into the BUILD side's code space through a host O(distinct) LUT before
 hashing.
 
+The pure kernels below (`build_key_columns`, `build_sorted_hash`,
+`runtime_filter_ranges`, `expand_probe`, `collapse_semi_anti`) are
+shared by `JoinOp` and the fused build and probe steps of
+vm/fusion_join.py, which run them inside CUDA graphs: none of them
+syncs the host.
+
 Not ported yet (ROADMAP.md, section A): the Grace spill of a build side
-past `DEFAULT_BUILD_BUDGET` live rows (it raises) and the fused join
-fragments.
+past `DEFAULT_BUILD_BUDGET` live rows (it raises).
 """
 
 from __future__ import annotations
@@ -42,7 +47,7 @@ import torch
 
 from matrixone_tpu_torch.container import dtypes as dt
 from matrixone_tpu_torch.container.device import (DeviceBatch, DeviceColumn,
-                                                  bucket_length)
+                                                  bucket_length, to_device)
 from matrixone_tpu_torch.ops import filter as F, hash as H
 from matrixone_tpu_torch.ops import kernels as HK
 from matrixone_tpu_torch.sql import plan as P
@@ -60,8 +65,17 @@ def _probe_scans(op, name: str):
     """Resolve a probe-key column down to the scans that produce it,
     walking only through operators where a pre-filter is always safe
     (Filter: conjunctive; Project: plain column renames)."""
+    from matrixone_tpu_torch.vm.fusion import FusedFragmentOp
     if isinstance(op, O.FilterOp):
         return _probe_scans(op.child, name)
+    if isinstance(op, FusedFragmentOp):
+        # walk the fragment's fused project renames down to its source;
+        # the fragment reads runtime_filters off the scan at execute
+        # time and folds them into its step's predicate
+        src_name = op.resolve_column(name)
+        if src_name is None:
+            return []
+        return _probe_scans(op.child, src_name)
     if isinstance(op, O.ProjectOp):
         for (n, _), e in zip(op.node.schema, op.node.exprs):
             if n == name:
@@ -141,7 +155,7 @@ def probe_key_columns(node, ex: ExecBatch, bkey_dicts):
                          for i, s in enumerate(d)], np.int64)
                     idx = torch.clamp(c.data.to(torch.int64), 0,
                                       max(len(d) - 1, 0))
-                    data = torch.from_numpy(lut).to(c.data.device)[idx]
+                    data = to_device(lut, c.data.device)[idx]
             else:
                 # no dictionary to translate through: the two sides'
                 # code spaces are incomparable — refuse
@@ -220,6 +234,12 @@ def runtime_filter_ranges(specs, bkeys, bvalid):
     return lo, hi, bvalid.any()
 
 
+def _each_repeated(x: torch.Tensor, mm: int) -> torch.Tensor:
+    """x[i] repeated mm times in a row, for each i (repeat_interleave by
+    a constant, written as a view so it never syncs the host)."""
+    return x[:, None].expand(x.shape[0], mm).reshape(-1)
+
+
 def expand_probe(node, ex: ExecBatch, build: ExecBatch, sorted_hash,
                  border, phash, pvalid, pkeys, bkeys, mm: int,
                  build_matched=None):
@@ -254,7 +274,7 @@ def expand_probe(node, ex: ExecBatch, build: ExecBatch, sorted_hash,
                 & pvalid).any()
 
     match = key_ok.reshape(-1)                            # [np*mm]
-    probe_idx = torch.arange(np_, device=device).repeat_interleave(mm)
+    probe_idx = _each_repeated(torch.arange(np_, device=device), mm)
     build_idx = cand_rows.reshape(-1)
 
     cols = {}
@@ -285,8 +305,8 @@ def expand_probe(node, ex: ExecBatch, build: ExecBatch, sorted_hash,
     if node.kind in ("left", "full"):
         matched_any = out.mask.reshape(np_, mm).any(dim=1)
         lane0 = (lane == 0).repeat(np_)
-        null_emit = lane0 & ~matched_any.repeat_interleave(mm) & \
-            ex.mask.repeat_interleave(mm)
+        null_emit = lane0 & ~_each_repeated(matched_any, mm) & \
+            _each_repeated(ex.mask, mm)
         # null-extended lanes: right-side columns must read as NULL
         for name, _ in node.right.schema:
             c = out.batch.columns[name]
@@ -349,6 +369,12 @@ class JoinOp(Operator):
         self.schema = node.schema
         self.max_matches = max_matches
         self.ctx = ctx
+        #: (build ExecBatch, sorted_hash, order, bvalid, bkeys,
+        #: bkey_dicts) handed over by a fused join fragment degrading to
+        #: this op: its build step already ran the finalize and pushed
+        #: the runtime filters.  Consumed (and cleared) by the next
+        #: execute() iff the build batch is the very same object.
+        self._prepared_build = None
         self.build_budget = self.DEFAULT_BUILD_BUDGET
         if ctx is not None and ctx.variables:
             self.build_budget = int(ctx.variables.get(
@@ -390,10 +416,18 @@ class JoinOp(Operator):
                 yield self._null_extend_all(ex)
             return
         # build side: hash + sort keys
-        bkeys, bkey_dicts = build_key_columns(self.node, build)
-        sorted_hash, order, bvalid = build_sorted_hash(bkeys, build.mask)
-        if self.node.kind in ("inner", "semi"):
-            self._push_runtime_filters(bkeys, bvalid)
+        prep, self._prepared_build = self._prepared_build, None
+        if prep is not None and prep[0] is build:
+            # fused-fragment degrade handoff: the build finalize already
+            # ran as one step and the runtime filters are already on the
+            # probe scans: do neither again
+            _, sorted_hash, order, bvalid, bkeys, bkey_dicts = prep
+        else:
+            bkeys, bkey_dicts = build_key_columns(self.node, build)
+            sorted_hash, order, bvalid = build_sorted_hash(bkeys,
+                                                           build.mask)
+            if self.node.kind in ("inner", "semi"):
+                self._push_runtime_filters(bkeys, bvalid)
         build_matched = None
         probe_dicts = {}
         if self.node.kind == "full":
@@ -440,9 +474,18 @@ class JoinOp(Operator):
         if not specs:
             return
         lo, hi, any_valid = runtime_filter_ranges(specs, bkeys, bvalid)
-        if not bool(any_valid):
+        self.apply_runtime_filters(specs, lo.tolist(), hi.tolist(),
+                                   bool(any_valid))
+
+    def apply_runtime_filters(self, specs, lo_list, hi_list,
+                              any_valid: bool) -> None:
+        """Inject ge/le runtime filters for build-key ranges computed on
+        the device (shared with the fused build step, which returns the
+        ranges as outputs)."""
+        if not any_valid:
             return
-        for (_i, lk), lo_v, hi_v in zip(specs, lo.tolist(), hi.tolist()):
+        for (_i, lk), lo_v, hi_v in zip(specs, lo_list, hi_list):
+            lo_v, hi_v = int(lo_v), int(hi_v)
             dtype = lk.dtype
             if dtype.is_integer:
                 info = np.iinfo(dtype.np_dtype)

@@ -14,6 +14,10 @@ Q1 shape) take the reference's dense accumulator: mixed-radix group
 ids, no hash and no sort, float sums in f64.  DISTINCT dedups by the
 same group ids.
 
+These operators are also the fused fragments' degradation ladder
+(vm/fusion.py): a fragment that cannot run fused re-enters its original
+chain of them.
+
 Not ported yet (ROADMAP.md, section A): the aggregate's host spill past
 `max_device_groups` and its distributed `partial_state`, aggregate UDFs,
 materialized host arrays, and the scan's shard routing and read-ahead
@@ -103,6 +107,13 @@ class ScanOp(Operator):
         self.runtime_filters: List[BoundExpr] = []
 
     def execute(self) -> Iterator[ExecBatch]:
+        return self._batches(apply_mask=True)
+
+    def _batches(self, apply_mask: bool = True) -> Iterator[ExecBatch]:
+        """Chunk iterator.  With apply_mask=False the pushed filters
+        still prune chunks by zonemap, but are not evaluated as an early
+        row mask: a fused fragment (vm/fusion.py) evaluates them in its
+        step instead."""
         read_args = self.ctx.table_read_args(self.node.table)
         if self.node.as_of_ts is not None:
             # time travel: a historical read, independent of the txn view
@@ -120,9 +131,10 @@ class ScanOp(Operator):
                                     device)
             # evaluate pushed filters as an early mask (zonemap pruning
             # already dropped fully-excluded chunks host-side)
-            for f in filters:
-                pred = eval_expr(f, ex)
-                ex.mask = ex.mask & F.predicate_mask(pred, ex.batch)
+            if apply_mask:
+                for f in filters:
+                    pred = eval_expr(f, ex)
+                    ex.mask = ex.mask & F.predicate_mask(pred, ex.batch)
             yield ex
 
 
@@ -256,13 +268,21 @@ class AggOp(Operator):
                                          device=device))
 
     # ---- grouped
-    def _grouped_agg(self):
+    def _grouped_agg(self, seed=None, seed_dicts=None):
+        """`seed`/`seed_dicts`: a partial group-table state handed over
+        by a fused fragment that had to degrade mid-stream (a key
+        dictionary grew); the remaining batches continue on the general
+        path with the fused partials already folded in."""
         nkeys = len(self.node.group_keys)
-        key_dicts: List[Optional[List[str]]] = [None] * nkeys
-        self._agg_tracker = _AggDictTracker(self.node.aggs)
-        state = None   # dict: keys:[tensors], kvalid:[tensors], partials per agg
+        key_dicts: List[Optional[List[str]]] = \
+            list(seed_dicts) if seed_dicts is not None else [None] * nkeys
+        if not hasattr(self, "_agg_tracker") or seed is None:
+            self._agg_tracker = _AggDictTracker(self.node.aggs)
+        state = seed   # dict: keys:[tensors], kvalid:[tensors], partials per agg
         dense = None       # small-key dense accumulator (no hash, no sort)
-        dense_checked = False
+        # a seeded state is already in general form: the dense fast path
+        # cannot absorb it, so it stays off for the remaining stream
+        dense_checked = seed is not None
         for ex in self.child.execute():
             self._agg_tracker.observe(ex)
             keys = [eval_expr(k, ex) for k in self.node.group_keys]

@@ -930,3 +930,250 @@ def test_full_outer_join_on_the_card_launches_the_sorted_search(cuda):
     only_b = sum(1 for _, k in b if k is None or k not in ka)
     only_a = sum(1 for _, k in a if k is None or k not in kb)
     assert rows["cpu"][0][1:3] == (only_b, only_a)
+
+
+# ------------------------------------------- fused fragments (CUDA graphs)
+
+@pytest.fixture
+def fused_everywhere(cuda, monkeypatch):
+    """Every batch takes the fused path (MO_FUSION_MIN_ROWS=0)."""
+    monkeypatch.setenv("MO_FUSION_MIN_ROWS", "0")
+    monkeypatch.delenv("MO_PLAN_FUSION", raising=False)
+    return cuda
+
+
+def _fusion_tables():
+    """`ft`: 5000 rows in five 1024-row scan batches; `fd`: a build
+    side with NULL keys; `fdup`: three keys of 20 duplicates each, past
+    the probe's max_matches of 4."""
+    from torch_scripts import insert_sql
+    rng = np.random.default_rng(17)
+    ft = [(i, int(rng.integers(0, 60)) if i % 17 else None,
+           ["aa", "bb", "cc", "dd"][i % 4] if i % 23 else None,
+           float(rng.standard_normal()), round(float(rng.random()) * 90, 2))
+          for i in range(5000)]
+    fd = [(k if k % 7 else None, f"n{k % 5}", k * 3) for k in range(80)]
+    return ["create table ft (id bigint, k bigint, g varchar(4), x double,"
+            " q decimal(12,2))",
+            insert_sql("ft", ft),
+            "create table fd (k bigint, name varchar(4), w bigint)",
+            insert_sql("fd", fd),
+            "create table fdup (k bigint, z bigint)",
+            insert_sql("fdup", [(i % 3, i) for i in range(60)]),
+            "set batch_rows = 1024"]
+
+
+FUSED_CARD_SQL = [
+    # dense grouped terminal over a dict key: decimal sums exact
+    "select g, count(*) c, sum(q) sq, avg(q) aq, sum(x) sx from ft"
+    " where k > 3 group by g order by g",
+    # scalar terminal (step0, then stepN over the carry)
+    "select count(*), sum(q), min(x), max(k), avg(x) from ft where k < 50",
+    # a stream fragment feeding a sort, and a fused LIMIT
+    "select id, x * 2 y from ft where g like 'b%' and k > 10 order by id",
+    "select id from ft where x > 0 limit 7",
+    # LIMIT counters carried across three, four and five batches (each
+    # replay's count is the next replay's input)
+    "select id from ft where x > 2.5 limit 20",
+    "select id from ft where k > 3 limit 10 offset 3000",
+    "select ft.id, fd.w from ft join fd on ft.k = fd.k where ft.x > 1.5"
+    " limit 5 offset 250",
+    # the top-k terminal over five batches
+    "select id, x from ft order by x desc, id limit 9",
+    # join probe fragments: stream, grouped carry, semi and anti
+    "select ft.id, fd.w from ft join fd on ft.k = fd.k order by ft.id",
+    "select fd.name, sum(ft.q) s, count(*) n from ft join fd"
+    " on ft.k = fd.k group by fd.name order by fd.name",
+    "select count(*) from ft where exists (select 1 from fd"
+    " where fd.k = ft.k)",
+    "select count(*) from ft where not exists (select 1 from fd"
+    " where fd.k = ft.k)",
+    # the duplicate fan-out re-run, stream and under a grouped carry
+    "select ft.id, fdup.z from ft join fdup on ft.k = fdup.k"
+    " order by ft.id, fdup.z",
+    "select ft.g, sum(fdup.z) s, count(*) n from ft join fdup"
+    " on ft.k = fdup.k group by ft.g order by ft.g",
+    # a window fragment
+    "select id, rank() over (partition by g order by k) r from ft"
+    " order by id",
+]
+
+
+def _close(got, want, rtol=1e-4, atol=1e-3):
+    from torch_scripts import same_outcome
+    return same_outcome(("ok", None, got, None), ("ok", None, want, None),
+                        rtol, atol)
+
+
+@pytest.mark.parametrize("sql", FUSED_CARD_SQL)
+def test_fused_fragment_graphs_match_the_eager_step(fused_everywhere, sql):
+    """Each fragment captured as CUDA graphs and replayed over at least
+    three batches gives the rows of the same step run eagerly (the CPU
+    session's fused path) and of the per-operator path on the card:
+    exact lanes equal, float lanes within rtol 1e-4 / atol 1e-3 (the
+    card's f64 index_add_ and scans add in another order)."""
+    from matrixone_tpu_torch.frontend import Session
+    from matrixone_tpu_torch.utils import metrics as M
+    card, host = Session(), Session(device="cpu")
+    for st in _fusion_tables():
+        card.execute(st)
+        host.execute(st)
+    want = host.execute(sql).rows()
+    r0 = M.fusion_graphs.get(event="replay")
+    f0 = M.fusion_exec.get(mode="fused")
+    got = card.execute(sql).rows()
+    assert M.fusion_exec.get(mode="fused") > f0
+    # the window takes one concatenated batch; a satisfied LIMIT stops
+    # pulling after its first
+    assert M.fusion_graphs.get(event="replay") - r0 >= (
+        1 if "rank()" in sql or "limit 7" in sql else 3)
+    assert _close(got, want), (got[:4], want[:4])
+    card.execute("set plan_fusion = 0")
+    assert _close(card.execute(sql).rows(), want)
+    c0 = M.fusion_graphs.get(event="capture")
+    card.execute("set plan_fusion = 1")
+    assert _close(card.execute(sql).rows(), want)
+    if "exists" not in sql:
+        # a warm run replays the captured graphs and captures nothing
+        # (a decorrelated subquery names its columns by a counter, so
+        # its fragments key anew on every run: ROADMAP.md, section C)
+        assert M.fusion_graphs.get(event="capture") == c0
+
+
+def test_fused_literal_change_reuses_the_graph(fused_everywhere):
+    """Statements that differ only in lifted literal values replay one
+    graph: no capture after the first, and each gives its own rows."""
+    from matrixone_tpu_torch.frontend import Session
+    from matrixone_tpu_torch.utils import metrics as M
+    card, host = Session(), Session(device="cpu")
+    for st in _fusion_tables():
+        card.execute(st)
+        host.execute(st)
+    # the float literals share one scale: a literal's DECIMAL scale is
+    # part of its type, and so of the key
+    sql = "select count(*), sum(q) from ft where k > {} and x < {}"
+    card.execute(sql.format(1, "0.50"))
+    c0 = M.fusion_graphs.get(event="capture")
+    for lo, hi in ((5, "0.25"), (40, "1.75"), (1, "0.50"), (59, "0.05")):
+        q = sql.format(lo, hi)
+        assert card.execute(q).rows() == host.execute(q).rows(), q
+    assert M.fusion_graphs.get(event="capture") == c0
+
+
+def test_fused_rekeyed_dictionary_captures_again(fused_everywhere):
+    """A table rebuilt with a dictionary of the same length and other
+    strings keys a new graph (its baked LIKE LUT would be stale), and
+    gives the new rows."""
+    from matrixone_tpu_torch.frontend import Session
+    from matrixone_tpu_torch.utils import metrics as M
+    from torch_scripts import insert_sql
+    card = Session()
+    card.execute("set batch_rows = 1024")
+    sql = "select count(*) from rk where g like 'a%'"
+    for strings, want in ((["aa", "bb", "cc"], 1000), (["ab", "ac", "cc"],
+                                                       2000)):
+        card.execute("drop table if exists rk")
+        card.execute("create table rk (g varchar(4), v bigint)")
+        card.execute(insert_sql("rk", [(strings[i % 3], i)
+                                       for i in range(3000)]))
+        c0 = M.fusion_graphs.get(event="capture")
+        assert card.execute(sql).rows() == [(want,)]
+        assert M.fusion_graphs.get(event="capture") > c0
+
+
+def test_fused_f32_lanes_narrow_on_the_card_by_default(fused_everywhere,
+                                                      monkeypatch):
+    """An f32 sum under a varchar key on the card with the default
+    MO_NARROW_ENCODINGS (`auto`, on for CUDA): the fused dense grouped
+    terminal rounds the lane to bf16, so each sum is within the
+    reference's documented 0.4% of the f64 sum and not within 1e-4 of it
+    (every x sits 0.003 above a bf16 step and rounds down).  With
+    MO_NARROW_ENCODINGS=0 the fused rows are the per-operator rows
+    (within rtol 1e-4 / atol 1e-3: the card's f64 lanes add in another
+    order) and the f64 sums."""
+    from matrixone_tpu_torch.frontend import Session
+    from matrixone_tpu_torch.utils import metrics as M
+    from torch_scripts import insert_sql
+    monkeypatch.delenv("MO_NARROW_ENCODINGS", raising=False)
+    rng = np.random.default_rng(23)
+    x = (1 + rng.integers(0, 128, 4000) / 128 + 0.003).astype(np.float32)
+    g = [f"g{i % 7}" for i in range(4000)]
+    card = Session()
+    card.execute("create table nv (g varchar(4), x float)")
+    card.execute(insert_sql("nv", [(g[i], float(x[i]))
+                                   for i in range(4000)]))
+    card.execute("set batch_rows = 1024")
+    sql = "select g, sum(x) sx, count(*) n from nv group by g order by g"
+    want = {}
+    for gi, xi in zip(g, x.astype(np.float64)):
+        want[gi] = want.get(gi, 0.0) + xi
+    f0 = M.fusion_exec.get(mode="fused")
+    narrowed = card.execute(sql).rows()
+    assert M.fusion_exec.get(mode="fused") > f0
+    assert [r[0] for r in narrowed] == sorted(want)
+    assert [r[2] for r in narrowed] == [g.count(k) for k in sorted(want)]
+    for gk, sx, _n in narrowed:
+        rel = abs(sx - want[gk]) / want[gk]
+        assert 1e-4 < rel <= 0.004, (gk, sx, want[gk])
+    monkeypatch.setenv("MO_NARROW_ENCODINGS", "0")
+    wide = card.execute(sql).rows()
+    card.execute("set plan_fusion = 0")
+    perop = card.execute(sql).rows()
+    assert _close(wide, perop)
+    assert _close(wide, [(k, want[k], g.count(k)) for k in sorted(want)])
+
+
+def test_fused_cache_keeps_its_graphs_under_the_byte_bound(
+        fused_everywhere, monkeypatch):
+    """With the cache's byte bound at one byte, every capture evicts all
+    older entries: the cache keeps one entry, its graphs hold what
+    `stats()` says, evicted graphs are counted, and every query still
+    gives the CPU session's rows (a later run captures again)."""
+    from matrixone_tpu_torch.frontend import Session
+    from matrixone_tpu_torch.utils import metrics as M
+    from matrixone_tpu_torch.vm import fusion
+    monkeypatch.setattr(fusion.FragmentCompileCache, "max_held_bytes",
+                        staticmethod(lambda device: 1))
+    fusion.CACHE.clear()
+    card, host = Session(), Session(device="cpu")
+    for st in _fusion_tables():
+        card.execute(st)
+        host.execute(st)
+    ev0 = M.fusion_graphs.get(event="evict")
+    for sql in FUSED_CARD_SQL[:4] + FUSED_CARD_SQL[:2]:
+        assert _close(card.execute(sql).rows(), host.execute(sql).rows())
+        # the CPU session's entries hold no graph
+        held = [e for e in fusion.CACHE._lru.snapshot() if e["graphs"]]
+        assert len(held) == 1, len(held)
+        assert fusion.CACHE.stats()["held_bytes"] > 0
+    assert M.fusion_graphs.get(event="evict") - ev0 >= 5
+
+
+def test_sorted_search_in_a_graph_is_the_plain_search(cuda):
+    """The sorted-search kernel captured in a CUDA graph: each replay's
+    positions equal `sorted_search_plain` on the replay's inputs, bit
+    for bit, and each replay counts one launch."""
+    from matrixone_tpu_torch.vm.graphs import StepGraph
+    g = torch.Generator(device=cuda).manual_seed(5)
+    n, m = 196608, 1 << 18
+
+    def inputs():
+        s = torch.randint(-2 ** 62, 2 ** 62, (n,), generator=g,
+                          device=cuda)
+        s = s[torch.argsort(unsigned_order(s))]
+        q = torch.randint(-2 ** 62, 2 ** 62, (m,), generator=g,
+                          device=cuda)
+        q[: m // 2] = s[torch.randint(0, n, (m // 2,), generator=g,
+                                      device=cuda)]
+        return s, q
+
+    step = StepGraph(lambda s, q: (TK.sorted_lookup(s, q),))
+    for i in range(4):
+        s, q = inputs()
+        before = CK.LAUNCHES.get("sorted_search")
+        (out,) = step((s, q))
+        torch.cuda.synchronize()
+        assert CK.LAUNCHES.get("sorted_search") - before == (2 if i == 0
+                                                              else 1)
+        assert torch.equal(out, CK.sorted_search_plain(s, q))
+    assert step.replays == 4
