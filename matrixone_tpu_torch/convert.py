@@ -28,6 +28,7 @@ from matrixone_tpu_torch import resolve_device
 from matrixone_tpu_torch.storage.engine import (Engine, Segment, TableMeta,
                                                 schema_from_json,
                                                 schema_to_json)
+from matrixone_tpu_torch.storage.partition import PartitionSpec
 from matrixone_tpu_torch.vectorindex.ivf_flat import IvfFlatIndex
 from matrixone_tpu_torch.vectorindex.ivf_pq import IvfPqIndex
 
@@ -69,11 +70,12 @@ def ivf_pq_from_numpy(fields: dict, device=None) -> IvfPqIndex:
 
 def tables_to_numpy(engine) -> dict:
     """{table: {"schema", "primary_key", "not_null", "auto_increment",
-    "segments", "tombstones", "dicts", "next_gid", "next_seg",
-    "next_auto", "last_commit_ts", "committed_ts", "snapshots"}} of
-    every table of `engine`: the schema as `schema_to_json` rows, each
+    "partition", "segments", "tombstones", "dicts", "next_gid",
+    "next_seg", "next_auto", "last_commit_ts", "committed_ts",
+    "snapshots"}} of every table of `engine`: the schema as
+    `schema_to_json` rows, the partition spec as its JSON, each
     committed segment as a dict of its `seg_id`, `commit_ts`,
-    `base_gid` and (arrays, validity) numpy dicts (varchar columns as
+    `base_gid`, `part_id` and (arrays, validity) numpy dicts (varchar columns as
     dictionary codes), each tombstone as (commit_ts, gids), each
     varchar column's dictionary, and the engine's frontier and named
     snapshots."""
@@ -88,9 +90,13 @@ def tables_to_numpy(engine) -> dict:
             "primary_key": list(t.meta.primary_key),
             "not_null": list(t.meta.not_null),
             "auto_increment": getattr(t.meta, "auto_increment", None),
+            "partition": (t.meta.partition.to_json()
+                          if getattr(t.meta, "partition", None) is not None
+                          else None),
             "segments": [{
                 "seg_id": seg.seg_id, "commit_ts": seg.commit_ts,
                 "base_gid": seg.base_gid,
+                "part_id": getattr(seg, "part_id", -1),
                 "arrays": {c: np.asarray(a) for c, a in seg.arrays.items()},
                 "validity": {c: np.asarray(v)
                              for c, v in seg.validity.items()}}
@@ -117,7 +123,8 @@ def tables_from_numpy(tables: dict, engine=None) -> Engine:
         engine.create_table(TableMeta(
             name, schema_from_json(f["schema"]), list(f["primary_key"]),
             auto_increment=f["auto_increment"],
-            not_null=list(f["not_null"])))
+            not_null=list(f["not_null"]),
+            partition=PartitionSpec.from_json(f.get("partition"))))
         t = engine.get_table(name)
         for col, d in f["dicts"].items():
             t.encode_strings_list(col, list(d))
@@ -129,7 +136,8 @@ def tables_from_numpy(tables: dict, engine=None) -> Engine:
                 validity={c: np.array(v, np.bool_)
                           for c, v in seg["validity"].items()},
                 n_rows=len(next(iter(arrays.values()))),
-                base_gid=seg["base_gid"]))
+                base_gid=seg["base_gid"],
+                part_id=seg.get("part_id", -1)))
         for ts, gids in f["tombstones"]:
             t.apply_tombstones(ts, np.array(gids, np.int64))
         t.next_gid, t.next_seg = f["next_gid"], f["next_seg"]

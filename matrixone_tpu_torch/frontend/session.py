@@ -17,13 +17,16 @@ UPDATE, an insert of the new rows in one commit), BEGIN/COMMIT/ROLLBACK
 over the MVCC engine (snapshot isolation, a transaction's workspace,
 first-committer-wins; `set txn_mode = 'pessimistic'` takes row locks
 through the lock service), SET/SHOW VARIABLES, SHOW TABLES/CREATE
-TABLE/COLUMNS, CREATE/DROP/SHOW SNAPSHOT, RESTORE TABLE and EXPLAIN of a
-SELECT (which marks each fused node `fragment=fN`).  A UNION [ALL] runs as a statement, a derived table or a CTE.
+TABLE/COLUMNS, CREATE/DROP/SHOW SNAPSHOT, RESTORE TABLE, CREATE TABLE
+... PARTITION BY, ALTER TABLE ... TRUNCATE/DROP PARTITION, SHOW
+PARTITIONS and EXPLAIN of a SELECT (which marks each fused node
+`fragment=fN`).  A UNION [ALL] runs as a statement, a derived table or a
+CTE.
 
 Not ported yet (ROADMAP.md, section A): the result and plan caches,
 admission control, tracing, `mo_ctl`, the fault hooks, and every other
-statement (LOAD DATA, indexes, partitions, materialized views,
-UDFs, accounts ...), which raises NotImplementedError.  The session runs
+statement (LOAD DATA, indexes, materialized views, UDFs, accounts ...),
+which raises NotImplementedError.  The session runs
 on `device` (CUDA unless the caller names the CPU); every scan uploads
 its chunks there.
 """
@@ -208,6 +211,10 @@ class Session:
                           "Timestamp": [self.catalog.snapshots[n]
                                         for n in names]},
                          {"Timestamp": dt.INT64})
+        if isinstance(stmt, ast.AlterPartition):
+            return self._alter_partition(stmt)
+        if isinstance(stmt, ast.ShowPartitions):
+            return self._show_partitions(stmt)
         if isinstance(stmt, ast.RestoreTable):
             snaps = self.catalog.snapshots
             if stmt.snapshot not in snaps:
@@ -397,7 +404,9 @@ class Session:
         from matrixone_tpu_torch.sql.optimize import apply_indices
         if not isinstance(sel, (ast.Select, ast.Union)):
             raise _not_ported(f"{type(sel).__name__} statements")
-        self._prepare_select(sel)
+        from matrixone_tpu_torch.sql.decorrelate import statement_names
+        with statement_names():
+            self._prepare_select(sel)
         node = Binder(self.catalog).bind_statement(sel)
         node = self._cbo(node)
         return apply_indices(node, self.catalog,
@@ -411,20 +420,78 @@ class Session:
 
     # --------------------------------------------------------------- ddl
     def _create_table(self, stmt: ast.CreateTable) -> Result:
-        if stmt.partition_by is not None:
-            raise _not_ported("PARTITION BY")
         schema = [(c.name, type_from_name(c.type_name, c.type_args))
                   for c in stmt.columns]
         auto = [c.name for c in stmt.columns if c.auto_increment]
         if len(auto) > 1:
             raise BindError("only one AUTO_INCREMENT column allowed")
         not_null = [c.name for c in stmt.columns if c.not_null]
+        part = None
+        if stmt.partition_by is not None:
+            from matrixone_tpu_torch.storage.partition import build_spec
+            part = build_spec(stmt.partition_by, schema)
         self.catalog.create_table(
             TableMeta(stmt.name, schema, stmt.primary_key,
                       auto_increment=auto[0] if auto else None,
-                      not_null=not_null),
+                      not_null=not_null, partition=part),
             if_not_exists=stmt.if_not_exists)
         return Result()
+
+    def _live_partition_rows(self, t, pid: int) -> np.ndarray:
+        """The gids of the live rows of partition pid."""
+        dead = t._dead_gids(None, None)
+        gids = []
+        for seg in t.segments:
+            if seg.part_id != pid:
+                continue
+            g = np.arange(seg.base_gid, seg.base_gid + seg.n_rows,
+                          dtype=np.int64)
+            if len(dead):
+                g = g[~np.isin(g, dead)]
+            gids.append(g)
+        return np.concatenate(gids) if gids else np.zeros(0, np.int64)
+
+    def _alter_partition(self, stmt: ast.AlterPartition) -> Result:
+        """TRUNCATE/DROP PARTITION (partitionservice management ops):
+        rows leave via an ordinary tombstone commit, so MVCC snapshots
+        and time travel keep seeing the pre-truncate state."""
+        t = self.catalog.get_table(stmt.table)
+        spec = t.meta.partition
+        if spec is None:
+            raise BindError(f"table {stmt.table!r} is not partitioned")
+        if stmt.part not in spec.names:
+            raise BindError(f"no partition {stmt.part!r} on {stmt.table!r}")
+        if stmt.action == "drop":
+            # validate BEFORE the tombstone commit: a refused DROP must
+            # not have already destroyed the partition's rows
+            if spec.kind != "range":
+                raise BindError("DROP PARTITION requires RANGE partitioning")
+            if len(spec.names) == 1:
+                raise BindError("cannot drop the last partition")
+        gids = self._live_partition_rows(t, spec.names.index(stmt.part))
+        if len(gids):
+            self.catalog.commit_txn(None, {}, {stmt.table: gids})
+        if stmt.action == "drop":
+            self.catalog.alter_partition_drop(stmt.table, stmt.part)
+        return _show({"partition": [stmt.part],
+                      "rows_removed": [len(gids)]},
+                     {"rows_removed": dt.INT64})
+
+    def _show_partitions(self, stmt: ast.ShowPartitions) -> Result:
+        t = self.catalog.get_table(stmt.name)
+        spec = t.meta.partition
+        if spec is None:
+            raise BindError(f"table {stmt.name!r} is not partitioned")
+        rows = [len(self._live_partition_rows(t, i))
+                for i in range(spec.n_parts)]
+        bounds = ([("MAXVALUE" if b is None else str(b))
+                   for b in spec.bounds] if spec.kind == "range"
+                  else [""] * spec.n_parts)
+        return _show({"partition": list(spec.names),
+                      "method": [spec.kind] * spec.n_parts,
+                      "expr": [spec.column] * spec.n_parts,
+                      "bound": bounds, "rows": rows},
+                     {"rows": dt.INT64})
 
     # --------------------------------------------------------------- dml
     def _pessimistic(self, txn) -> bool:

@@ -145,11 +145,12 @@ def dense_lane_partials(codes, valids, row_mask, int_vals, int_masks,
     When every group key is a dictionary code (or bool) the group id is
     a mixed-radix digit expansion over the key space.  The lanes of one
     dtype class stack into an (n, L) matrix (a lane's mask folds in as
-    a zero, masked-out rows go to a spare slot) and reduce in ONE
-    `index_add_` into (G, L): int64 for the int lanes (exact), float64
-    for the float lanes. `rows` rides the int stack as one more lane
-    that counts the row mask (a `bincount` would sync the host to size
-    its output).
+    a zero, masked-out rows go to a spare slot).  The int64 lanes
+    reduce in ONE `index_add_` into (G, L): integer adds are exact in
+    any order.  The float64 lanes reduce per slot in an order fixed by
+    the data (`_slot_sums`), so a launch on the card gives the same bits
+    every time (`index_add_` adds with atomics there).  `rows` rides the int stack as one more lane that counts the
+    row mask (a `bincount` would sync the host to size its output).
 
     Lanes: parallel (value, mask) tuples per dtype class. value None
     means "count the mask"; mask None means "row_mask only". Returns
@@ -179,6 +180,8 @@ def dense_lane_partials(codes, valids, row_mask, int_vals, int_masks,
                 x = torch.where(m, x, torch.zeros((), dtype=dtype,
                                                   device=dev))
             cols.append(x)
+        if dtype.is_floating_point:
+            return _slot_sums(torch.stack(cols), gid, G)
         out = torch.zeros((G + 1, len(cols)), dtype=dtype, device=dev)
         out.index_add_(0, gid, torch.stack(cols, dim=1))
         return out[:G].T
@@ -187,6 +190,49 @@ def dense_lane_partials(codes, valids, row_mask, int_vals, int_masks,
                      torch.int64)
     floats = lane_sums(float_vals, float_masks, torch.float64)
     return ints[:-1], floats, ints[-1]
+
+
+#: rows a block sum of the sorted f64 lanes covers
+_SUM_BLOCK = 1024
+
+
+def _slot_sums(x: torch.Tensor, gid: torch.Tensor, G: int) -> torch.Tensor:
+    """(L, G) sums of x's (L, n) lanes by slot gid in [0, G], slot G
+    dropped, in an order fixed by the data alone.  The rows are sorted
+    stably by slot, so slot g holds rows [lo, hi); each slot sums its
+    head (lo up to the next multiple of `_SUM_BLOCK`), the sums of the
+    whole blocks inside its rows, and its tail, in that order, each as a
+    masked `sum` along a contiguous dimension.  No atomics, so the bits
+    are the same on every launch; a masked-out value is never added, so
+    a NaN or inf stays in its own slot, as in the reference's masked
+    sums; no host sync, so a CUDA graph captures it.  Cost O(n L + G L
+    n / _SUM_BLOCK), whatever the order of the rows."""
+    L, n = x.shape
+    dev = x.device
+    if n == 0:
+        return torch.zeros((L, G), dtype=x.dtype, device=dev)
+    B = _SUM_BLOCK
+    key = gid.to(torch.int16 if G < (1 << 15) else torch.int32)
+    sorted_gid, order = torch.sort(key, stable=True)
+    bounds = torch.searchsorted(
+        sorted_gid, torch.arange(G + 1, dtype=key.dtype, device=dev))
+    lo, hi = bounds[:-1], bounds[1:]
+    xs = x[:, order]
+    nb = n // B
+    blocks = xs[:, :nb * B].view(L, nb, B).sum(-1)             # (L, nb)
+    first, last = (lo + B - 1) // B, hi // B    # whole blocks [first, last)
+    b = torch.arange(nb, device=dev)
+    inside = (b >= first[:, None]) & (b < last[:, None])        # (G, nb)
+    whole = torch.where(inside, blocks[:, None, :], 0).sum(-1)
+    head_end = torch.minimum(first * B, hi)
+    tail_start = torch.maximum(last * B, head_end)
+    step = torch.arange(B, device=dev)
+
+    def rows(start, end):                  # rows [start, end) of a block
+        idx = start[:, None] + step                             # (G, B)
+        vals = xs[:, torch.clamp(idx, max=n - 1)]               # (L, G, B)
+        return torch.where(idx < end[:, None], vals, 0).sum(-1)
+    return rows(lo, head_end) + whole + rows(tail_start, hi)
 
 
 def gather_keys(key_columns: Sequence[torch.Tensor],

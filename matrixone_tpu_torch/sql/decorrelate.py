@@ -23,17 +23,42 @@ Uncorrelated subqueries are left untouched (the session inlines them by
 executing once). Correlation is detected structurally: a column reference
 inside the subquery that does not resolve against the subquery's own FROM
 but does resolve in the enclosing scope.
+
+The rewrite names its derived columns `__sj{n}_k{i}` and `__dc{n}_...`
+with n counted per statement (`statement_names`): the same SQL binds to
+the same names on every run, so its fused fragments key alike and a warm
+run replays their graphs.  The JAX package draws n from a process-wide
+counter instead, and re-traces those fragments on every run.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
+import threading
 from typing import Dict, List, Optional, Set, Tuple
 
 from matrixone_tpu_torch.sql import ast
 
-_counter = itertools.count()
+_names = threading.local()
+
+
+@contextlib.contextmanager
+def statement_names():
+    """Number the rewrite's derived names from 0 for one statement.  A
+    nested statement (an uncorrelated subquery run while its outer one
+    is prepared) counts on its own and hands the outer count back."""
+    prev = getattr(_names, "counter", None)
+    _names.counter = itertools.count()
+    try:
+        yield
+    finally:
+        _names.counter = prev
+
+
+def _next_id() -> int:
+    return next(_names.counter)
 
 AGG_NAMES = {"count", "sum", "avg", "min", "max"}
 
@@ -254,6 +279,10 @@ def decorrelate_select(sel: ast.Select, catalog,
     ctes = {**ctes, **{n: s for n, s in sel.ctes}}
     if sel.where is None:
         return
+    if getattr(_names, "counter", None) is None:
+        with statement_names():
+            decorrelate_select(sel, catalog, ctes)
+        return
     outer = _collect_locals(sel.from_, catalog, ctes)
     conjuncts = _split_and(sel.where)
     out: List[ast.Node] = []
@@ -279,7 +308,7 @@ def _try_rewrite(c, sel, outer, catalog, ctes):
         except DecorrelateError:
             return c
         inner = _collect_locals(c.select.from_, catalog, ctes)
-        alias = f"__sj{next(_counter)}"
+        alias = f"__sj{_next_id()}"
         items = [ast.SelectItem(ie, alias=f"{alias}_k{i}")
                  for i, (_, ie) in enumerate(pairs)]
         res_items: List[ast.SelectItem] = []
@@ -328,7 +357,7 @@ def _try_rewrite(c, sel, outer, catalog, ctes):
                 return c
             if mixed or not pairs:
                 return c
-            alias = f"__dc{next(_counter)}"
+            alias = f"__dc{_next_id()}"
             d_items = [ast.SelectItem(ie, alias=f"{alias}_k{i}")
                        for i, (_, ie) in enumerate(pairs)]
             d_items.append(ast.SelectItem(agg_expr, alias=f"{alias}_agg"))

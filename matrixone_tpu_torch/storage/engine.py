@@ -12,25 +12,36 @@ rows visible at its snapshot and can carry each row's id (`ROWID`),
 named snapshots with `restore_table`, auto-increment counters and the
 pessimistic lock service (`lockservice`).
 
+The primary-key check probes a bloom filter over the table's keys first
+(reference: colexec/fuzzyfilter): only its suspects pay the exact
+membership test against the live rows.  A scan builds its dead set once
+as a roaring bitmap and tests each chunk's contiguous gid range against
+it.  Both live in the port's host library (`matrixone_tpu_torch/native`).
+A partitioned table (`storage/partition.py`) splits every insert so one
+segment holds one partition's rows, and a scan skips the segments of
+the partitions its filters exclude.
+
 Not ported yet (ROADMAP.md, section A): the WAL, checkpoints and the
 object store (they need `pyarrow`, which the card machine lacks),
-merges and their snapshot fences, partitions, the logtail subscribers
-(CDC), the index cache and the primary-key bloom filter (the
-uniqueness check here is the same exact membership test, unfiltered).
+merges and their snapshot fences, the logtail subscribers (CDC), the
+index cache and the co-partitioned shard read.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import threading
+import time
 from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
+from matrixone_tpu_torch import native
 from matrixone_tpu_torch.container.dtypes import DType, TypeOid
 from matrixone_tpu_torch.sql.expr import BoundCol, BoundExpr, BoundFunc, \
     BoundLiteral
 from matrixone_tpu_torch.txn.hlc import HLC
+from matrixone_tpu_torch.utils import metrics
 
 Schema = List[Tuple[str, DType]]
 
@@ -58,6 +69,8 @@ class TableMeta:
     primary_key: List[str]
     auto_increment: Optional[str] = None   # column name (incrservice)
     not_null: List[str] = dataclasses.field(default_factory=list)
+    # partitionservice: segments are split per partition on insert
+    partition: "object" = None             # Optional[partition.PartitionSpec]
 
 
 @dataclasses.dataclass
@@ -68,6 +81,7 @@ class Segment:
     validity: Dict[str, np.ndarray]
     n_rows: int
     base_gid: int
+    part_id: int = -1                    # -1 = unpartitioned table
 
 
 class ConflictError(RuntimeError):
@@ -80,31 +94,6 @@ class DuplicateKeyError(RuntimeError):
 
 class ConstraintError(RuntimeError):
     pass
-
-
-_GOLDEN = np.uint64(0x9E3779B97F4A7C15)
-_M1 = np.uint64(0xBF58476D1CE4E5B9)
-_M2 = np.uint64(0x94D049BB133111EB)
-
-
-def _splitmix_np(x: np.ndarray) -> np.ndarray:
-    """splitmix64 over uint64 (host), as ops/hash.py computes it."""
-    with np.errstate(over="ignore"):
-        x = x.astype(np.uint64) + _GOLDEN
-        x = (x ^ (x >> np.uint64(30))) * _M1
-        x = (x ^ (x >> np.uint64(27))) * _M2
-        return x ^ (x >> np.uint64(31))
-
-
-def _range_keep(dead: np.ndarray, lo: int, hi: int) -> np.ndarray:
-    """Keep mask of the gids [lo, hi) against `dead`, a sorted unique
-    int64 array: the rows of the range that are not in it (the mask the
-    reference's `RoaringBitmap.test_range` negates)."""
-    keep = np.ones(hi - lo, np.bool_)
-    i0, i1 = np.searchsorted(dead, [lo, hi], side="left")
-    if i1 > i0:
-        keep[dead[i0:i1] - lo] = False
-    return keep
 
 
 class MVCCTable:
@@ -126,6 +115,11 @@ class MVCCTable:
             c: [] for c, d in meta.schema if d.is_varlen}
         self._dict_idx: Dict[str, Dict[str, int]] = {c: {} for c in self.dicts}
         self.next_auto = 1
+        # PK dedup (reference: colexec/fuzzyfilter): a bloom over existing
+        # keys answers "definitely new" cheaply; only bloom-positive
+        # suspects pay the exact membership check
+        self._pk_bloom = None
+        self._pk_vals: Dict[int, np.ndarray] = {}   # seg_id -> its keys
         self._pk_col: Optional[str] = None
         self._pk_cols: List[str] = []     # composite: hashed key columns
         sd = dict(meta.schema)
@@ -226,10 +220,9 @@ class MVCCTable:
             h = None
             with np.errstate(over="ignore"):
                 for c in self._pk_cols:
-                    hc = _splitmix_np(np.ascontiguousarray(
-                        arrays[c], np.int64).view(np.uint64))
-                    h = hc if h is None else _splitmix_np(
-                        h ^ (hc + _GOLDEN + (h << np.uint64(6))
+                    hc = native.hash64(np.asarray(arrays[c], np.int64))
+                    h = hc if h is None else native._splitmix_np(
+                        h ^ (hc + native._GOLDEN + (h << np.uint64(6))
                              + (h >> np.uint64(2))))
             return h.view(np.int64)
         return None
@@ -241,7 +234,15 @@ class MVCCTable:
         PK values or contains internal duplicates (fuzzyfilter analogue).
         A row that is tombstoned, or deleted by the same transaction
         (`extra_deletes`), holds no key.  NULL primary keys are rejected
-        outright (PK implies NOT NULL)."""
+        outright (PK implies NOT NULL).  The key bloom filter answers
+        first; only its suspects are looked up among the live rows."""
+        t0 = time.perf_counter()
+        try:
+            self._check_pk_unique(arrays, extra_deletes, validity)
+        finally:
+            metrics.pk_check_seconds.inc(time.perf_counter() - t0)
+
+    def _check_pk_unique(self, arrays, extra_deletes, validity) -> None:
         new = self.pk_key_values(arrays)
         if new is None:
             return
@@ -257,13 +258,22 @@ class MVCCTable:
             raise DuplicateKeyError(
                 f"duplicate key {shown} within the insert batch for "
                 f"{self.meta.name!r}.{c}".replace("key  ", "key "))
+        if self._pk_bloom is None:
+            self._rebuild_pk_bloom()
+        suspects = new[self._pk_bloom.probe_int64(new)]
+        metrics.pk_bloom_suspects.inc(len(suspects))
+        if len(suspects) == 0:
+            return
         dead = np.unique(self._dead_gids(None, extra_deletes))
         for seg in self.segments:
-            vals = self.pk_key_values(seg.arrays)
-            alive = (_range_keep(dead, seg.base_gid,
-                                 seg.base_gid + seg.n_rows)
-                     if len(dead) else np.ones(seg.n_rows, np.bool_))
-            collide = new[np.isin(new, vals[alive])]
+            vals = self._segment_keys(seg)
+            # the rows holding a suspect's key, then those still alive
+            rows = np.nonzero(np.isin(vals, suspects))[0]
+            if len(dead) and len(rows):
+                g = rows + seg.base_gid
+                pos = np.minimum(np.searchsorted(dead, g), len(dead) - 1)
+                rows = rows[dead[pos] != g]
+            collide = suspects[np.isin(suspects, vals[rows])]
             for k in collide:
                 if self._pk_col is not None:
                     shown = int(k)
@@ -278,8 +288,7 @@ class MVCCTable:
                 # before rejecting (a 2^-64 collision must not block an
                 # unrelated insert)
                 in_row = int(np.nonzero(new == k)[0][0])
-                seg_rows = np.nonzero(alive & (vals == k))[0]
-                for r in seg_rows:
+                for r in rows[vals[rows] == k]:
                     if all(int(seg.arrays[cc][r]) == int(arrays[cc][in_row])
                            for cc in self._pk_cols):
                         shown = tuple(int(seg.arrays[cc][r])
@@ -287,6 +296,40 @@ class MVCCTable:
                         raise DuplicateKeyError(
                             f"duplicate key {shown} for "
                             f"{self.meta.name!r}.{c}")
+
+    def _segment_keys(self, seg: Segment) -> Optional[np.ndarray]:
+        """`pk_key_values` of a committed segment, kept: a segment's rows
+        never change, and a composite key's hash costs a pass over them."""
+        vals = self._pk_vals.get(seg.seg_id)
+        if vals is None:
+            vals = self._pk_vals[seg.seg_id] = self.pk_key_values(
+                seg.arrays)
+        return vals
+
+    def _rebuild_pk_bloom(self) -> None:
+        n_live = sum(s.n_rows for s in self.segments)
+        # headroom so incremental adds don't saturate immediately
+        cap = max(n_live * 2, 4096)
+        bloom = native.BloomFilter(cap)
+        for seg in self.segments:
+            vals = self._segment_keys(seg)
+            if vals is not None:
+                bloom.add_int64(vals)
+        self._pk_bloom = bloom
+        self._pk_bloom_cap = cap
+        self._pk_bloom_items = n_live
+
+    def _pk_bloom_add(self, seg: Segment) -> None:
+        if self._pk_bloom is None:
+            return
+        vals = self._segment_keys(seg)
+        if vals is None:
+            return
+        self._pk_bloom_items += len(vals)
+        if self._pk_bloom_items > self._pk_bloom_cap:
+            self._pk_bloom = None   # saturated: lazy rebuild with headroom
+            return
+        self._pk_bloom.add_int64(vals)
 
     # ----------------------------------------------------------- segments
     def make_segment(self, arrays, validity, commit_ts: int) -> Segment:
@@ -304,11 +347,22 @@ class MVCCTable:
 
     def insert_segments(self, arrays, validity, commit_ts: int
                         ) -> List[Segment]:
-        """Apply an insert batch as one segment (unpartitioned: the
-        reference splits a partitioned table's batch per partition)."""
-        seg = self.make_segment(arrays, validity, commit_ts)
-        self.apply_segment(seg)
-        return [seg]
+        """Apply an insert batch, splitting rows per partition so each
+        segment holds exactly one partition (partitionservice role —
+        pruning becomes a structural per-segment skip)."""
+        from matrixone_tpu_torch.storage.partition import split_by_partition
+        if self.meta.partition is None:
+            seg = self.make_segment(arrays, validity, commit_ts)
+            self.apply_segment(seg)
+            return [seg]
+        segs = []
+        for pid, pa, pv in split_by_partition(self.meta.partition,
+                                              arrays, validity):
+            seg = self.make_segment(pa, pv, commit_ts)
+            seg.part_id = pid
+            self.apply_segment(seg)
+            segs.append(seg)
+        return segs
 
     def apply_tombstones(self, commit_ts: int, gids: np.ndarray) -> None:
         if len(gids):
@@ -349,21 +403,35 @@ class MVCCTable:
         want_rowid = ROWID in columns
         data_cols = [c for c in columns if c != ROWID]
         src_segs, src_tombs = self._view_at(snapshot_ts)
-        # the dead set is built ONCE per scan, sorted: a chunk's gids are
-        # a contiguous range, so its keep mask is two binary searches
-        dead = np.unique(self._dead_gids(snapshot_ts, extra_deletes,
-                                         src_tombs))
+        dead = self._dead_gids(snapshot_ts, extra_deletes, src_tombs)
+        dead_filter = None
+        if len(dead):
+            # tombstones as a compressed bitmap built ONCE per scan: a
+            # chunk's gids are a contiguous range, so the per-chunk
+            # membership test is one container walk (reference:
+            # cgo/croaring.c docfilter role)
+            dead_filter = native.RoaringBitmap(dead)
         segs = [s for s in src_segs
                 if snapshot_ts is None or s.commit_ts <= snapshot_ts]
         segs = segs + list(extra_segments or [])
         qmap = dict(zip(qualified_names or columns, columns))
+        allowed_parts = None
+        if self.meta.partition is not None and filters:
+            from matrixone_tpu_torch.storage import partition as partmod
+            allowed_parts = partmod.prune(self.meta.partition, filters,
+                                          qmap)
         for seg in segs:
+            if allowed_parts is not None and seg.part_id >= 0 \
+                    and seg.part_id not in allowed_parts:
+                metrics.scan_segments.inc(outcome="pruned")
+                continue
+            metrics.scan_segments.inc(outcome="read")
             for start in range(0, seg.n_rows, batch_rows):
                 end = min(start + batch_rows, seg.n_rows)
                 lo = seg.base_gid + start
                 keep = None
-                if len(dead):
-                    keep = _range_keep(dead, lo, seg.base_gid + end)
+                if dead_filter is not None:
+                    keep = ~dead_filter.test_range(lo, seg.base_gid + end)
                     if not keep.any():
                         continue
                     if keep.all():
@@ -569,6 +637,26 @@ class Engine:
         del self.tables[name]
         self.ddl_gen += 1
 
+    def alter_partition_drop(self, table: str, part: str) -> None:
+        """Remove a RANGE partition definition (rows are tombstoned by the
+        caller via a normal delete commit; this only shrinks the spec)."""
+        t = self.get_table(table)
+        spec = t.meta.partition
+        if spec is None or part not in spec.names:
+            return
+        pid = spec.names.index(part)
+        spec.names.pop(pid)
+        spec.bounds.pop(pid)
+        self.ddl_gen += 1
+        # part_ids above the dropped slot shift down; the dropped slot's
+        # segments (all rows tombstoned by the caller) become unpartitioned
+        # so they are never structurally pruned against the new layout
+        for seg in t.segments:
+            if seg.part_id == pid:
+                seg.part_id = -1
+            elif seg.part_id > pid:
+                seg.part_id -= 1
+
     def get_table(self, name: str) -> MVCCTable:
         if name not in self.tables:
             raise ValueError(f"no such table {name}")
@@ -686,6 +774,7 @@ class Engine:
                 for arrays, validity in segs:
                     for seg in t.insert_segments(arrays, validity,
                                                  commit_ts):
+                        t._pk_bloom_add(seg)
                         affected += seg.n_rows
             # max(): the read frontier must never retreat
             self.committed_ts = max(self.committed_ts, commit_ts)

@@ -6,7 +6,11 @@ labels), as a minimal thread-safe registry of its own: the port keeps no
 dependency on the JAX package's registry.  `agg_chunks` is the port's
 own: which path each input chunk of a grouped aggregate took; so are
 `fusion_graphs`, the CUDA graphs captured and replayed by the fused
-fragments (vm/graphs.py), and `fusion_batches`, the batches they took.
+fragments (vm/graphs.py), `fusion_batches`, the batches they took, and
+the spills' `agg_spills`, `spill_partitions`, `spill_bytes` and
+`spill_seconds` (`join_spills` is the JAX package's name), and the
+storage counters `pk_check_seconds`, `pk_bloom_suspects` and
+`scan_segments`.
 """
 
 from __future__ import annotations
@@ -97,3 +101,35 @@ key_findings = Counter(
     "mo_key_findings_total",
     "capture-content mismatches under a colliding cache key, by "
     "audited site label (fragment/joinbuild/joinprobe)")
+
+# ---- Grace spills (vm/join.py, vm/operators.py)
+join_spills = Counter(
+    "mo_join_spill_total", "joins whose build side Grace-spilled to host")
+agg_spills = Counter(
+    "mo_agg_spill_total",
+    "grouped aggregates whose group table Grace-spilled to host")
+spill_partitions = Counter(
+    "mo_spill_partitions_total",
+    "partitions a spill drained, by kind (join/agg)")
+spill_bytes = Counter(
+    "mo_spill_bytes_total",
+    "bytes of the .npz chunks spills wrote, by kind (join/agg)")
+spill_seconds = Counter(
+    "mo_spill_seconds_total",
+    "host seconds of the spills by kind (join/agg) and stage (partition: "
+    "hash, partition ids and copies to the host; write: the .npz "
+    "chunks; replay: reading them back onto the device)")
+
+# ---- storage (storage/engine.py)
+pk_check_seconds = Counter(
+    "mo_pk_check_seconds_total",
+    "host seconds of the commits' primary-key checks (bloom probe, then "
+    "the exact test of its suspects)")
+pk_bloom_suspects = Counter(
+    "mo_pk_bloom_suspects_total",
+    "inserted keys the primary-key bloom filter could not clear (each "
+    "paid the exact test against the live rows)")
+scan_segments = Counter(
+    "mo_scan_segments_total",
+    "segments a scan visited by outcome (read, or pruned: a partition "
+    "its filters exclude)")

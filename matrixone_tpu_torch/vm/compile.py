@@ -62,7 +62,7 @@ def _compile_node(node: P.PlanNode, ctx: ExecContext) -> ops.Operator:
     if isinstance(node, P.Project):
         return ops.ProjectOp(node, _compile_node(node.child, ctx))
     if isinstance(node, P.Aggregate):
-        return ops.AggOp(node, _compile_node(node.child, ctx), ctx,
+        return ops.AggOp(node, _compile_node(node.child, ctx), ctx=ctx,
                          use_pallas=True)
     if isinstance(node, P.Sort):
         return ops.SortOp(node, _compile_node(node.child, ctx))

@@ -34,12 +34,27 @@ shared by `JoinOp` and the fused build and probe steps of
 vm/fusion_join.py, which run them inside CUDA graphs: none of them
 syncs the host.
 
-Not ported yet (ROADMAP.md, section A): the Grace spill of a build side
-past `DEFAULT_BUILD_BUDGET` live rows (it raises).
+A build side past `join_build_budget` live rows (`DEFAULT_BUILD_BUDGET`
+by default) Grace-spills (reference: colexec/spillutil/join_spill.go):
+both sides are hash-partitioned by the join key into numpy `.npz`
+chunks in a temporary directory, and each partition joins in memory
+with the same code.  Rows with equal keys always share a partition, so
+every keyed join kind partitions exactly.  A row's partition is the
+unsigned remainder of the reference's 64-bit key hash, so an unordered
+spilled join gives the reference's rows in the reference's order.  The
+spill is host work between device batches; it never runs inside a
+captured graph (a fused join hands an over-budget build to this
+operator).
 """
 
 from __future__ import annotations
 
+import hashlib
+import itertools
+import os
+import shutil
+import tempfile
+import time
 from typing import Iterator, List
 
 import numpy as np
@@ -47,11 +62,13 @@ import torch
 
 from matrixone_tpu_torch.container import dtypes as dt
 from matrixone_tpu_torch.container.device import (DeviceBatch, DeviceColumn,
-                                                  bucket_length, to_device)
+                                                  bucket_length, from_numpy,
+                                                  to_device)
 from matrixone_tpu_torch.ops import filter as F, hash as H
 from matrixone_tpu_torch.ops import kernels as HK
 from matrixone_tpu_torch.sql import plan as P
 from matrixone_tpu_torch.sql.expr import BoundCol, BoundFunc, BoundLiteral
+from matrixone_tpu_torch.utils import metrics as M
 from matrixone_tpu_torch.vm import operators as O
 from matrixone_tpu_torch.vm.exprs import EvalError, ExecBatch, eval_expr
 from matrixone_tpu_torch.vm.operators import (Operator, _broadcast_full,
@@ -116,6 +133,21 @@ def _compact_live(ex: ExecBatch, min_shrink: int = 1) -> ExecBatch:
 # =====================================================================
 # device kernels of the join, module-level as in the reference
 # =====================================================================
+
+def _str_hash_i64(s) -> int:
+    """Stable 64-bit value hash of a dictionary entry (spill routing:
+    equal strings must land in equal partitions on BOTH sides, whose
+    dictionary codes are each their own)."""
+    d = hashlib.blake2b(str(s).encode("utf-8"), digest_size=8).digest()
+    return int(np.frombuffer(d, dtype="<u8")[0].astype(np.int64))
+
+
+def unsigned_mod(h: torch.Tensor, p: int) -> torch.Tensor:
+    """The remainder of the uint64 bit patterns in h by p, a power of
+    two (torch's `%` of a negative int64 is another number)."""
+    assert p > 0 and p & (p - 1) == 0, p
+    return h & (p - 1)
+
 
 def build_key_columns(node, build: ExecBatch):
     """Evaluate the build side's join keys.  Varchar keys stay in their
@@ -357,9 +389,81 @@ def stream_build_side(build_iter, budget: int):
     return batches, overflowed
 
 
+def _spill_time(stage: str, t0: float) -> float:
+    """Count the seconds since t0 against a spill stage -> now."""
+    now = time.perf_counter()
+    M.spill_seconds.inc(now - t0, kind="join", stage=stage)
+    return now
+
+
+class _JoinSpill:
+    """Host-disk partitions of one join's two sides (Grace).  Each stored
+    chunk keeps its source batch's dictionaries, so replayed ExecBatches
+    are exactly as expressive as the originals."""
+
+    def __init__(self, n_partitions: int):
+        self.P = n_partitions
+        self.dir = tempfile.mkdtemp(prefix="mo_join_spill_")
+        self._chunks: dict = {}          # (side, p) -> [(path, dicts, n)]
+        self._seq = 0
+        #: where replayed chunks go: the device of the first spilled batch
+        self.device = None
+
+    def add(self, side: str, p: int, arrays: dict, validity: dict,
+            dicts: dict, n: int) -> None:
+        path = os.path.join(self.dir, f"{side}_{p}_{self._seq}.npz")
+        self._seq += 1
+        payload = {}
+        for c, a in arrays.items():
+            payload[f"d_{c}"] = a
+            payload[f"v_{c}"] = validity[c]
+        np.savez(path, **payload)
+        M.spill_bytes.inc(os.path.getsize(path), kind="join")
+        self._chunks.setdefault((side, p), []).append(
+            (path, dict(dicts), n))
+
+    def chunks(self, side: str, p: int) -> list:
+        return self._chunks.get((side, p), [])
+
+    def cleanup(self) -> None:
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+class _ReplayOp(Operator):
+    """Spilled host chunks as an operator (the drain half of Grace)."""
+
+    def __init__(self, chunks: list, schema, device):
+        self.chunks = chunks
+        self.schema = schema
+        self.device = device
+
+    def execute(self) -> Iterator[ExecBatch]:
+        for path, dicts, n in self.chunks:
+            if n == 0:
+                continue
+            t0 = time.perf_counter()
+            with np.load(path) as z:
+                arrays, validity, dtypes = {}, {}, {}
+                for name, dtype in self.schema:
+                    arrays[name] = z[f"d_{name}"]
+                    validity[name] = z[f"v_{name}"]
+                    dtypes[name] = dt.INT32 if dtype.is_varlen else dtype
+            db = from_numpy(arrays, dtypes, validity, n_rows=n,
+                            device=self.device)
+            for name, dtype in self.schema:
+                if dtype.is_varlen:
+                    c = db.columns[name]
+                    db.columns[name] = DeviceColumn(c.data, c.validity,
+                                                    dtype)
+            _spill_time("replay", t0)
+            yield ExecBatch(batch=db, dicts=dicts, mask=db.row_mask())
+
+
 class JoinOp(Operator):
-    #: build rows beyond which the reference Grace-spills both sides
+    #: build rows beyond which the join Grace-spills both sides
     DEFAULT_BUILD_BUDGET = 1 << 22
+    #: partitions of a Grace spill, as in the reference
+    SPILL_PARTITIONS = 16
 
     def __init__(self, node: P.Join, left: Operator, right: Operator,
                  max_matches: int = 4, ctx=None):
@@ -381,9 +485,9 @@ class JoinOp(Operator):
                 "join_build_budget", self.build_budget))
 
     def execute(self) -> Iterator[ExecBatch]:
-        # stream the build side counting live rows; past the budget the
-        # reference switches to its Grace spill (cross joins have no key
-        # to partition by — they stay in memory whatever the size)
+        # stream the build side counting live rows; past the budget,
+        # switch to the Grace path (cross joins have no key to partition
+        # by — they stay in memory whatever the size)
         build_iter = self.right.execute()
         overflowed = False
         if self.node.kind != "cross" and self.node.right_keys:
@@ -392,9 +496,8 @@ class JoinOp(Operator):
         else:
             build_batches = list(build_iter)
         if overflowed:
-            raise NotImplementedError(
-                f"join build side past {self.build_budget} live rows: the "
-                f"Grace spill is not ported yet (ROADMAP.md, section A)")
+            yield from self._grace(build_batches, build_iter)
+            return
         if not build_batches and self.node.kind in ("inner", "semi"):
             return
         build = (_concat_batches(build_batches, self.node.right.schema)
@@ -443,6 +546,95 @@ class JoinOp(Operator):
             yield out
         if self.node.kind == "full":
             yield self._unmatched_build(build, build_matched, probe_dicts)
+
+    # ------------------------------------------------------------- grace
+    def _grace(self, prefix: List[ExecBatch], rest) -> Iterator[ExecBatch]:
+        """Build side over budget: hash-partition BOTH sides to host disk
+        by the join key, then run each partition through the normal
+        in-memory join (reference: spillutil/join_spill.go)."""
+        M.join_spills.inc()
+        spill = _JoinSpill(self.SPILL_PARTITIONS)
+        try:
+            for ex in itertools.chain(prefix, rest):
+                self._partition_side(spill, ex, "build",
+                                     self.node.right_keys,
+                                     self.node.right.schema)
+            for ex in self.left.execute():
+                self._partition_side(spill, ex, "probe",
+                                     self.node.left_keys,
+                                     self.node.left.schema)
+            M.spill_partitions.inc(spill.P, kind="join")
+            for p in range(spill.P):
+                sub = JoinOp(
+                    self.node,
+                    _ReplayOp(spill.chunks("probe", p),
+                              self.node.left.schema, spill.device),
+                    _ReplayOp(spill.chunks("build", p),
+                              self.node.right.schema, spill.device),
+                    max_matches=self.max_matches)
+                # a partition joins in memory; key skew concentrating a
+                # partition past the budget would recurse on identical
+                # hashes forever, so partitions never re-spill
+                sub.build_budget = 1 << 62
+                yield from sub.execute()
+        finally:
+            spill.cleanup()
+
+    def _partition_side(self, spill: _JoinSpill, ex: ExecBatch, side: str,
+                        keys, schema) -> None:
+        """Route each live row to partition hash(key) mod P (the hash
+        read as unsigned, as the reference reads it).  NULL-key rows
+        ride their hash too: they never match, but left/anti/full joins
+        still emit them from within their partition.  Varchar keys route
+        by a stable VALUE hash of the string (each side partitions
+        independently, so codes cannot agree across sides)."""
+        t0 = time.perf_counter()
+        if spill.device is None:
+            spill.device = ex.device
+        kcols = []
+        for k in keys:
+            c = _broadcast_full(eval_expr(k, ex), ex.padded_len)
+            if k.dtype.is_varlen:
+                d = _expr_dict(k, ex)
+                if d:
+                    lut = np.asarray([_str_hash_i64(s) for s in d],
+                                     np.int64)
+                    idx = torch.clamp(c.data.to(torch.int64), 0,
+                                      max(len(d) - 1, 0))
+                    c = DeviceColumn(to_device(lut, ex.device)[idx],
+                                     c.validity, c.dtype)
+                else:
+                    # None (unresolvable: the in-memory join inside the
+                    # partition raises) or empty (all-NULL: routing is
+                    # irrelevant, NULL keys never match)
+                    c = DeviceColumn(torch.zeros(c.data.shape,
+                                                 dtype=torch.int64,
+                                                 device=ex.device),
+                                     c.validity, c.dtype)
+            kcols.append(c)
+        h = H.hash_columns([k.data for k in kcols],
+                           [k.validity for k in kcols])
+        part_np = unsigned_mod(h, spill.P).cpu().numpy()
+        live = np.nonzero(ex.mask.cpu().numpy())[0]
+        # live rows grouped by partition, in row order inside each
+        order = live[np.argsort(part_np[live], kind="stable")]
+        ends = np.cumsum(np.bincount(part_np[order], minlength=spill.P))
+        host_cols, host_val = {}, {}
+        for name, _dtype in schema:
+            c = _broadcast_full(ex.batch.columns[name], ex.padded_len)
+            host_cols[name] = c.data.cpu().numpy()[order]
+            host_val[name] = c.validity.cpu().numpy()[order]
+        t0 = _spill_time("partition", t0)
+        start = 0
+        for p in range(spill.P):
+            end = int(ends[p])
+            if end > start:
+                spill.add(side, p,
+                          {n: a[start:end] for n, a in host_cols.items()},
+                          {n: v[start:end] for n, v in host_val.items()},
+                          ex.dicts, end - start)
+            start = end
+        _spill_time("write", t0)
 
     def _unmatched_build(self, build: ExecBatch, build_matched,
                          probe_dicts) -> ExecBatch:

@@ -18,15 +18,22 @@ These operators are also the fused fragments' degradation ladder
 (vm/fusion.py): a fragment that cannot run fused re-enters its original
 chain of them.
 
-Not ported yet (ROADMAP.md, section A): the aggregate's host spill past
-`max_device_groups` and its distributed `partial_state`, aggregate UDFs,
-materialized host arrays, and the scan's shard routing and read-ahead
-thread.
+A group table that would outgrow `max_device_groups` Grace-spills to
+the host (`_AggSpill`): the rows and the partial state are
+hash-partitioned by group key into `.npz` chunks, and each partition is
+aggregated on its own, its groups streamed out partition by partition.
+
+Not ported yet (ROADMAP.md, section A): the aggregate's distributed
+`partial_state`, aggregate UDFs, materialized host arrays, and the
+scan's shard routing and read-ahead thread.
 """
 
 from __future__ import annotations
 
 import os
+import shutil
+import tempfile
+import time
 from typing import Dict, Iterator, List, Optional
 
 import numpy as np
@@ -198,19 +205,182 @@ def _expr_dict(e: BoundExpr, ex: ExecBatch):
 
 # -------------------------------------------------------------- aggregate
 
+class _NeedSpill(Exception):
+    """Internal: the group table outgrew the device budget mid-stream."""
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    return t.cpu().numpy()
+
+
+class _AggSpill:
+    """Grace-hash spill for group-by (reference: colexec/spillutil +
+    spill_threshold.go, re-expressed host-side): when the group table
+    would outgrow the device budget, incoming rows AND the current partial
+    state are hash-partitioned by group key and parked as npz chunks in a
+    temp dir; each partition is then aggregated independently — its group
+    table is ~1/P of the total, and partitions have disjoint key sets so
+    results stream out per partition."""
+
+    def __init__(self, n_partitions: int, device):
+        self.P = n_partitions
+        self.device = device
+        self.dir = tempfile.mkdtemp(prefix="mo_agg_spill_")
+        self.raw_chunks: List[List[str]] = [[] for _ in range(self.P)]
+        self.state_chunks: List[List[str]] = [[] for _ in range(self.P)]
+        #: the aggregates' argument dtypes, from the first parked batch
+        self.value_dtypes: Optional[list] = None
+        self._seq = 0
+
+    def _path(self) -> str:
+        self._seq += 1
+        return os.path.join(self.dir, f"c{self._seq}.npz")
+
+    def _partitions(self, kdata, kvalid) -> np.ndarray:
+        from matrixone_tpu_torch.ops import hash as mohash
+        h = mohash.hash_columns(list(kdata), list(kvalid))
+        # second-level mix so partition bits are independent of the group
+        # bits used inside each partition's sort: the logical h >> 17 of
+        # the uint64 hash, which is non-negative, so `%` is the reference's
+        return _host(mohash._shr(h, 17) % self.P)
+
+    def _save(self, blob: dict) -> str:
+        t0 = time.perf_counter()
+        path = self._path()
+        np.savez(path, **blob)
+        metrics.spill_bytes.inc(os.path.getsize(path), kind="agg")
+        metrics.spill_seconds.inc(time.perf_counter() - t0, kind="agg",
+                                  stage="write")
+        return path
+
+    def add_raw(self, kdata, kvalid, mask, values) -> None:
+        """Park one input batch (keys + pre-evaluated agg args), compressed
+        to live rows. `values[j]` is a DeviceColumn or None (count(*))."""
+        t0 = time.perf_counter()
+        live = _host(mask)
+        if not live.any():
+            return
+        if self.value_dtypes is None:
+            self.value_dtypes = [None if v is None else v.dtype
+                                 for v in values]
+        parts = self._partitions(kdata, kvalid)
+        kd = [_host(a) for a in kdata]
+        kv = [_host(a) for a in kvalid]
+        vals = [(_host(v.data), _host(v.validity)) if v is not None
+                else None for v in values]
+        metrics.spill_seconds.inc(time.perf_counter() - t0, kind="agg",
+                                  stage="partition")
+        for p in range(self.P):
+            rows = np.nonzero(live & (parts == p))[0]
+            if not len(rows):
+                continue
+            blob = {}
+            for i, (d, v) in enumerate(zip(kd, kv)):
+                blob[f"k{i}_d"], blob[f"k{i}_v"] = d[rows], v[rows]
+            for j, dv in enumerate(vals):
+                if dv is not None:
+                    blob[f"a{j}_d"], blob[f"a{j}_v"] = \
+                        dv[0][rows], dv[1][rows]
+            self.raw_chunks[p].append(self._save(blob))
+
+    def add_state(self, state) -> None:
+        """Park a partial group table (keys + per-agg partial fields)."""
+        t0 = time.perf_counter()
+        present = _host(state["present"])
+        if not present.any():
+            return
+        parts = self._partitions(state["keys"], state["kvalid"])
+        kd = [_host(a) for a in state["keys"]]
+        kv = [_host(a) for a in state["kvalid"]]
+        partials = [{f: _host(arr) for f, arr in part.items()}
+                    for part in state["partials"]]
+        metrics.spill_seconds.inc(time.perf_counter() - t0, kind="agg",
+                                  stage="partition")
+        for p in range(self.P):
+            rows = np.nonzero(present & (parts == p))[0]
+            if not len(rows):
+                continue
+            blob = {}
+            for i, (d, v) in enumerate(zip(kd, kv)):
+                blob[f"k{i}_d"], blob[f"k{i}_v"] = d[rows], v[rows]
+            for j, part in enumerate(partials):
+                for f, arr in part.items():
+                    blob[f"p{j}_{f}"] = arr[rows]
+            self.state_chunks[p].append(self._save(blob))
+
+    def _load(self, path: str):
+        """-> (the chunk's arrays padded to their bucket as device
+        tensors, its row count)."""
+        t0 = time.perf_counter()
+        with np.load(path) as z:
+            n = z["k0_d"].shape[0]
+            padded = bucket_length(n)
+            out = {}
+            for f in z.files:
+                a = z[f]
+                full = np.zeros((padded,) + a.shape[1:], a.dtype)
+                full[:n] = a
+                out[f] = torch.from_numpy(full).to(self.device)
+        metrics.spill_seconds.inc(time.perf_counter() - t0, kind="agg",
+                                  stage="replay")
+        return out, n
+
+    def _present(self, n: int, padded: int) -> torch.Tensor:
+        return torch.arange(padded, device=self.device) < n
+
+    def iter_raw(self, p: int, nkeys: int, naggs: int):
+        """Yield (kdata, kvalid, mask, values) per parked chunk, padded to
+        the bucket. values[j] = a DeviceColumn or None."""
+        for path in self.raw_chunks[p]:
+            z, n = self._load(path)
+            kdata = [z[f"k{i}_d"] for i in range(nkeys)]
+            kvalid = [z[f"k{i}_v"] for i in range(nkeys)]
+            mask = self._present(n, kdata[0].shape[0])
+            values = []
+            for j in range(naggs):
+                if f"a{j}_d" in z:
+                    values.append(DeviceColumn(z[f"a{j}_d"], z[f"a{j}_v"],
+                                               self.value_dtypes[j]))
+                else:
+                    values.append(None)
+            yield kdata, kvalid, mask, values
+
+    def iter_state(self, p: int, nkeys: int, naggs: int):
+        """Yield parked partial states as state dicts (padded)."""
+        for path in self.state_chunks[p]:
+            z, n = self._load(path)
+            keys = [z[f"k{i}_d"] for i in range(nkeys)]
+            kvalid = [z[f"k{i}_v"] for i in range(nkeys)]
+            partials = []
+            for j in range(naggs):
+                prefix = f"p{j}_"
+                partials.append({f[len(prefix):]: a for f, a in z.items()
+                                 if f.startswith(prefix)})
+            yield {"keys": keys, "kvalid": kvalid,
+                   "present": self._present(n, keys[0].shape[0]),
+                   "partials": partials,
+                   "n": torch.tensor(n, dtype=torch.int32,
+                                     device=self.device)}
+
+    def cleanup(self) -> None:
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
 class AggOp(Operator):
     """Streaming group-by: per-batch partial agg folded into a device-
     resident group table (colexec/group + mergegroup, re-expressed).
 
     The group table grows adaptively (quantized x4, as the reference
-    grows its hash table) up to `max_device_groups`.  `use_pallas` is
-    the reference's per-call-site routing of float32 grouped sums to the
-    segment-sum kernel (vm/compile passes what the reference resolves on
-    its TPU: on)."""
+    grows its hash table); past `max_device_groups` it Grace-spills to
+    the host (see _AggSpill).  `use_pallas` is the reference's
+    per-call-site routing of float32 grouped sums to the segment-sum
+    kernel (vm/compile passes what the reference resolves on its TPU:
+    on)."""
 
     def __init__(self, node: P.Aggregate, child: Operator, ctx,
                  max_groups: int = 4096,
                  max_device_groups: int = 1 << 21,
+                 spill_partitions: int = 16,
                  use_pallas: bool = False):
         self.node = node
         self.child = child
@@ -218,18 +388,22 @@ class AggOp(Operator):
         self.schema = node.schema
         self.max_groups = max_groups
         self.max_device_groups = max(max_groups, max_device_groups)
+        self.spill_partitions = spill_partitions
         self.use_pallas = use_pallas
+        self._spill: Optional[_AggSpill] = None
 
-    def _grow(self, needed: int) -> None:
+    def _grow(self, needed: int, allow_spill: bool) -> None:
         nxt = self.max_groups
         while nxt < needed:
             nxt *= 4
         nxt = min(nxt, self.max_device_groups)
         if nxt < needed:
-            raise NotImplementedError(
+            if allow_spill:
+                raise _NeedSpill
+            raise EvalError(
                 f"group count {needed} exceeds the device budget "
-                f"({self.max_device_groups}); the aggregate's host spill "
-                f"is not ported yet (ROADMAP.md, section A)")
+                f"({self.max_device_groups}) even within one spill "
+                f"partition; raise spill_partitions ({self.spill_partitions})")
         self.max_groups = nxt
 
     def execute(self) -> Iterator[ExecBatch]:
@@ -278,6 +452,15 @@ class AggOp(Operator):
             list(seed_dicts) if seed_dicts is not None else [None] * nkeys
         if not hasattr(self, "_agg_tracker") or seed is None:
             self._agg_tracker = _AggDictTracker(self.node.aggs)
+        try:
+            yield from self._grouped_agg_inner(nkeys, key_dicts,
+                                               seed=seed)
+        finally:
+            if self._spill is not None:     # drained, or an exception
+                self._spill.cleanup()
+                self._spill = None
+
+    def _grouped_agg_inner(self, nkeys, key_dicts, seed=None):
         state = seed   # dict: keys:[tensors], kvalid:[tensors], partials per agg
         dense = None       # small-key dense accumulator (no hash, no sort)
         # a seeded state is already in general form: the dense fast path
@@ -308,19 +491,53 @@ class AggOp(Operator):
                 state = self._dense_to_state(dense)
                 dense = None
             metrics.agg_chunks.inc(path="general")
-            part = self._partial_vals(kdata, kvalid, ex.mask, values)
-            state = part if state is None else self._merge(state, part)
+            if self._spill is not None:
+                self._spill.add_raw(kdata, kvalid, ex.mask, values)
+                continue
+            try:
+                part = self._partial_vals(kdata, kvalid, ex.mask, values,
+                                          allow_spill=True)
+                state = part if state is None else \
+                    self._merge(state, part, allow_spill=True)
+            except _NeedSpill:
+                metrics.agg_spills.inc()
+                self._spill = _AggSpill(self.spill_partitions, ex.device)
+                if state is not None:
+                    self._spill.add_state(state)
+                    state = None
+                self._spill.add_raw(kdata, kvalid, ex.mask, values)
         if dense is not None:
-            state = self._dense_to_state(dense)
-        if state is None:
-            state = self._empty_state(self.ctx.device)
-        yield self._finalize(state, key_dicts)
+            yield self._finalize(self._dense_to_state(dense), key_dicts)
+            return
+        if self._spill is None:
+            if state is None:
+                state = self._empty_state(self.ctx.device)
+            yield self._finalize(state, key_dicts)
+            return
+        # spill drain: each partition has a disjoint key set
+        spill = self._spill
+        naggs = len(self.node.aggs)
+        metrics.spill_partitions.inc(spill.P, kind="agg")
+        for p in range(spill.P):
+            pstate = None
+            for kdata, kvalid, mask, values in spill.iter_raw(
+                    p, nkeys, naggs):
+                part = self._partial_vals(kdata, kvalid, mask, values,
+                                          allow_spill=False)
+                pstate = part if pstate is None else \
+                    self._merge(pstate, part, allow_spill=False)
+            for st in spill.iter_state(p, nkeys, naggs):
+                pstate = st if pstate is None else \
+                    self._merge(pstate, st, allow_spill=False)
+            if pstate is not None and int(pstate["n"]):
+                yield self._finalize(pstate, key_dicts)
 
     # ---- dense small-key fast path (the Q1 shape: GROUP BY two dict-
     # coded columns with additive aggregates). Group ids come from a
     # mixed-radix expansion over the key dictionaries instead of
-    # hash+argsort, and the deduplicated partial lanes fold in one
-    # index_add_ per dtype class (ops/agg.dense_lane_partials); the
+    # hash+argsort, and the deduplicated partial lanes fold per dtype
+    # class (ops/agg.dense_lane_partials: int lanes in one index_add_,
+    # float lanes as block sums over the rows sorted by slot); the
     # cross-chunk merge is an elementwise add of (G,)-sized partials —
     # no re-grouping sort.
     def _dense_sizes(self, ex) -> Optional[List[int]]:
@@ -494,14 +711,15 @@ class AggOp(Operator):
                 "partials": [dict(p) for p in dense["partials"]],
                 "n": n}
 
-    def _partial_vals(self, kdata, kvalid, mask, values):
+    def _partial_vals(self, kdata, kvalid, mask, values,
+                      allow_spill: bool = False):
         while True:
             mg = self.max_groups
             gi = A.group_ids(kdata, kvalid, mask, mg)
             ng = int(gi.num_groups)
             if ng <= mg:
                 break
-            self._grow(ng)
+            self._grow(ng, allow_spill)
         rep_k, rep_v = A.gather_keys(kdata, kvalid, gi.rep_rows)
         present = torch.arange(mg, dtype=torch.int32,
                                device=mask.device) < gi.num_groups
@@ -512,7 +730,7 @@ class AggOp(Operator):
         return {"keys": rep_k, "kvalid": rep_v, "present": present,
                 "partials": partials, "n": gi.num_groups}
 
-    def _merge(self, s1, s2):
+    def _merge(self, s1, s2, allow_spill: bool = False):
         """Merge two partial group tables by concatenating their rows and
         re-grouping (mergegroup)."""
         keys = [torch.cat([a, b]) for a, b in zip(s1["keys"], s2["keys"])]
@@ -525,7 +743,7 @@ class AggOp(Operator):
             ng = int(gi.num_groups)
             if ng <= mg:
                 break
-            self._grow(ng)
+            self._grow(ng, allow_spill)
         rep_k, rep_v = A.gather_keys(keys, kvalid, gi.rep_rows)
         present = torch.arange(mg, dtype=torch.int32,
                                device=mask.device) < gi.num_groups

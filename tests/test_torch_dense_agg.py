@@ -1,10 +1,13 @@
 """The port's dense small-key GROUP BY against the JAX package, on the CPU.
 
-  * `ops/agg.dense_lane_partials` (one `index_add_` per dtype class)
-    against the reference's unrolled masked sums on the same seeded
-    numpy inputs: int64 lanes and the rows lane bit-equal, float64 lanes
+  * `ops/agg.dense_lane_partials` (one `index_add_` for the int lanes,
+    block sums over the rows sorted by slot for the float lanes) against
+    the reference's unrolled masked sums on the same seeded numpy
+    inputs: int64 lanes and the rows lane bit-equal, float64 lanes
     within rtol 1e-12, with and without NULL slots, NULL keys, masked
-    rows, per-lane masks and narrow int8 codes;
+    rows, per-lane masks and narrow int8 codes; a NaN or an inf stays in
+    its own slot, at row counts over, at and under whole blocks, as in
+    the reference;
   * the AggOp's dense path through SQL: the rows equal the JAX
     session's, the path is the dense one (the `agg_chunks` counter),
     `MO_DENSE_GROUPS=0` and `MO_DENSE_GROUPS_MAX` send it to the general
@@ -91,6 +94,38 @@ def test_dense_lane_partials_match_reference(sizes, with_null, code_dtype):
     np.testing.assert_array_equal(g_rows, w_rows)
     np.testing.assert_allclose(g_floats, w_floats, rtol=1e-12, atol=0)
     assert g_rows.sum() == row_mask.sum()
+
+
+@pytest.mark.parametrize("n", [5000, 2048, 3])
+def test_dense_float_lanes_keep_nan_and_inf_in_their_slot(n):
+    """Row counts over, at and under whole blocks of the sorted rows
+    (`_SUM_BLOCK`, 1024) give the reference's sums; a NaN and an inf
+    poison only their own slot, and a masked-out NaN none."""
+    rng = np.random.default_rng(n)
+    codes = [rng.integers(0, 3, n).astype(np.int32)]
+    valids = [rng.random(n) < 0.9]
+    row_mask = rng.random(n) < 0.95
+    x = rng.standard_normal(n) * 1e3
+    y = rng.standard_normal(n)
+    lane_mask = rng.random(n) < 0.8
+    row_mask[:3] = True
+    codes[0][:3], valids[0][:3] = (0, 1, 2), True
+    x[0], x[1] = np.nan, np.inf
+    y[2], lane_mask[2] = np.nan, False
+    want = JA.dense_lane_partials(
+        (jnp.asarray(codes[0]),), (jnp.asarray(valids[0]),),
+        jnp.asarray(row_mask), (), (), (jnp.asarray(x), jnp.asarray(y)),
+        (None, jnp.asarray(lane_mask)), sizes=(3,), with_null=True)[1]
+    got = TA.dense_lane_partials(
+        [torch.from_numpy(codes[0])], [torch.from_numpy(valids[0])],
+        torch.from_numpy(row_mask), [], [],
+        [torch.from_numpy(x), torch.from_numpy(y)],
+        [None, torch.from_numpy(lane_mask)], sizes=(3,),
+        with_null=True)[1].numpy()
+    want = np.asarray(want)
+    assert np.isnan(got[0, 0]) and got[0, 1] == np.inf
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=0)
 
 
 @pytest.mark.parametrize("null_slots", [True, False])

@@ -309,7 +309,7 @@ def test_explain_equals_reference():
     "create index ix on t (id)",
     "set fault_point = 'commit.before:fail'",
     "explain analyze select id from t",
-    "create table h (id bigint) partition by hash(id) partitions 4"])
+    "create materialized view mv as select id from t"])
 def test_statements_not_ported_raise(sql):
     s = TSession(device="cpu")
     s.execute("create table t (id bigint)")
