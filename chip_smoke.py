@@ -197,6 +197,29 @@ Phases, each of which raises on failure:
     then both kernels held against their plain versions at every shape
     the spilled runs launched them with, on their own inputs.
 
+11. storage with objects, last (its tables are its own): phase 5's
+    SF1 tables (regenerated from the same seed) loaded into
+    `Engine(LocalFS(tmp))`, checkpointed to the port's objects and
+    demoted (`checkpoint(demote=True)`, as `bench.py` runs Q1 and Q3:
+    every segment must be object-backed), the block cache's budgets
+    sized to the working set; each query's cold run starts from an
+    empty cache (the scan's read-ahead thread on), then a counted warm
+    run and 3 warm runs that must be served by the device tier (hit
+    rate >= 99%, 0 bytes uploaded), each run checked:
+    a. Q3 fused (its steps capture while the read-ahead runs) and
+       per-operator, exact to `q3_oracle` and to each other; load,
+       checkpoint and object bytes, decode seconds, busy share and the
+       host-to-device copies of one profiled run;
+    b. Q1 (dense path on every chunk), Q6 and 5c's GROUP BY, under 6a's
+       and 5c's gates;
+    c. `Engine.open` of the directory (Q3 equal), RF1 and RF2 as 7b
+       runs them, a second restart from the checkpoint and the WAL tail
+       alone (Q1 and Q3 exact to oracles of the refreshed arrays), then
+       `merge_table` of lineitem and orders: Q1 again, and Q1 AS OF a
+       timestamp before the merge equal to the same read before it;
+    then both kernels held against their plain versions at every shape
+    11a and 11b launched them with, graph replays included.
+
 The second-to-last line of output is the kernels' JSON record and the
 last is {"ok": true, "device": {...}}.  Without CUDA, or outside a
 checkout of the repository, it exits non-zero and prints no result.
@@ -760,6 +783,8 @@ def profile_run(torch, fn, label: str, top: int = 8) -> dict:
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     out = {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
            "device_busy_share": busy_us / wall_us,
+           "h2d_copy_ms": sum(v for k, v in by_name.items()
+                              if "HtoD" in k) / 1e3,
            "top_kernels_ms": [[k[:80], v / 1e3] for k, v in ranked]}
     log(f"[profile] {label}: wall {out['wall_ms']:.3f} ms, device busy "
         f"{out['device_busy_ms']:.3f} ms ({out['device_busy_share']:.1%})")
@@ -1689,13 +1714,29 @@ def equal_rows_check(want, label: str):
 
 
 
+def load_v_table(eng, n: int, seed: int) -> dict:
+    """Create and load 5c's table v: id, grp = id % 1000, xi integer-
+    valued in [0, 16) and xn N(0, 1), float32 -> its arrays."""
+    from matrixone_tpu_torch.container import dtypes as dt
+    from matrixone_tpu_torch.storage.engine import TableMeta
+    rng = np.random.default_rng(seed)
+    ids = np.arange(n, dtype=np.int64)
+    v = {"id": ids, "grp": ids % 1000,
+         "xi": rng.integers(0, 16, n).astype(np.float32),
+         "xn": rng.standard_normal(n).astype(np.float32)}
+    eng.create_table(TableMeta("v", [("id", dt.INT64), ("grp", dt.INT64),
+                                     ("xi", dt.FLOAT32), ("xn", dt.FLOAT32)],
+                               ["id"]))
+    eng.get_table("v").insert_numpy(v)
+    return v
+
+
 def phase_sql(torch, CK, args):
     """Phase 5: TPC-H Q3 and the float GROUP BY at scale factor 1."""
-    from matrixone_tpu_torch.container import dtypes as dt
     from matrixone_tpu_torch.frontend import Session
     from matrixone_tpu_torch.ops import kernels as TK
     from matrixone_tpu_torch.sql import plan as P
-    from matrixone_tpu_torch.storage.engine import Engine, TableMeta
+    from matrixone_tpu_torch.storage.engine import Engine
     from matrixone_tpu_torch.utils import tpch
 
     report = {}
@@ -1706,15 +1747,7 @@ def phase_sql(torch, CK, args):
     load_q3 = time.perf_counter() - t0
     t0 = time.perf_counter()
     n_v = args.sf1_lineitem
-    rng = np.random.default_rng(args.seed)
-    ids = np.arange(n_v, dtype=np.int64)
-    v = {"id": ids, "grp": ids % 1000,
-         "xi": rng.integers(0, 16, n_v).astype(np.float32),
-         "xn": rng.standard_normal(n_v).astype(np.float32)}
-    eng.create_table(TableMeta("v", [("id", dt.INT64), ("grp", dt.INT64),
-                                     ("xi", dt.FLOAT32), ("xn", dt.FLOAT32)],
-                               ["id"]))
-    eng.get_table("v").insert_numpy(v)
+    v = load_v_table(eng, n_v, args.seed)
     load_v = time.perf_counter() - t0
     report["load"] = {
         "q3_tables_seconds": load_q3, "v_seconds": load_v,
@@ -3600,6 +3633,320 @@ def phase_spill_storage(torch, CK, args, sf1) -> tuple:
     return report, search_rows, segsum_rows
 
 
+# ------------------------------------------ phase 11: storage with objects
+
+def cache_counts() -> dict:
+    """The block cache's counters and the scan read-ahead's, so far."""
+    from matrixone_tpu_torch.storage import blockcache
+    from matrixone_tpu_torch.utils import metrics as M
+    st = blockcache.CACHE.stats()
+    return {"hits": st["hits"], "misses": st["misses"],
+            "dev_hits": st["device_tier"]["hits"],
+            "dev_misses": st["device_tier"]["misses"],
+            "uploaded_bytes": st["uploaded_bytes"],
+            "decode_seconds": st["decode_seconds"],
+            "bytes_fetched": st["bytes_fetched"],
+            "prefetch_chunks": M.scan_prefetch.get(outcome="ready")
+            + M.scan_prefetch.get(outcome="waited"),
+            "prefetch_wait_seconds": M.scan_prefetch_wait_seconds.get()}
+
+
+def cache_since(before: dict) -> dict:
+    now = cache_counts()
+    return {k: now[k] - before[k] for k in now}
+
+
+def object_path(torch, CK, TK, label: str, session, sql: str, n_rows: int,
+                check, kernel=None, fused: bool = False) -> tuple:
+    """One query over object-backed segments: the cold run from an empty
+    block cache (the scan's read-ahead on: decode seconds, bytes
+    fetched, chunks read ahead, graphs captured when `fused`), the
+    counted warm run (kernel launches by shape with their inputs
+    captured), 3 warm runs served by the device tier (hit rate >= 99%,
+    0 bytes uploaded: raises otherwise) and one profiled run; every
+    run's rows checked.  -> (record, captured inputs, rows)."""
+    from matrixone_tpu_torch.storage import blockcache
+    # the planner's table statistics read columns (through the host
+    # tier) once per table version: plan first, so the cold run's scans
+    # find the cache empty
+    session.plan(sql)
+    blockcache.CACHE.clear()
+    c0, f0 = cache_counts(), fusion_counts()
+    rows, batch, cold_s = run_sql(torch, session, sql)
+    cold, cold_f = cache_since(c0), counts_since(f0)
+    check(rows, batch)
+    if cold["prefetch_chunks"] == 0:
+        raise AssertionError(f"{label}: the cold scan read nothing ahead")
+    if fused and not cold_f["captures"]:
+        raise AssertionError(f"{label}: the cold fused run captured no "
+                             f"graph")
+    CK.LAUNCHES.reset()
+    c0, f0 = cache_counts(), fusion_counts()
+    with PathInputs(torch, TK) as cap:
+        rows, batch, counted_s = run_sql(torch, session, sql)
+    launches = kernel_launches(CK, label, ("sorted_search", "segment_sum",
+                                           "segment_sum_walk"),
+                               required=(kernel,) if kernel else ())
+    check(rows, batch)
+    warm = []
+    for _ in range(3):
+        r, b, w = run_sql(torch, session, sql)
+        check(r, b)
+        warm.append(w)
+    wc, wf = cache_since(c0), counts_since(f0)
+    looked = wc["dev_hits"] + wc["dev_misses"]
+    hit_rate = wc["dev_hits"] / looked if looked else None
+    if wc["uploaded_bytes"] or hit_rate is None or hit_rate < 0.99:
+        raise AssertionError(f"{label}: the warm runs were not served by "
+                             f"the device tier: {wc}")
+    if fused and wf["captures"]:
+        raise AssertionError(f"{label}: a warm run captured: {wf}")
+    prof = profile_run(torch, lambda: session.execute(sql), label)
+    out = {"cold_seconds": cold_s, "counted_seconds": counted_s,
+           "warm_seconds": warm, "rows_per_sec_best": n_rows / min(warm),
+           "cold_cache": cold, "warm_cache": wc,
+           "warm_device_hit_rate": hit_rate, "launches": launches,
+           "device_busy_share": prof["device_busy_share"],
+           "h2d_copy_ms": prof["h2d_copy_ms"], "profile": prof}
+    if fused:
+        out.update(cold_fusion=cold_f, warm_fusion=wf)
+    log(f"[{label}] cold {cold_s:.3f}s (decode {cold['decode_seconds']:.3f}"
+        f"s, {cold['bytes_fetched'] / 2 ** 20:.0f} MiB fetched, "
+        f"{cold['prefetch_chunks']:.0f} chunks read ahead) warm "
+        f"{['%.4f' % w for w in warm]} best {out['rows_per_sec_best']:.0f} "
+        f"rows/s; warm device-tier hit rate {hit_rate:.4f}, uploaded "
+        f"{wc['uploaded_bytes']} B; busy {prof['device_busy_share']:.1%}, "
+        f"host-to-device copies {prof['h2d_copy_ms']:.3f} ms")
+    return out, cap, rows
+
+
+def object_bytes(root: str) -> dict:
+    """Bytes of the objects under `root` by table."""
+    out = {}
+    base = os.path.join(root, "objects")
+    for table in sorted(os.listdir(base)) if os.path.isdir(base) else ():
+        d = os.path.join(base, table)
+        out[table] = sum(os.path.getsize(os.path.join(d, f))
+                         for f in os.listdir(d))
+    return out
+
+
+def phase_objects(torch, CK, args) -> tuple:
+    """Phase 11: phase 5's SF1 tables object-backed on a LocalFS engine
+    (11a Q3, 11b Q1/Q6/GROUP BY), then restarts, the refresh functions
+    and merges over them (11c)."""
+    import gc
+    import shutil
+    import tempfile
+    from matrixone_tpu_torch.frontend import Session
+    from matrixone_tpu_torch.ops import kernels as TK
+    from matrixone_tpu_torch.storage import blockcache
+    from matrixone_tpu_torch.storage.engine import Engine
+    from matrixone_tpu_torch.storage.fileservice import LocalFS
+    from matrixone_tpu_torch.utils import tpch, tpch_full
+
+    n = args.sf1_lineitem
+    root = tempfile.mkdtemp(prefix="mo_chip_objects_")
+    saved_env = os.environ.get("MO_BLOCK_CACHE_MB")
+    report = {}
+    try:
+        eng = Engine(LocalFS(root))
+        t0 = time.perf_counter()
+        lineitem = tpch.load_lineitem(eng, n, seed=args.seed)
+        q3data = tpch.load_tpch_q3(eng, n // 4, seed=args.seed)
+        v = load_v_table(eng, n, args.seed)
+        load_s = time.perf_counter() - t0
+        host = {t: table_host_bytes(eng.get_table(t)) for t in eng.tables}
+        # the budgets sized to the working set, as bench.py sizes them
+        os.environ["MO_BLOCK_CACHE_MB"] = str(
+            max(256, (sum(host.values()) >> 20) + 256))
+        t0 = time.perf_counter()
+        eng.checkpoint(demote=True)
+        ckpt_s = time.perf_counter() - t0
+        lazy = [seg.is_lazy for t in eng.tables.values()
+                for seg in t.segments]
+        if not lazy or not all(lazy):
+            raise AssertionError("11a: a segment is not object-backed after "
+                                 "checkpoint(demote=True)")
+        report["load"] = {
+            "load_seconds": load_s, "checkpoint_seconds": ckpt_s,
+            "host_bytes": host, "object_bytes": object_bytes(root),
+            "block_cache_mb": int(os.environ["MO_BLOCK_CACHE_MB"]),
+            "segments": len(lazy)}
+        log(f"[11a] loaded (with the WAL) in {load_s:.2f}s, checkpointed "
+            f"and demoted in {ckpt_s:.2f}s: object bytes "
+            f"{report['load']['object_bytes']}, host bytes {host}; "
+            f"block cache {os.environ['MO_BLOCK_CACHE_MB']} MiB a tier")
+
+        fsess = Session(catalog=eng, device="cuda")
+        psess = Session(catalog=eng, device="cuda")
+        psess.execute("set plan_fusion = 0")
+        oracle = tpch.q3_oracle(lineitem, q3data)
+        check_q3 = q3_rows_check(oracle, "11a")
+        caps = {}
+        from matrixone_tpu_torch.vm import fusion
+        fusion.CACHE.clear()
+        with GraphSearchSpy(torch, TK) as spy:
+            report["11a_q3_fused"], caps["11a_q3_fused"], q3_rows = \
+                object_path(torch, CK, TK, "11a Q3 fused", fsess,
+                            tpch.Q3_SQL, n, check_q3, "sorted_search",
+                            fused=True)
+        report["11a_q3_per_operator"], caps["11a_q3_per_operator"], \
+            p_rows = object_path(torch, CK, TK, "11a Q3 per-operator",
+                                 psess, tpch.Q3_SQL, n, check_q3,
+                                 "sorted_search")
+        if p_rows != q3_rows:
+            raise AssertionError("11a: fused and per-operator Q3 differ")
+        report["11a_compare"] = compare_paths(report["11a_q3_fused"],
+                                              report["11a_q3_per_operator"])
+
+        # 11b: Q1 (dense on every chunk), Q6, 5c's GROUP BY
+        q1_float = {}
+        c0 = agg_chunks()
+        report["11b_q1"], _cap, _ = object_path(
+            torch, CK, TK, "11b Q1", psess, tpch.Q1_SQL, n,
+            q1_rows_check(lineitem, q1_float, "11b"))
+        chunks = {p: c - c0[p] for p, c in agg_chunks().items()}
+        if chunks["dense"] == 0 or chunks["general"] != 0:
+            raise AssertionError(f"11b Q1's aggregate did not take the "
+                                 f"dense path on every chunk: {chunks}")
+        report["11b_q1"]["agg_chunks"] = chunks
+        report["11b_q6"], _cap, _ = object_path(
+            torch, CK, TK, "11b Q6", psess, tpch.Q6_SQL, n,
+            q6_rows_check(lineitem, "11b"))
+        gb_err = {}
+        report["11b_group_by"], caps["11b_group_by"], _ = object_path(
+            torch, CK, TK, "11b GROUP BY", psess, GROUP_BY_SQL, n,
+            group_by_check(v, gb_err, "11b"), "segment_sum")
+        report["11b_group_by"].update(gb_err)
+
+        # the kernels at every shape 11a and 11b launched them with
+        search_rows = []
+        for key in ("11a_q3_fused", "11a_q3_per_operator"):
+            search_rows += check_spill_search(
+                torch, CK, key, report[key], caps[key],
+                spy.seen if key.endswith("fused") else ())
+        report["11a_graph_search"] = {
+            "captured_calls": len(spy.seen),
+            "shapes": sorted({(a.shape[0], q.shape[0])
+                              for a, q, _ in spy.seen})}
+        del spy
+        counts = {tuple(r[:-1]): r[-1] for r in report["11b_group_by"][
+            "launches"]["segment_sum"]["by_shape"]}
+        segsum_rows = [dict(check_segment_sum(
+            torch, CK, f"11b_n{n_}_G{g}", *caps["11b_group_by"].segsum[
+                (n_, g)], g), path="11b_group_by", path_launches=c)
+            for (n_, g), c in sorted(counts.items())]
+        del caps, fsess
+        fusion.CACHE.clear()
+
+        # 11c: restart, refresh, restart from the WAL tail, merge
+        del psess, eng
+        gc.collect()
+        blockcache.CACHE.clear()
+        t0 = time.perf_counter()
+        eng = Engine.open(LocalFS(root))
+        open_s = time.perf_counter() - t0
+        sess = Session(catalog=eng, device="cuda")
+        sess.execute("set plan_fusion = 0")
+        rows, _b, cold_s = run_sql(torch, sess, tpch.Q3_SQL)
+        if rows != q3_rows:
+            raise AssertionError("11c: Q3 after Engine.open differs")
+        report["11c_reopen"] = {"open_seconds": open_s,
+                                "q3_cold_seconds": cold_s,
+                                "recovery": eng.recovery_summary}
+        tables = {"lineitem": lineitem, "orders": q3data["orders"]}
+        rf1 = tpch_full.rf1(tables, 1.0, seed=args.seed + 4, q3data=q3data)
+        rf1_s, _a, rf1_parts = run_statements(torch, sess, rf1.statements)
+        tables = tpch_full.apply_refresh(tables, rf1)
+        rf2 = tpch_full.rf2(tables, 1.0, seed=args.seed + 5)
+        rf2_s, _a, rf2_parts = run_statements(torch, sess, rf2.statements)
+        after = tpch_full.apply_refresh(tables, rf2)
+        lineitem2 = after["lineitem"]
+        q3data2 = dict(q3data, orders=after["orders"])
+        del sess, eng
+        gc.collect()
+        blockcache.CACHE.clear()
+        t0 = time.perf_counter()
+        eng = Engine.open(LocalFS(root))
+        replay_s = time.perf_counter() - t0
+        sess = Session(catalog=eng, device="cuda")
+        sess.execute("set plan_fusion = 0")
+        report["11c_refresh"] = {
+            "rf1_seconds": rf1_s, "rf2_seconds": rf2_s,
+            "rf1": rf1_parts, "rf2": rf2_parts,
+            "restart_seconds": replay_s,
+            "recovery": eng.recovery_summary}
+        if not eng.recovery_summary["frames_replayed"]:
+            raise AssertionError("11c: the restart replayed no WAL frame")
+        q1_want = tpch.q1_oracle(lineitem2)
+
+        def check_q1(_rows, batch):
+            bad = q1_exact(batch, q1_want)
+            if bad:
+                raise AssertionError(f"11c Q1 differs from q1_oracle: "
+                                     f"{bad[:4]}")
+        check_q3b = q3_rows_check(tpch.q3_oracle(lineitem2, q3data2),
+                                  "11c after the refresh")
+        for label, sql, check in (("q1", tpch.Q1_SQL, check_q1),
+                                  ("q3", tpch.Q3_SQL, check_q3b)):
+            rows, batch, _s = run_sql(torch, sess, sql)
+            check(rows, batch)
+            warm = []
+            for _ in range(3):
+                rows, batch, w = run_sql(torch, sess, sql)
+                check(rows, batch)
+                warm.append(w)
+            report["11c_refresh"][f"{label}_warm_seconds"] = warm
+        log(f"[11c] reopened in {open_s:.2f}s (Q3 equal); RF1 "
+            f"{rf1_s:.2f}s, RF2 {rf2_s:.2f}s; restart from the WAL tail "
+            f"{replay_s:.2f}s {eng.recovery_summary}; Q1 and Q3 exact to "
+            f"the refreshed oracles, warm Q1 "
+            f"{min(report['11c_refresh']['q1_warm_seconds']):.4f}s")
+        ts_pre = eng.committed_ts
+        as_of = tpch.Q1_SQL.replace(
+            "from lineitem", f"from lineitem as of timestamp {ts_pre}")
+        pre_rows = sess.execute(as_of).rows()
+        segs = {t: len(eng.get_table(t).segments) for t in ("lineitem",
+                                                             "orders")}
+        t0 = time.perf_counter()
+        kept = {t: eng.merge_table(t) for t in ("lineitem", "orders")}
+        merge_s = time.perf_counter() - t0
+        if kept != {"lineitem": len(lineitem2["l_orderkey"]),
+                    "orders": len(q3data2["orders"]["o_orderkey"])}:
+            raise AssertionError(f"11c: the merges kept {kept}")
+        if sess.execute(as_of).rows() != pre_rows:
+            raise AssertionError("11c: Q1 AS OF before the merge changed")
+        rows, batch, _s = run_sql(torch, sess, tpch.Q1_SQL)
+        check_q1(rows, batch)
+        warm = []
+        for _ in range(3):
+            rows, batch, w = run_sql(torch, sess, tpch.Q1_SQL)
+            check_q1(rows, batch)
+            warm.append(w)
+        rows, batch, _s = run_sql(torch, sess, tpch.Q3_SQL)
+        check_q3b(rows, batch)
+        report["11c_merge"] = {
+            "segments_before": segs, "kept": kept, "seconds": merge_s,
+            "q1_warm_seconds": warm,
+            "object_bytes": object_bytes(root)}
+        log(f"[11c] merged {segs} segments in {merge_s:.2f}s; Q1 after RF2 "
+            f"and the merge warm {min(warm):.4f}s (before the merge "
+            f"{min(report['11c_refresh']['q1_warm_seconds']):.4f}s); Q1 AS "
+            f"OF before the merge unchanged; Q3 exact")
+        del sess, eng
+    finally:
+        if saved_env is None:
+            os.environ.pop("MO_BLOCK_CACHE_MB", None)
+        else:
+            os.environ["MO_BLOCK_CACHE_MB"] = saved_env
+        blockcache.CACHE.clear()
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return report, search_rows, segsum_rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=1_000_000)
@@ -3681,10 +4028,16 @@ def main(argv=None) -> int:
     report["refresh"]["seconds"] = time.perf_counter() - t0
     log(f"[7] phase 7 took {report['refresh']['seconds']:.1f}s")
     del sf1
+    t0 = time.perf_counter()
+    report["objects"], obj_search, obj_segsum = phase_objects(torch, CK,
+                                                              args)
+    report["objects"]["seconds"] = time.perf_counter() - t0
+    log(f"[11] phase 11 took {report['objects']['seconds']:.1f}s")
     search_rows += (search_path + tpch_search + rf01_search + refresh_search
-                    + exec_search + fusion_search + spill_search)
+                    + exec_search + fusion_search + spill_search
+                    + obj_search)
     segsum_rows += (segsum_path + rf01_segsum + refresh_segsum + exec_segsum
-                    + spill_segsum)
+                    + spill_segsum + obj_segsum)
     rows += path_rows + pq_rows
     adc_rows += pq_adc_rows
     pq_build = report["ivf_pq"]["build_launches"]
@@ -3740,6 +4093,12 @@ def main(argv=None) -> int:
                  if k.startswith(prefix) and "launches" in rec}
         for kernel, prefix in (("sorted_search", "10a_"),
                                ("segment_sum", "10b_group_by"))}
+    objects = report["objects"]
+    object_launches = {
+        kernel: {k: rec["launches"][kernel]["launches"]
+                 for k, rec in objects.items()
+                 if k.startswith(("11a_q3", "11b_")) and "launches" in rec}
+        for kernel in ("sorted_search", "segment_sum")}
     record = {"kernels": [{
         "name": "l2_distance_sq", "route": "cuda",
         "source": "matrixone_tpu_torch/csrc/l2_distance.cu",
@@ -3793,7 +4152,8 @@ def main(argv=None) -> int:
             **{f"6b_q{q}": v["sorted_search"] for q, v in tpch22.items()},
             **refresh_launches["sorted_search"],
             **executor_launches["sorted_search"],
-            **fusion_launches, **spill_launches["sorted_search"]},
+            **fusion_launches, **spill_launches["sorted_search"],
+            **object_launches["sorted_search"]},
         "launches_under_fusion": fusion_launches["9a_q3"],
         "max_abs_err": max(r["max_abs_err"] for r in search_rows),
         **{key: search_row[key] for key in timed},
@@ -3809,7 +4169,8 @@ def main(argv=None) -> int:
             **{f"6b_q{q}": v["segment_sum"] for q, v in tpch22.items()},
             **refresh_launches["segment_sum"],
             **executor_launches["segment_sum"],
-            **spill_launches["segment_sum"]},
+            **spill_launches["segment_sum"],
+            **object_launches["segment_sum"]},
         "max_abs_err": max(r["max_abs_err"] for r in segsum_rows),
         **{key: segsum_row[key] for key in timed},
         **{key: segsum_row[key] for key in (

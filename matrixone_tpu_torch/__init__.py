@@ -4,7 +4,9 @@ A second package beside the JAX one, written for one NVIDIA H100.  Its
 slices so far are vector search — IVF-Flat served by `WorkerCore`, and
 IVF-PQ (`vectorindex/ivf_pq.py`) — and the relational path from SQL
 text to the device: `frontend.Session.execute` over the SQL front end
-(`sql/`), an in-memory MVCC engine (`storage/engine.py`) and the
+(`sql/`), an MVCC engine (`storage/engine.py`: a WAL, checkpoints to
+objects in the port's own format, object-backed segments behind a
+block cache with a device tier, merges) and the
 executor (`vm/`: scans, filters, projections, hash joins, grouped
 aggregates, windows, sort, top-k, limit), whose fusable chains run as
 fused fragments, each step one CUDA graph replayed once per batch

@@ -182,15 +182,30 @@ class DeviceBatch:
                             device=self.n_rows.device) < self.n_rows
 
 
-def _dtype_ok(have, want: np.dtype) -> bool:
+_SIGNED = (torch.int8, torch.int16, torch.int32, torch.int64)
+
+
+def _dtype_ok(have, want: torch.dtype) -> bool:
     """Accept the declared dtype OR a narrower signed int (narrow dict
     codes from ops/encodings: int8/int16 codes under a declared int32
-    column must survive staging, not silently widen back)."""
-    have = np.dtype(have)
-    if have == want:
-        return True
-    return (have.kind == "i" and want.kind == "i"
-            and have.itemsize < want.itemsize)
+    column must survive staging, not silently widen back).  `have` is a
+    tensor's torch dtype or a host array's numpy dtype."""
+    if not isinstance(have, torch.dtype):
+        try:
+            have = torch_dtype_of(have)
+        except KeyError:
+            return False
+    return have == want or (have in _SIGNED and want in _SIGNED
+                            and have.itemsize < want.itemsize)
+
+
+def _rows_on(arr, n_rows: int, device) -> torch.Tensor:
+    """The first n_rows of a host array, or of a tensor (the device fast
+    path: a tensor on `device` is copied device to device, never through
+    the host), as a tensor on `device`."""
+    if isinstance(arr, torch.Tensor):
+        return arr[:n_rows].to(device)
+    return torch.from_numpy(np.ascontiguousarray(arr[:n_rows])).to(device)
 
 
 def from_numpy(arrays: Dict[str, np.ndarray],
@@ -200,7 +215,12 @@ def from_numpy(arrays: Dict[str, np.ndarray],
                pad_to: Optional[int] = None,
                device=None) -> DeviceBatch:
     """Build a padded DeviceBatch on `device` from host numpy arrays
-    (zero rows allowed); padding rows hold zeros and are invalid."""
+    (zero rows allowed); padding rows hold zeros and are invalid.
+
+    Device fast path (the block cache's device tier): a column or a
+    validity given as a tensor already on `device`, at the declared (or
+    a narrower signed int) dtype, is copied device to device into the
+    padded buffer (a cast, if any, on the device too)."""
     if device is None:
         raise ValueError("from_numpy needs a device")
     if n_rows is None:
@@ -210,20 +230,28 @@ def from_numpy(arrays: Dict[str, np.ndarray],
     for name, arr in arrays.items():
         dt = dtypes[name]
         val = None if validity is None else validity.get(name)
-        arr = np.asarray(arr)
-        if not _dtype_ok(arr.dtype, np.dtype(dt.np_dtype)):
-            arr = np.asarray(arr, dtype=dt.np_dtype)
-        data = torch.zeros((padded,) + arr.shape[1:],
-                           dtype=torch_dtype_of(arr.dtype), device=device)
+        want = torch_dtype_of(dt.np_dtype)
+        if isinstance(arr, torch.Tensor):
+            if not _dtype_ok(arr.dtype, want):
+                arr = arr.to(want)
+            tdt = arr.dtype
+        else:
+            arr = np.asarray(arr)
+            if not _dtype_ok(arr.dtype, want):
+                arr = np.asarray(arr, dtype=dt.np_dtype)
+            tdt = torch_dtype_of(arr.dtype)
+        data = torch.zeros((padded,) + tuple(arr.shape[1:]), dtype=tdt,
+                           device=device)
         valid = torch.zeros((padded,), dtype=torch.bool, device=device)
         if n_rows:
-            data[:n_rows] = torch.from_numpy(
-                np.ascontiguousarray(arr[:n_rows])).to(device)
+            data[:n_rows] = _rows_on(arr, n_rows, device)
             if val is None:
                 valid[:n_rows] = True
+            elif isinstance(val, torch.Tensor):
+                valid[:n_rows] = _rows_on(val, n_rows, device)
             else:
-                valid[:n_rows] = torch.from_numpy(
-                    np.ascontiguousarray(val[:n_rows], np.bool_)).to(device)
+                valid[:n_rows] = _rows_on(np.asarray(val, np.bool_),
+                                          n_rows, device)
         cols[name] = DeviceColumn(data=data, validity=valid, dtype=dt)
     return DeviceBatch(columns=cols,
                        n_rows=torch.tensor(n_rows, dtype=torch.int32,

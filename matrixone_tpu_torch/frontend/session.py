@@ -23,6 +23,11 @@ PARTITIONS and EXPLAIN of a SELECT (which marks each fused node
 `fragment=fN`).  A UNION [ALL] runs as a statement, a derived table or a
 CTE.
 
+The catalog is an `Engine`: `Session(catalog=Engine(LocalFS(dir)))`
+makes every DDL statement and commit durable in the engine's WAL,
+PARTITION BY specs and snapshots included, and `Engine.open(fs)`
+restarts from it.
+
 Not ported yet (ROADMAP.md, section A): the result and plan caches,
 admission control, tracing, `mo_ctl`, the fault hooks, and every other
 statement (LOAD DATA, indexes, materialized views, UDFs, accounts ...),
@@ -102,6 +107,13 @@ class Session:
         self.txn = None                 # active explicit transaction
         self.last_insert_id = 0         # MySQL LAST_INSERT_ID()
         self.variables = {"batch_rows": 1 << 20}
+
+    def close(self) -> None:
+        """End the session: roll back its open transaction, if any (the
+        engine's count of open transactions defers merges)."""
+        if self.txn is not None:
+            self.txn.rollback()
+            self.txn = None
 
     def _ctx(self, frozen_ts: Optional[int] = None) -> ExecContext:
         if frozen_ts is None and self.txn is None:

@@ -70,9 +70,16 @@ def code_np_dtype(dict_len: int) -> np.dtype:
     return np.dtype(np.int32)
 
 
-def narrow_codes(arr: np.ndarray, dict_len: int) -> np.ndarray:
-    """Cast a host code array to its narrowest width (never widens)."""
+def narrow_codes(arr, dict_len: int):
+    """Cast a code array to its narrowest width (never widens): a host
+    array on the host, a tensor (the block cache's device tier) on its
+    device."""
     cdt = code_np_dtype(dict_len)
+    if isinstance(arr, torch.Tensor):
+        tdt = {1: torch.int8, 2: torch.int16, 4: torch.int32}[cdt.itemsize]
+        if arr.dtype == tdt or arr.element_size() < cdt.itemsize:
+            return arr
+        return arr.to(tdt)
     if arr.dtype == cdt or np.dtype(arr.dtype).itemsize < cdt.itemsize:
         return arr
     return arr.astype(cdt)

@@ -963,6 +963,10 @@ class Binder:
                     f"aggregate UDF {e.name}() is only allowed as a "
                     f"top-level select item")
             return _bind_udf_call(u, args)
+        if e.name == "mo_ctl":
+            # the reference's session answers `select mo_ctl(...)` itself
+            raise NotImplementedError(
+                "mo_ctl() is not ported yet (ROADMAP.md, section A)")
         if e.name == "load_file":
             # datalink resolution (reference: load_file over the datalink
             # type): a constant URL reads at bind time through the stage

@@ -1,16 +1,33 @@
-"""MVCC storage engine, in-memory: versioned segments + tombstones.
+"""MVCC storage engine: versioned segments, tombstones, a WAL,
+checkpoints to objects, merges.
 
-The port's copy of the in-memory half of `matrixone_tpu/storage/engine.py`:
-the catalog, MVCC tables of committed numpy segments with table-global
-string dictionaries, row deletes as tombstones (commit ts, global row
-ids), the single-writer commit pipeline (first-committer-wins conflict
-check on deletes, NOT NULL and primary-key uniqueness over live rows,
-a hybrid-logical-clock commit ts, deletes applied before inserts, then
-the read frontier `committed_ts` advances), snapshot scans that merge a
-transaction's workspace (`extra_segments`, `extra_deletes`) into the
-rows visible at its snapshot and can carry each row's id (`ROWID`),
-named snapshots with `restore_table`, auto-increment counters and the
-pessimistic lock service (`lockservice`).
+The port's copy of `matrixone_tpu/storage/engine.py`: the catalog, MVCC
+tables of committed numpy segments with table-global string
+dictionaries, row deletes as tombstones (commit ts, global row ids), the
+single-writer commit pipeline (first-committer-wins conflict check on
+deletes, NOT NULL and primary-key uniqueness over live rows, a
+hybrid-logical-clock commit ts, the WAL append, deletes applied before
+inserts, then the read frontier `committed_ts` advances), snapshot scans
+that merge a transaction's workspace (`extra_segments`,
+`extra_deletes`) into the rows visible at its snapshot and can carry
+each row's id (`ROWID`), named snapshots with `restore_table`,
+auto-increment counters and the pessimistic lock service
+(`lockservice`).
+
+Durability rides a file service (`storage/fileservice.py`; `MemoryFS`
+unless the caller passes one): every catalog change and commit is
+appended to the WAL (`storage/wal.py`) before it is applied;
+`checkpoint` writes each segment once as an object (`storage/
+objectio.py`, the port's own format) plus a JSON manifest, then
+truncates the WAL; `Engine.open` loads the manifest and replays the WAL
+tail.  A segment loaded from (or demoted to) an object is LAZY: its
+columns come through the process block cache (`storage/blockcache.py`),
+whose device tier serves a warm scan with no upload, and a scan prunes
+it by the zonemaps stored in the manifest before fetching a byte.
+`merge_table` rewrites a table's live rows into one segment (capture,
+rewrite without the lock, swap), fencing the pre-merge view so AS OF
+reads stay bit-identical; `gc_fences` releases fences nothing can
+reach (`storage/merge_sched.py` drives both).
 
 The primary-key check probes a bloom filter over the table's keys first
 (reference: colexec/fuzzyfilter): only its suspects pay the exact
@@ -21,18 +38,20 @@ A partitioned table (`storage/partition.py`) splits every insert so one
 segment holds one partition's rows, and a scan skips the segments of
 the partitions its filters exclude.
 
-Not ported yet (ROADMAP.md, section A): the WAL, checkpoints and the
-object store (they need `pyarrow`, which the card machine lacks),
-merges and their snapshot fences, the logtail subscribers (CDC), the
-index cache and the co-partitioned shard read.
+Not ported yet (ROADMAP.md, section A): the fault hooks, the CN
+bootstrap (`open_checkpoint`), external tables, publications, stages,
+sources and dynamic tables, the logtail subscribers (CDC), indexes (so
+merges mark none dirty) and the co-partitioned shard read.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 import threading
 import time
-from typing import Dict, Iterator, List, Optional, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -40,6 +59,9 @@ from matrixone_tpu_torch import native
 from matrixone_tpu_torch.container.dtypes import DType, TypeOid
 from matrixone_tpu_torch.sql.expr import BoundCol, BoundExpr, BoundFunc, \
     BoundLiteral
+from matrixone_tpu_torch.storage import blockcache, objectio
+from matrixone_tpu_torch.storage import wal as walmod
+from matrixone_tpu_torch.storage.fileservice import FileService, MemoryFS
 from matrixone_tpu_torch.txn.hlc import HLC
 from matrixone_tpu_torch.utils import metrics
 
@@ -77,11 +99,84 @@ class TableMeta:
 class Segment:
     seg_id: int
     commit_ts: int                       # 0 for a workspace segment
+    #: a RAM dict (fresh commits) or `blockcache.LazyColumns` (an
+    #: object-backed segment, its columns fetched through the block
+    #: cache): both map a column to its host array
     arrays: Dict[str, np.ndarray]        # varchar columns as int32 codes
     validity: Dict[str, np.ndarray]
     n_rows: int
     base_gid: int
     part_id: int = -1                    # -1 = unpartitioned table
+    #: the object this segment was checkpointed to, and its stored
+    #: zonemaps {col: [min, max, null_count]} for fetch-free pruning
+    obj_path: Optional[str] = None
+    zonemaps: Optional[dict] = None
+
+    @property
+    def is_lazy(self) -> bool:
+        return not isinstance(self.arrays, dict)
+
+
+@dataclasses.dataclass
+class MergeFence:
+    """The COMPLETE pre-merge view of one table, pinned when
+    `merge_table` rewrote it: the live segments and tombstones at the
+    swap, with their commit ts, so AS OF reads below `merge_ts` stay
+    exact.  Gid ranges are never reused, so a fenced gid resolves to
+    one historical segment.  `Engine.gc_fences` releases fences oldest
+    first once nothing can reach them."""
+    merge_ts: int
+    segments: List[Segment]
+    tombstones: List[Tuple[int, np.ndarray]]
+
+
+class _ChunkKeep:
+    """A chunk's keep mask (its rows not tombstoned), moved to a device
+    once however many columns it selects."""
+
+    def __init__(self, mask: np.ndarray):
+        self.mask = mask
+        self._on = {}
+
+    def on(self, device):
+        import torch
+        key = str(device)
+        t = self._on.get(key)
+        if t is None:
+            t = self._on[key] = torch.from_numpy(self.mask).to(device)
+        return t
+
+
+class DeviceRef:
+    """One column's slice of one chunk of an object-backed segment, to be
+    served from the block cache's device tier by `resolve` on the
+    scan's own thread (the read-ahead thread never touches the device).
+    Tombstoned rows go through a device keep mask: a boolean index,
+    which syncs, outside any CUDA graph."""
+
+    __slots__ = ("view", "col", "start", "end", "keep", "pair")
+
+    def __init__(self, view, col: str, start: int, end: int,
+                 keep: Optional[_ChunkKeep], pair=None):
+        self.view, self.col = view, col
+        self.start, self.end, self.keep = start, end, keep
+        self.pair = pair            # what the read-ahead decoded, if any
+
+    def resolve(self, device):
+        t = self.view.device(self.col, device, self.pair)[
+            self.start:self.end]
+        return t if self.keep is None else t[self.keep.on(device)]
+
+
+def resolve_chunk(arrays: dict, validity: dict, device) -> tuple:
+    """A chunk of `iter_chunks(device=...)` with its `DeviceRef`s served
+    as tensors on `device`."""
+    out_a, out_v = {}, {}
+    for c, a in arrays.items():          # data then validity, column by
+        v = validity[c]                  # column, as the host path reads
+        out_a[c] = a.resolve(device) if isinstance(a, DeviceRef) else a
+        out_v[c] = v.resolve(device) if isinstance(v, DeviceRef) else v
+    return out_a, out_v
 
 
 class ConflictError(RuntimeError):
@@ -109,6 +204,13 @@ class MVCCTable:
         self.tombstones: List[Tuple[int, np.ndarray]] = []  # (commit_ts, gids)
         #: commit TS of the last data change applied to THIS table
         self.last_commit_ts = 0
+        #: the last merge_table's ts (the fences carry the history)
+        self.last_merge_ts = 0
+        #: snapshot fences, ascending merge_ts (released by
+        #: Engine.gc_fences, oldest first)
+        self.fences: List[MergeFence] = []
+        #: merge_ts of the newest released fence
+        self.delta_floor = 0
         self.next_gid = 0
         self.next_seg = 0
         self.dicts: Dict[str, List[str]] = {
@@ -177,6 +279,14 @@ class MVCCTable:
                     d.append(s)
                 out[i] = code
             return out
+
+    def encode_dict_encoded(self, col: str, de) -> np.ndarray:
+        """A batch-local `wal.DictEncoded` in table-global codes:
+        O(strings) Python under the commit lock, O(n) numpy."""
+        if not de.cats:
+            return np.zeros(len(de.codes), np.int32)
+        enc = self.encode_strings_list(col, de.cats)
+        return np.asarray(enc, np.int32)[np.asarray(de.codes, np.int64)]
 
     def remap_codes(self, col: str, codes: np.ndarray, cats: List[str]
                     ) -> np.ndarray:
@@ -371,9 +481,29 @@ class MVCCTable:
 
     # --------------------------------------------------------------- read
     def _view_at(self, snapshot_ts: Optional[int]):
-        """(segments, tombstones) source lists for a read at snapshot_ts:
-        the live lists (no merges, so no snapshot fences yet)."""
+        """(segments, tombstones) source lists for a read at snapshot_ts.
+        A fence's segments ARE the table at its merge point, so a read
+        below a fence uses the oldest such fence, then the ordinary
+        commit_ts <= ts filter: AS OF reads stay bit-identical across a
+        merge."""
+        if snapshot_ts is None:
+            return self.segments, self.tombstones
+        for f in self.fences:              # ascending merge_ts
+            if snapshot_ts < f.merge_ts:
+                return f.segments, f.tombstones
         return self.segments, self.tombstones
+
+    def _gid_fence_segment(self, gid: int) -> Optional[Segment]:
+        """The segment of a gid no live segment covers (a merge compacted
+        it away): gid ranges are never reused, so one fenced segment at
+        most holds it."""
+        for f in reversed(self.fences):
+            for s in f.segments:           # ascending base_gid
+                if s.base_gid > gid:
+                    break
+                if gid < s.base_gid + s.n_rows:
+                    return s
+        return None
 
     def _dead_gids(self, snapshot_ts: Optional[int],
                    extra_deletes: Optional[np.ndarray],
@@ -392,16 +522,28 @@ class MVCCTable:
                     qualified_names: Optional[List[str]] = None,
                     snapshot_ts: Optional[int] = None,
                     extra_segments: Optional[List[Segment]] = None,
-                    extra_deletes: Optional[np.ndarray] = None
+                    extra_deletes: Optional[np.ndarray] = None,
+                    device=None, read_ahead: bool = False
                     ) -> Iterator[tuple]:
         """Yield (arrays, validity, dicts, n) chunks of at most batch_rows
         rows: the segments committed at or before snapshot_ts, then a
         transaction's own segments, without the rows tombstoned at
-        snapshot_ts or deleted by the transaction, skipping chunks whose
-        zonemaps exclude a filter.  `ROWID` among the columns yields each
-        row's global id."""
+        snapshot_ts or deleted by the transaction, skipping the segments
+        whose stored zonemaps, and the chunks whose values, exclude a
+        filter.  `ROWID` among the columns yields each row's global id.
+
+        With `device`, an object-backed segment's columns come as
+        `DeviceRef`s for the device tier (`resolve_chunk` serves them);
+        the chunk zonemaps are still evaluated on the host tier's arrays,
+        so the same chunks survive as on the host path.  `read_ahead`
+        (this generator runs on the scan's read-ahead thread) decodes
+        each such segment's cold columns into the host tier first."""
         want_rowid = ROWID in columns
         data_cols = [c for c in columns if c != ROWID]
+        schema = dict(self.meta.schema)
+        qmap = dict(zip(qualified_names or columns, columns))
+        zm_cols = ({raw for raw, _op, _c, _l in _zm_predicates(filters, qmap)}
+                   & set(data_cols)) if filters else set()
         src_segs, src_tombs = self._view_at(snapshot_ts)
         dead = self._dead_gids(snapshot_ts, extra_deletes, src_tombs)
         dead_filter = None
@@ -414,7 +556,6 @@ class MVCCTable:
         segs = [s for s in src_segs
                 if snapshot_ts is None or s.commit_ts <= snapshot_ts]
         segs = segs + list(extra_segments or [])
-        qmap = dict(zip(qualified_names or columns, columns))
         allowed_parts = None
         if self.meta.partition is not None and filters:
             from matrixone_tpu_torch.storage import partition as partmod
@@ -425,7 +566,18 @@ class MVCCTable:
                     and seg.part_id not in allowed_parts:
                 metrics.scan_segments.inc(outcome="pruned")
                 continue
+            # object-backed segments: prune on the STORED zonemaps before
+            # any column fetch (readutil block-list prune)
+            if filters and seg.zonemaps is not None and \
+                    _seg_zonemap_excludes(filters, seg.zonemaps,
+                                          seg.n_rows, qmap):
+                metrics.scan_segments.inc(outcome="pruned")
+                continue
             metrics.scan_segments.inc(outcome="read")
+            lazy = device is not None and seg.is_lazy
+            warmed = {}
+            if lazy and read_ahead:
+                warmed = {c: seg.arrays.warm(c) for c in data_cols}
             for start in range(0, seg.n_rows, batch_rows):
                 end = min(start + batch_rows, seg.n_rows)
                 lo = seg.base_gid + start
@@ -436,25 +588,52 @@ class MVCCTable:
                         continue
                     if keep.all():
                         keep = None
+                n = (end - start) if keep is None else int(keep.sum())
                 arrays, validity = {}, {}
-                for c in data_cols:
-                    a = seg.arrays[c][start:end]
-                    v = seg.validity[c][start:end]
-                    if keep is not None:
-                        a, v = a[keep], v[keep]
-                    arrays[c] = a
-                    validity[c] = v
+                if lazy:
+                    ck = None if keep is None else _ChunkKeep(keep)
+                    for c in data_cols:
+                        pair = warmed.pop(c, None)   # the first chunk's
+                        arrays[c] = DeviceRef(seg.arrays, c, start, end, ck,
+                                              pair)
+                        validity[c] = DeviceRef(seg.validity, c, start, end,
+                                                ck, pair)
+                    # the chunk zonemaps read the host tier, uncounted
+                    zm_a, zm_v = {}, {}
+                    for c in zm_cols:
+                        a = seg.arrays.host(c, count=False)[start:end]
+                        v = seg.validity.host(c, count=False)[start:end]
+                        zm_a[c], zm_v[c] = ((a, v) if keep is None
+                                            else (a[keep], v[keep]))
+                else:
+                    for c in data_cols:
+                        a = seg.arrays[c][start:end]
+                        v = seg.validity[c][start:end]
+                        if keep is not None:
+                            a, v = a[keep], v[keep]
+                        arrays[c] = a
+                        validity[c] = v
+                    zm_a, zm_v = arrays, validity
                 if want_rowid:
                     g = np.arange(lo, seg.base_gid + end, dtype=np.int64)
                     arrays[ROWID] = g if keep is None else g[keep]
-                    validity[ROWID] = np.ones(len(arrays[ROWID]), np.bool_)
-                n = len(next(iter(arrays.values()))) if arrays else 0
-                if n == 0:
+                    validity[ROWID] = np.ones(n, np.bool_)
+                if n == 0 or not (data_cols or want_rowid):
                     continue
-                if filters and _zonemap_excludes(filters, arrays, validity,
-                                                 qmap, dict(self.meta.schema)):
+                if filters and _zonemap_excludes(filters, zm_a, zm_v,
+                                                 qmap, schema):
                     continue
                 yield arrays, validity, self.dicts, n
+
+    def scan_is_cold(self, columns: List[str]) -> bool:
+        """True when a scan of `columns` would miss the block cache for at
+        least one object-backed segment: the scan turns its read-ahead
+        on only then (a warm scan should not pay a thread)."""
+        cols = [c for c in columns if c != ROWID]
+        for seg in self.segments:
+            if seg.is_lazy and seg.arrays.cold_columns(cols):
+                return True
+        return False
 
     def visible_gids(self, gids: np.ndarray,
                      snapshot_ts: Optional[int] = None,
@@ -478,7 +657,8 @@ class MVCCTable:
 
     def fetch_rows(self, gids: np.ndarray, columns: List[str]):
         """Host gather of rows by global id.  Returns (arrays, validity)
-        in gid order."""
+        in gid order.  Gids a merge compacted out of the live list
+        resolve through the snapshot fences."""
         gids = np.asarray(gids, np.int64)
         bases = np.array([s.base_gid for s in self.segments], np.int64)
         seg_idx = np.searchsorted(bases, gids, side="right") - 1
@@ -486,8 +666,10 @@ class MVCCTable:
         for gi, si in zip(gids, seg_idx):
             seg = self.segments[si] if si >= 0 else None
             if seg is None or gi >= seg.base_gid + seg.n_rows:
+                seg = self._gid_fence_segment(int(gi))
+            if seg is None:
                 raise KeyError(f"gid {int(gi)} not found in "
-                               f"{self.meta.name!r}")
+                               f"{self.meta.name!r} (live or fenced)")
             owners.append(seg)
         arrays = {c: [] for c in columns}
         validity = {c: [] for c in columns}
@@ -583,6 +765,28 @@ def _zm_range_excludes(op, lo, hi, lv) -> bool:
     return not (lo <= lv <= hi)   # eq
 
 
+def _seg_zonemap_excludes(filters, zonemaps, n_rows, qmap) -> bool:
+    """Segment-level prune on STORED zonemaps {col: [min, max,
+    null_count]}: whether to fetch the object's columns at all."""
+    if not zonemaps:
+        return False
+    for raw, op, col, lit in _zm_predicates(filters, qmap):
+        zm = zonemaps.get(raw)
+        if zm is None:
+            continue
+        lo, hi, nulls = zm[0], zm[1], zm[2]
+        if lo is None or hi is None:
+            if nulls >= n_rows:
+                return True    # an all-NULL column satisfies no comparison
+            continue
+        lv = _zm_normalize_lit(col, lit)
+        if lv is None:
+            continue
+        if _zm_range_excludes(op, lo, hi, lv):
+            return True
+    return False
+
+
 def _zonemap_excludes(filters, arrays, validity, qmap, schema) -> bool:
     for raw, op, col, lit in _zm_predicates(filters, qmap):
         if raw not in arrays:
@@ -601,25 +805,57 @@ def _zonemap_excludes(filters, arrays, validity, qmap, schema) -> bool:
     return False
 
 
-class Engine:
-    """Catalog + single-writer commit service (in memory)."""
+def _segment_entry(seg: Segment) -> dict:
+    return {"path": seg.obj_path, "seg_id": seg.seg_id,
+            "base_gid": seg.base_gid, "commit_ts": seg.commit_ts,
+            "part_id": seg.part_id, "n_rows": seg.n_rows,
+            "zonemaps": seg.zonemaps}
 
-    def __init__(self):
+
+def _tombstones_json(tombs) -> list:
+    return [[ts, g.tolist()] for ts, g in tombs]
+
+
+def _tombstones_from_json(rows) -> list:
+    return [(ts, np.asarray(g, np.int64)) for ts, g in rows]
+
+
+class Engine:
+    """Catalog + single-writer commit service + WAL + checkpoint/replay."""
+
+    def __init__(self, fs: Optional[FileService] = None, wal=None):
         from matrixone_tpu_torch.lockservice import LockService
+        self.fs = fs if fs is not None else MemoryFS()
+        #: anything with append/truncate/replay: the local CRC log by
+        #: default
+        self.wal = wal if wal is not None else walmod.WalWriter(self.fs)
         self.hlc = HLC()
         self.tables: Dict[str, MVCCTable] = {}
         # reentrant: table helpers called under a commit take it again
         self._commit_lock = threading.RLock()
         #: catalog-shape generation: bumped on every DDL
         self.ddl_gen = 0
+        self._ckpt_ts = 0
         self.snapshots: Dict[str, int] = {}      # named points in time
         #: last FULLY applied commit: readers snapshot here so a commit
         #: mid-apply (tombstones in, segments not yet) can never tear a read
         self.committed_ts = self.hlc.now()
         self.locks = LockService()     # pessimistic mode (pkg/lockservice)
+        self.active_txns = 0           # open explicit txns (merge guard)
+        self._pending_merge_records: Dict[str, int] = {}   # name -> ts
+        #: serializes merge_table's capture -> rewrite -> swap (commits
+        #: never take it)
+        self._merge_lock = threading.Lock()
+        #: delta-consumer watermarks: key -> (table, callable returning
+        #: its watermark ts or None); a fence stays while any consumer of
+        #: its table sits below its merge point
+        self._watermarks: Dict[str, Tuple[str, Callable]] = {}
+        #: the last restart's recovery report (Engine.open fills it)
+        self.recovery_summary: Optional[dict] = None
 
     # ----------------------------------------------------------- catalog
-    def create_table(self, meta: TableMeta, if_not_exists=False) -> None:
+    def create_table(self, meta: TableMeta, if_not_exists=False,
+                     log=True) -> None:
         if meta.name in self.tables:
             if if_not_exists:
                 return
@@ -628,16 +864,37 @@ class Engine:
         t.engine = self
         self.tables[meta.name] = t
         self.ddl_gen += 1
+        if log:
+            self.wal.append({"op": "create_table", "name": meta.name,
+                             "ts": self.hlc.now(),
+                             "pk": meta.primary_key,
+                             "auto": meta.auto_increment,
+                             "not_null": meta.not_null,
+                             "partition": (meta.partition.to_json()
+                                           if meta.partition is not None
+                                           else None),
+                             "schema": schema_to_json(meta.schema)})
 
-    def drop_table(self, name: str, if_exists=False) -> None:
+    def drop_table(self, name: str, if_exists=False, log=True) -> None:
         if name not in self.tables:
             if if_exists:
                 return
             raise ValueError(f"no such table {name}")
+        # free the cache's budget, and forget the merged-away segments'
+        # objects too: a table re-created under this name writes the
+        # same object paths again
+        t = self.tables[name]
+        for seg in t.segments + [s for f in t.fences for s in f.segments]:
+            if seg.obj_path is not None:
+                blockcache.CACHE.drop_path(seg.obj_path)
         del self.tables[name]
         self.ddl_gen += 1
+        if log:
+            self.wal.append({"op": "drop_table", "name": name,
+                             "ts": self.hlc.now()})
 
-    def alter_partition_drop(self, table: str, part: str) -> None:
+    def alter_partition_drop(self, table: str, part: str,
+                             log: bool = True) -> None:
         """Remove a RANGE partition definition (rows are tombstoned by the
         caller via a normal delete commit; this only shrinks the spec)."""
         t = self.get_table(table)
@@ -656,6 +913,9 @@ class Engine:
                 seg.part_id = -1
             elif seg.part_id > pid:
                 seg.part_id -= 1
+        if log:
+            self.wal.append({"op": "alter_partition_drop", "table": table,
+                             "part": part, "ts": self.hlc.now()})
 
     def get_table(self, name: str) -> MVCCTable:
         if name not in self.tables:
@@ -673,11 +933,14 @@ class Engine:
         ts = self.hlc.now()
         self.snapshots[name] = ts
         self.ddl_gen += 1
+        self.wal.append({"op": "create_snapshot", "name": name, "ts": ts})
         return ts
 
     def drop_snapshot(self, name: str) -> None:
         self.snapshots.pop(name, None)
         self.ddl_gen += 1
+        self.wal.append({"op": "drop_snapshot", "name": name,
+                         "ts": self.hlc.now()})
 
     def restore_table(self, table: str, ts: int) -> int:
         """RESTORE ... FROM SNAPSHOT: one commit replaces the current
@@ -704,6 +967,45 @@ class Engine:
             inserts = {}
         return self.commit_txn(None, inserts, {table: cur_gids})
 
+    # ------------------------------------------------------- txn registry
+    def txn_opened(self, txn_id: int) -> None:
+        """An explicit transaction opened against this engine (merges
+        defer while any is open)."""
+        with self._commit_lock:
+            self.active_txns += 1
+
+    def txn_closed(self, txn_id: int) -> None:
+        with self._commit_lock:
+            self.active_txns -= 1
+
+    # -------------------------------------- delta-consumer watermarks
+    def register_watermark(self, key: str, table: str,
+                           fn: Callable) -> None:
+        """Register a delta consumer: `fn()` returns its replay watermark
+        ts (or None while unseeded); gc_fences keeps the table's fences
+        while it sits below them."""
+        with self._commit_lock:
+            self._watermarks[key] = (table, fn)
+
+    def unregister_watermark(self, key: str) -> None:
+        with self._commit_lock:
+            self._watermarks.pop(key, None)
+
+    def min_watermark(self, table: str) -> Optional[int]:
+        """The lowest registered watermark on `table`; None when no
+        consumer constrains it."""
+        vals = []
+        for tbl, fn in list(self._watermarks.values()):
+            if tbl != table:
+                continue
+            try:
+                v = fn()
+            except Exception:   # noqa: BLE001 — a dead consumer must
+                v = None        # not wedge GC; treat as unconstrained
+            if v is not None:
+                vals.append(int(v))
+        return min(vals) if vals else None
+
     # ------------------------------------------------------------ commit
     def commit_write(self, table: str, arrays, validity) -> int:
         """Autocommit a single-table insert."""
@@ -715,8 +1017,8 @@ class Engine:
                    inserts: Dict[str, list],
                    deletes: Dict[str, np.ndarray]) -> int:
         """The commit pipeline (tae/rpc/handle.go:547 HandleCommit):
-        conflict check -> constraints -> commit ts -> apply -> frontier.
-        Returns rows affected."""
+        conflict check -> constraints -> commit ts -> WAL -> apply ->
+        frontier.  Returns rows affected."""
         with self._commit_lock:
             # write-write conflict: someone deleted my victim after my
             # snapshot (first-committer-wins)
@@ -763,6 +1065,29 @@ class Engine:
                                           validity=val)
             commit_ts = self.hlc.now()
             affected = 0
+            # WAL first; varchar columns are logged dictionary-encoded
+            # (batch-local codes + their strings) so a replay re-encodes
+            # them into the table dictionary as it then stands
+            for tname, segs in inserts.items():
+                t = self.get_table(tname)
+                varlen = {c for c, d in t.meta.schema if d.is_varlen}
+                for arrays, validity in segs:
+                    wal_arrays = {
+                        c: (walmod.to_dict_encoded(t.dicts[c], a,
+                                                   validity[c])
+                            if c in varlen else a)
+                        for c, a in arrays.items()}
+                    fields, blob = walmod.arrays_to_payload(wal_arrays,
+                                                            validity)
+                    self.wal.append({"op": "insert", "table": tname,
+                                     "ts": commit_ts, **fields}, blob)
+            for tname, gids in deletes.items():
+                if len(gids):
+                    g = np.ascontiguousarray(gids, dtype="<i8")
+                    self.wal.append({"op": "delete", "table": tname,
+                                     "ts": commit_ts, "n": len(g)},
+                                    g.tobytes())
+            self.wal.append({"op": "commit", "ts": commit_ts})
             # apply: deletes BEFORE inserts — an UPDATE is delete+insert at
             # one commit ts
             for tname, gids in deletes.items():
@@ -779,6 +1104,419 @@ class Engine:
             # max(): the read frontier must never retreat
             self.committed_ts = max(self.committed_ts, commit_ts)
         return affected
+
+    # ---------------------------------------------------------- compaction
+    def merge_table(self, name: str, min_segments: int = 2,
+                    checkpoint: bool = True) -> int:
+        """Rewrite a table's visible rows into ONE segment (per
+        partition), fencing the pre-merge view so AS OF reads below the
+        merge stay exact (gc_fences releases the fence once nothing can
+        reach it).
+
+        Three phases, so foreground commits are never wedged: capture
+        (brief commit lock: pin the segment/tombstone prefix) -> rewrite
+        (no lock: concat the live rows, write the merged object) -> swap
+        (brief commit lock: publish the merged segment and the fence).
+
+        Returns the live rows kept, or -1 (too few segments), -2 (open
+        transactions: their workspaces hold pre-merge gids), -3 (lost the
+        race: a concurrent commit deleted a captured row or replaced the
+        table; callers retry, the foreground always wins)."""
+        with self._merge_lock:
+            return self._merge_table_locked(name, min_segments, checkpoint)
+
+    def _merge_table_locked(self, name, min_segments, checkpoint) -> int:
+        # --- capture (brief lock): pin the prefix the rewrite covers
+        with self._commit_lock:
+            if self.active_txns > 0:
+                return -2
+            t = self.get_table(name)
+            if len(t.segments) < min_segments:
+                return -1
+            cap_segs = list(t.segments)
+            cap_tombs = list(t.tombstones)
+            cap_gid = t.next_gid
+        # --- rewrite (no lock): captured segments and tombstones are
+        # immutable once committed; concurrent commits only APPEND
+        t0 = time.perf_counter()
+        cols = [c for c, _ in t.meta.schema]
+        parts_a = {c: [] for c in cols}
+        parts_v = {c: [] for c in cols}
+        dead = t._dead_gids(None, None, cap_tombs)
+        dead_filter = native.RoaringBitmap(dead) if len(dead) else None
+        kept = 0
+        for seg in cap_segs:
+            keep = ~dead_filter.test_range(
+                seg.base_gid, seg.base_gid + seg.n_rows) \
+                if dead_filter is not None else np.ones(seg.n_rows,
+                                                        np.bool_)
+            if not keep.any():
+                continue
+            for c in cols:
+                parts_a[c].append(np.asarray(seg.arrays[c])[keep])
+                parts_v[c].append(np.asarray(seg.validity[c])[keep])
+            kept += int(keep.sum())
+        arrays = validity = None
+        obj_path = zms_json = None
+        if kept:
+            arrays = {c: np.concatenate(parts_a[c]) for c in cols}
+            validity = {c: np.concatenate(parts_v[c]) for c in cols}
+            if t.meta.partition is None:
+                # write the merged object BEFORE the swap publishes it:
+                # the heavy IO runs outside the commit lock (rewrite
+                # durable -> swap -> manifest).  Partitioned tables
+                # re-split at the swap and stay in RAM until the next
+                # checkpoint.
+                obj_path, zms_json = self._merge_write_object(
+                    name, arrays, validity)
+        metrics.merge_seconds.inc(time.perf_counter() - t0,
+                                  phase="rewrite")
+        # --- swap (brief lock): publish the merged segment + the fence
+        t0 = time.perf_counter()
+        with self._commit_lock:
+            if self.tables.get(name) is not t:
+                return -3          # dropped or replaced during the rewrite
+            if self.active_txns > 0:
+                return -2
+            if len(t.segments) < len(cap_segs) or any(
+                    a is not b for a, b in zip(t.segments, cap_segs)):
+                return -3          # the prefix was rewritten (restore)
+            new_tombs = t.tombstones[len(cap_tombs):]
+            if any(len(g) and int(g.min()) < cap_gid
+                   for _, g in new_tombs):
+                # a concurrent commit deleted a row the rewrite kept as
+                # live: the rewrite is stale; defer (the scheduler retries)
+                return -3
+            merge_ts = self.hlc.now()
+            # the fence pins the COMPLETE pre-swap view: the captured
+            # segments plus any committed during the rewrite (those stay
+            # live too)
+            fence = MergeFence(merge_ts=merge_ts,
+                               segments=list(t.segments),
+                               tombstones=list(t.tombstones))
+            post = t.segments[len(cap_segs):]
+            t.segments = list(post)
+            t.tombstones = list(new_tombs)
+            if kept:
+                if t.meta.partition is None:
+                    seg = t.make_segment(arrays, validity, merge_ts)
+                    seg.obj_path = obj_path
+                    seg.zonemaps = zms_json
+                    t.apply_segment(seg)
+                else:
+                    # partitioned tables re-split: one partition per
+                    # segment stays the structural pruning invariant
+                    t.insert_segments(arrays, validity, merge_ts)
+            t.fences.append(fence)
+            t.last_commit_ts = max(t.last_commit_ts, merge_ts)
+            t.last_merge_ts = merge_ts
+            t._pk_bloom = None     # rebuilt lazily over the merged rows
+            t._pk_vals = {}
+            self.committed_ts = max(self.committed_ts, merge_ts)
+            self._pending_merge_records[name] = merge_ts
+            # durability: the merged state IS the new truth; checkpoint
+            # so a replay never resurrects pre-merge rows (the fence rides
+            # the manifest)
+            if checkpoint:
+                self._checkpoint_locked()
+        metrics.merge_seconds.inc(time.perf_counter() - t0, phase="swap")
+        metrics.merge_rows.inc(kept)
+        metrics.merge_segments.inc(len(cap_segs))
+        return kept
+
+    def _merge_write_object(self, name: str, arrays, validity):
+        """Write the merged rows as a durable object before the swap
+        references them."""
+        zms = objectio.compute_zonemaps(arrays, validity)
+        n = len(next(iter(arrays.values())))
+        meta = objectio.ObjectMeta(
+            table=name, object_id=f"merge{self.hlc.now()}",
+            n_rows=n, commit_ts=0, zonemaps=zms)
+        path = objectio.write_object(self.fs, meta, arrays, validity)
+        return path, {c: [z.min, z.max, z.null_count]
+                      for c, z in zms.items()}
+
+    def gc_fences(self, tables: Optional[List[str]] = None) -> dict:
+        """Release the snapshot fences nothing can reach: a fence is held
+        while any named snapshot or registered watermark of its table
+        sits below its merge point; releases go oldest first.  The
+        fence-free manifest is made durable FIRST and the old objects
+        deleted after, so a crash in between leaks files but never
+        leaves a manifest naming a deleted object."""
+        released: List[Tuple[str, MergeFence]] = []
+        with self._commit_lock:
+            names = list(self.tables) if tables is None else tables
+            for name in names:
+                t = self.tables.get(name)
+                if t is None or not t.fences:
+                    continue
+                wm = self.min_watermark(name)
+                while t.fences:
+                    f = t.fences[0]
+                    if any(ts < f.merge_ts
+                           for ts in self.snapshots.values()):
+                        break          # snapshot-pinned
+                    if wm is not None and wm < f.merge_ts:
+                        break          # a consumer still replays below
+                    t.fences.pop(0)
+                    t.delta_floor = max(t.delta_floor, f.merge_ts)
+                    released.append((name, f))
+            if not released:
+                return {"released": 0, "objects_deleted": 0}
+            # paths still referenced by live segments or surviving fences
+            # must survive
+            live_paths = {s.obj_path for t2 in self.tables.values()
+                          for s in t2.segments}
+            live_paths |= {s.obj_path for t2 in self.tables.values()
+                           for f2 in t2.fences for s in f2.segments}
+            dead_paths = sorted(
+                {s.obj_path for _, f in released for s in f.segments
+                 if s.obj_path is not None} - live_paths)
+            if self.fs.exists("meta/manifest.json") or \
+                    self._pending_merge_records:
+                self._checkpoint_locked()
+        n_del = 0
+        for p in dead_paths:
+            blockcache.CACHE.drop_path(p)
+            if self.fs.exists(p):
+                self.fs.delete(p)
+                n_del += 1
+        metrics.merge_fences_released.inc(len(released))
+        metrics.merge_gc_objects.inc(n_del)
+        return {"released": len(released), "objects_deleted": n_del}
+
+    # ------------------------------------------------- checkpoint / open
+    def checkpoint(self, demote: Optional[bool] = None) -> None:
+        """Write all committed state as objects + a manifest, then
+        truncate the WAL (tae/db/checkpoint/runner.go), under the commit
+        lock so no commit slips between the manifest and the truncation.
+
+        demote=True turns the freshly written RAM segments into
+        object-backed views served through the block cache (default:
+        `MO_LAZY_SEGMENTS=1`)."""
+        with self._commit_lock:
+            self._checkpoint_locked(demote=demote)
+
+    def _write_segment_object(self, name: str, seg: Segment) -> None:
+        zms = objectio.compute_zonemaps(seg.arrays, seg.validity)
+        meta = objectio.ObjectMeta(
+            table=name, object_id=f"seg{seg.seg_id}", n_rows=seg.n_rows,
+            commit_ts=seg.commit_ts, zonemaps=zms)
+        seg.obj_path = objectio.write_object(self.fs, meta, seg.arrays,
+                                             seg.validity)
+        seg.zonemaps = {c: [z.min, z.max, z.null_count]
+                        for c, z in zms.items()}
+
+    def _checkpoint_locked(self, demote: Optional[bool] = None) -> None:
+        if demote is None:
+            demote = os.environ.get("MO_LAZY_SEGMENTS") == "1"
+        manifest = {"ckpt_ts": self.hlc.now(), "tables": {},
+                    "snapshots": dict(self.snapshots)}
+        for name, t in self.tables.items():
+            cols = [c for c, _ in t.meta.schema]
+            objs = []
+            for seg in t.segments:
+                if seg.obj_path is None:
+                    # a fresh segment: its object is written ONCE, later
+                    # checkpoints reuse it (incremental checkpoints; a
+                    # full rewrite would also pull every cold block back
+                    # through the cache)
+                    self._write_segment_object(name, seg)
+                    if demote:
+                        # the writer's RAM is then bounded by the block
+                        # cache too
+                        seg.arrays, seg.validity = blockcache.lazy_pair(
+                            self.fs, seg.obj_path, cols)
+                objs.append(_segment_entry(seg))
+            # snapshot fences ride the manifest: pre-merge history stays
+            # reachable across a restart until gc_fences releases it
+            fences = []
+            for f in t.fences:
+                for seg in f.segments:
+                    if seg.obj_path is None:
+                        self._write_segment_object(name, seg)
+                fences.append({"merge_ts": f.merge_ts,
+                               "objects": [_segment_entry(s)
+                                           for s in f.segments],
+                               "tombstones": _tombstones_json(
+                                   f.tombstones)})
+            manifest["tables"][name] = {
+                "schema": schema_to_json(t.meta.schema),
+                "pk": t.meta.primary_key,
+                "auto": t.meta.auto_increment,
+                "not_null": t.meta.not_null,
+                "dicts": t.dicts,
+                "objects": objs,
+                "tombstones": _tombstones_json(t.tombstones),
+                "next_gid": t.next_gid, "next_seg": t.next_seg,
+                "next_auto": t.next_auto,
+                "partition": (t.meta.partition.to_json()
+                              if t.meta.partition is not None else None),
+                "fences": fences,
+                "delta_floor": t.delta_floor,
+            }
+        self.fs.write("meta/manifest.json", json.dumps(manifest).encode())
+        self.wal.truncate()
+        self._ckpt_ts = manifest["ckpt_ts"]
+        # merges are announced once their post-merge manifest is durable
+        for nm, ts in self._pending_merge_records.items():
+            self.wal.append({"op": "merge_table", "name": nm, "ts": ts})
+        self._pending_merge_records = {}
+
+    @classmethod
+    def open(cls, fs: FileService, wal=None) -> "Engine":
+        """Restart: load the last checkpoint, then replay the WAL tail
+        (tae/db/replay.go).  `recovery_summary` reports the frames
+        replayed, the torn-tail bytes discarded, the checkpoint ts and
+        the orphaned tmp files deleted (also as `mo_recovery_*`)."""
+        eng = cls(fs, wal=wal)
+        with eng._commit_lock:
+            eng._load_checkpoint()
+            wal_stats = eng._replay_wal()
+        # a writer that died between its tmp fsync and the atomic
+        # replace left an orphan no reader sees: delete it now, the one
+        # moment no writer can be mid-protocol
+        orphans = eng.fs.orphans()
+        for p in orphans:
+            eng.fs.delete(p)
+        eng.recovery_summary = {
+            "frames_replayed": wal_stats.get("frames", 0),
+            "torn_bytes": wal_stats.get("torn_bytes", 0),
+            "ckpt_ts": eng._ckpt_ts,
+            "orphans_gcd": len(orphans)}
+        metrics.recovery_frames.inc(wal_stats.get("frames", 0))
+        metrics.recovery_torn_bytes.inc(wal_stats.get("torn_bytes", 0))
+        metrics.recovery_orphans.inc(len(orphans))
+        eng.committed_ts = eng.hlc.now()
+        return eng
+
+    def _load_checkpoint(self) -> None:
+        if not self.fs.exists("meta/manifest.json"):
+            return
+        manifest = json.loads(self.fs.read("meta/manifest.json").decode())
+        self._ckpt_ts = manifest.get("ckpt_ts", 0)
+        self.snapshots = dict(manifest.get("snapshots", {}))
+        self.hlc.update(self._ckpt_ts)
+        for name, tm in manifest["tables"].items():
+            self._load_manifest_table(name, tm)
+
+    def _lazy_segment(self, ob: dict, cols) -> Segment:
+        arrays, validity = blockcache.lazy_pair(self.fs, ob["path"], cols)
+        return Segment(seg_id=ob["seg_id"], commit_ts=ob["commit_ts"],
+                       arrays=arrays, validity=validity,
+                       n_rows=ob["n_rows"], base_gid=ob["base_gid"],
+                       part_id=ob.get("part_id", -1),
+                       obj_path=ob["path"], zonemaps=ob.get("zonemaps"))
+
+    def _load_manifest_table(self, name: str, tm: dict) -> None:
+        """One table from its manifest entry: its segments object-backed
+        (lazy: column bytes come through the block cache on demand)."""
+        from matrixone_tpu_torch.storage.partition import PartitionSpec
+        schema = schema_from_json(tm["schema"])
+        self.create_table(
+            TableMeta(name, schema, tm["pk"],
+                      auto_increment=tm.get("auto"),
+                      not_null=tm.get("not_null", []),
+                      partition=PartitionSpec.from_json(
+                          tm.get("partition"))),
+            log=False)
+        t = self.get_table(name)
+        t.dicts = {k: list(v) for k, v in tm["dicts"].items()}
+        t._dict_idx = {k: {s_: i for i, s_ in enumerate(v)}
+                       for k, v in t.dicts.items()}
+        cols = [c for c, _ in schema]
+        for ob in tm["objects"]:
+            t.apply_segment(self._lazy_segment(ob, cols))
+        t.tombstones = _tombstones_from_json(tm["tombstones"])
+        for fj in tm.get("fences", []):
+            t.fences.append(MergeFence(
+                merge_ts=fj["merge_ts"],
+                segments=[self._lazy_segment(ob, cols)
+                          for ob in fj["objects"]],
+                tombstones=_tombstones_from_json(fj["tombstones"])))
+        t.delta_floor = tm.get("delta_floor", 0)
+        t.next_gid = tm["next_gid"]
+        t.next_seg = tm["next_seg"]
+        t.next_auto = tm["next_auto"]
+
+    def _replay_wal(self) -> dict:
+        stats: dict = {"frames": 0, "torn_bytes": 0}
+        ap = WalApplier(self, skip_ts=self._ckpt_ts)
+        for header, blob in self.wal.replay(stats=stats):
+            ap.apply(header, blob)
+        self.hlc.update(ap.max_ts)
+        return stats
+
+
+class WalApplier:
+    """Applies WAL records to an engine one at a time (the restart
+    replay).  Inserts and deletes buffer until their commit record;
+    catalog records apply at once.  `apply` returns the commit ts when
+    a commit was applied, else None."""
+
+    def __init__(self, eng: "Engine", skip_ts: int = 0):
+        self.eng = eng
+        self.skip_ts = skip_ts
+        self.pending: List[tuple] = []
+        self.max_ts = skip_ts
+
+    def apply(self, header: dict, blob=b""):
+        eng = self.eng
+        op = header["op"]
+        # frames at or before the checkpoint are in the manifest already
+        # (a crash between the manifest write and the WAL truncation)
+        hts = header.get("ts", 0)
+        if hts and hts <= self.skip_ts:
+            return None
+        if op == "create_table":
+            from matrixone_tpu_torch.storage.partition import PartitionSpec
+            eng.create_table(
+                TableMeta(header["name"], schema_from_json(header["schema"]),
+                          header["pk"], auto_increment=header.get("auto"),
+                          not_null=header.get("not_null", []),
+                          partition=PartitionSpec.from_json(
+                              header.get("partition"))),
+                log=False, if_not_exists=True)
+        elif op == "drop_table":
+            eng.drop_table(header["name"], if_exists=True, log=False)
+        elif op == "alter_partition_drop":
+            eng.alter_partition_drop(header["table"], header["part"],
+                                     log=False)
+        elif op == "create_snapshot":
+            # direct: create_snapshot() mints a fresh ts and logs
+            eng.snapshots[header["name"]] = header["ts"]
+            eng.ddl_gen += 1
+        elif op == "drop_snapshot":
+            if header["name"] in eng.snapshots:
+                del eng.snapshots[header["name"]]
+                eng.ddl_gen += 1
+        elif op in ("insert", "delete"):
+            self.pending.append((op, header, blob))
+        elif op == "commit":
+            ts = header["ts"]
+            self.max_ts = max(self.max_ts, ts)
+            # deletes BEFORE inserts, as commit_txn applies them
+            ordered = ([p for p in self.pending if p[0] == "delete"]
+                       + [p for p in self.pending if p[0] == "insert"])
+            for kind, h, b in ordered:
+                t = eng.get_table(h["table"])
+                if kind == "insert":
+                    arrays, validity = walmod.payload_to_arrays(h, b)
+                    arrays = {c: (t.encode_dict_encoded(c, a)
+                                  if isinstance(a, walmod.DictEncoded)
+                                  else np.array(a))
+                              for c, a in arrays.items()}
+                    validity = {c: np.array(v) for c, v in validity.items()}
+                    t.insert_segments(arrays, validity, ts)
+                    ac = t.meta.auto_increment
+                    if ac and ac in arrays:
+                        t.observe_auto(arrays[ac][validity[ac]])
+                else:
+                    gids = np.frombuffer(b, dtype="<i8").astype(np.int64)
+                    t.apply_tombstones(ts, gids)
+            self.pending = []
+            return ts
+        return None
 
 
 #: the catalog role is played by the engine itself

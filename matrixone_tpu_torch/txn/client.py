@@ -7,8 +7,10 @@ merge the workspace into the snapshot; commit hands everything to the
 engine's single-writer pipeline.
 
 The port's copy of `matrixone_tpu/txn/client.py`, without the commit's
-trace span (tracing is not ported yet) and without the engine's count of
-open transactions, which guards merges (not ported yet).
+trace span (tracing is not ported yet).  A handle registers with the
+engine's count of open transactions (`Engine.txn_opened` and
+`txn_closed`), which defers merges: a workspace holds pre-merge row
+ids.
 """
 
 from __future__ import annotations
@@ -51,6 +53,13 @@ class TxnHandle:
         self.state = TxnState.ACTIVE
         self.workspace: Dict[str, TableWorkspace] = {}
         self._txn_id = next(_txn_counter)   # never reused (id(self) can be)
+        engine.txn_opened(self._txn_id)
+        self._closed = False
+
+    def _close(self):
+        if not self._closed:
+            self._closed = True
+            self.engine.txn_closed(self._txn_id)
 
     def __del__(self):
         # orphan GC (reference: lockservice orphan-txn cleanup): an
@@ -58,6 +67,7 @@ class TxnHandle:
         try:
             if self.state == TxnState.ACTIVE:
                 self.engine.locks.unlock_all(self._txn_id)
+                self._close()
         except Exception:   # noqa: BLE001 — __del__ runs during GC /
             pass            # interpreter teardown; raising here aborts
                             # unrelated code and half-torn modules make
@@ -117,15 +127,18 @@ class TxnHandle:
             # injected fault); always re-raised
             self.state = TxnState.ABORTED
             self.engine.locks.unlock_all(self.txn_id)
+            self._close()
             raise
         self.state = TxnState.COMMITTED
         self.engine.locks.unlock_all(self.txn_id)
+        self._close()
         return affected
 
     def rollback(self) -> None:
         self.workspace.clear()
         self.state = TxnState.ABORTED
         self.engine.locks.unlock_all(self.txn_id)
+        self._close()
 
 
 class TxnClient:

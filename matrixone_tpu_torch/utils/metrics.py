@@ -10,7 +10,10 @@ fragments (vm/graphs.py), `fusion_batches`, the batches they took, and
 the spills' `agg_spills`, `spill_partitions`, `spill_bytes` and
 `spill_seconds` (`join_spills` is the JAX package's name), and the
 storage counters `pk_check_seconds`, `pk_bloom_suspects` and
-`scan_segments`.
+`scan_segments`.  The object store's (`mo_blockcache_*`,
+`mo_object_*`), the scan read-ahead's (`mo_scan_prefetch_*`), the
+merges' (`mo_merge_*`) and the restart's (`mo_recovery_*`) keep the
+JAX package's names.
 """
 
 from __future__ import annotations
@@ -133,3 +136,60 @@ scan_segments = Counter(
     "mo_scan_segments_total",
     "segments a scan visited by outcome (read, or pruned: a partition "
     "its filters exclude)")
+
+# ---- object-backed segments (storage/blockcache.py, storage/objectio.py)
+blockcache_ops = Counter(
+    "mo_blockcache_ops_total", "decoded-column cache lookups by outcome")
+blockcache_bytes = Counter(
+    "mo_blockcache_fetch_bytes_total",
+    "decoded bytes brought into the block cache on misses")
+blockcache_device_ops = Counter(
+    "mo_blockcache_device_ops_total",
+    "device-tier cache lookups: hit (no upload), upload (host hit, "
+    "re-staged), miss (decode required)")
+blockcache_upload_bytes = Counter(
+    "mo_blockcache_upload_bytes_total",
+    "host-to-device bytes staged for cached columns (a warm scan adds 0)")
+decode_seconds = Counter(
+    "mo_object_decode_seconds_total",
+    "seconds spent fetching and decoding object column blocks (misses)")
+object_write_seconds = Counter(
+    "mo_object_write_seconds_total",
+    "seconds spent encoding and writing objects")
+scan_prefetch = Counter(
+    "mo_scan_prefetch_total",
+    "scan read-ahead outcomes: chunks served ready vs waited on")
+scan_prefetch_wait_seconds = Counter(
+    "mo_scan_prefetch_wait_seconds_total",
+    "seconds the scan consumer blocked waiting on the read-ahead")
+
+# ---- merges (storage/engine.py merge_table, storage/merge_sched.py)
+merge_tasks = Counter(
+    "mo_merge_tasks_total",
+    "merge-scheduler task outcomes by kind (compact/checkpoint/gc) and "
+    "outcome (ok/noop/deferred/failed)")
+merge_rows = Counter(
+    "mo_merge_rows_total", "live rows rewritten into merged segments")
+merge_segments = Counter(
+    "mo_merge_segments_total", "pre-merge segments compacted by merges")
+merge_seconds = Counter(
+    "mo_merge_seconds_total",
+    "merge seconds by phase (rewrite: the concat and the object write "
+    "without the commit lock; swap: the publish under it)")
+merge_fences_released = Counter(
+    "mo_merge_fences_released_total",
+    "snapshot fences released by gc_fences")
+merge_gc_objects = Counter(
+    "mo_merge_gc_objects_total",
+    "pre-merge object files deleted by gc_fences")
+
+# ---- restart (Engine.open)
+recovery_frames = Counter(
+    "mo_recovery_frames_total",
+    "intact WAL frames replayed by Engine.open restarts")
+recovery_torn_bytes = Counter(
+    "mo_recovery_torn_bytes_total",
+    "torn-tail bytes discarded at the end of the WAL during a restart")
+recovery_orphans = Counter(
+    "mo_recovery_orphans_total",
+    "orphaned *.tmp files deleted by Engine.open")

@@ -23,16 +23,23 @@ the host (`_AggSpill`): the rows and the partial state are
 hash-partitioned by group key into `.npz` chunks, and each partition is
 aggregated on its own, its groups streamed out partition by partition.
 
+The scan reads object-backed segments' columns from the block cache's
+device tier (`storage/engine.resolve_chunk`) and, when a scan is cold,
+runs a read-ahead thread (`_ChunkPrefetcher`) that decodes the next
+chunks' columns into the host tier while the current chunk computes.
+
 Not ported yet (ROADMAP.md, section A): the aggregate's distributed
 `partial_state`, aggregate UDFs, materialized host arrays, and the
-scan's shard routing and read-ahead thread.
+scan's shard routing.
 """
 
 from __future__ import annotations
 
 import os
+import queue
 import shutil
 import tempfile
+import threading
 import time
 from typing import Dict, Iterator, List, Optional
 
@@ -91,12 +98,96 @@ def chunk_to_execbatch(arrays, validity, table_dicts, n, columns, schema,
     return ExecBatch(batch=db, dicts=dicts2, mask=db.row_mask())
 
 
+class _ChunkPrefetcher:
+    """Bounded read-ahead over a chunk iterator (reference: the CN
+    reader's merged-IO pipelining, `pkg/fileservice/io_merger.go` role).
+
+    A worker thread pulls chunk N+1, which for object-backed segments
+    fetches and decodes their columns into the block cache's HOST tier,
+    while the consumer computes over chunk N.  The worker never touches
+    the device: the consumer uploads, between its steps, so no copy of
+    this thread can land inside a CUDA graph being captured.  Errors
+    propagate to the consumer; closing stops the worker and closes the
+    source generator."""
+
+    _DONE, _ITEM, _ERR = 0, 1, 2
+
+    def __init__(self, gen, depth: int):
+        self._q: "queue.Queue" = queue.Queue(maxsize=max(depth, 1))
+        self._stop = threading.Event()
+        self._thread = threading.Thread(
+            target=self._run, args=(gen,), daemon=True,
+            name="mo-scan-prefetch")
+        self._thread.start()
+
+    def _run(self, gen) -> None:
+        try:
+            for item in gen:
+                while True:
+                    if self._stop.is_set():
+                        gen.close()
+                        return
+                    try:
+                        self._q.put((self._ITEM, item), timeout=0.1)
+                        break
+                    except queue.Full:
+                        continue
+            self._q.put((self._DONE, None))
+        except BaseException as e:                    # noqa: BLE001
+            # deliver the error with the same patience as items: a full
+            # queue must never swallow it
+            while not self._stop.is_set():
+                try:
+                    self._q.put((self._ERR, e), timeout=0.1)
+                    return
+                except queue.Full:
+                    continue
+
+    def __iter__(self):
+        while True:
+            ready = not self._q.empty()
+            t0 = 0.0 if ready else time.perf_counter()
+            kind, payload = self._q.get()
+            if kind == self._DONE:
+                return
+            if kind == self._ERR:
+                raise payload
+            metrics.scan_prefetch.inc(outcome="ready" if ready
+                                      else "waited")
+            if not ready:
+                metrics.scan_prefetch_wait_seconds.inc(
+                    time.perf_counter() - t0)
+            yield payload
+
+    def close(self) -> None:
+        self._stop.set()
+        while not self._q.empty():     # unblock a Full worker
+            try:
+                self._q.get_nowait()
+            except queue.Empty:
+                break
+        self._thread.join(timeout=5)
+
+
+def prefetch_depth(rel, columns) -> int:
+    """The scan's read-ahead depth: `MO_SCAN_PREFETCH` when set (0
+    disables), else 2 for a scan that will decode cold object blocks
+    and 0 for a warm one (a handoff thread is pure overhead there)."""
+    try:
+        return int(os.environ.get("MO_SCAN_PREFETCH"))
+    except (TypeError, ValueError):     # unset / "auto": cold only
+        is_cold = getattr(rel, "scan_is_cold", None)
+        return 2 if is_cold is not None and is_cold(columns) else 0
+
+
 class ScanOp(Operator):
     """Table scan with filter pushdown + zonemap chunk pruning
     (reference: colexec/table_scan + readutil block pruning).  It reads
     the context's view (the statement's frontier, or a transaction's
     snapshot plus its workspace; `AS OF` overrides both), and each chunk
-    is uploaded to the context's device."""
+    reaches the context's device: uploaded from host memory, or, for an
+    object-backed segment, taken from the block cache's device tier;
+    with the read-ahead (`prefetch_depth`) on a cold scan."""
 
     def __init__(self, node: P.Scan, relation, ctx,
                  batch_rows: int = 1 << 20):
@@ -130,19 +221,34 @@ class ScanOp(Operator):
                                                         self.batch_rows))
         qnames = [n for n, _ in self.node.schema]
         device = self.ctx.device
-        for arrays, validity, dicts, n in self.rel.iter_chunks(
-                self.node.columns, batch_rows, filters=filters,
-                qualified_names=qnames, **read_args):
-            ex = chunk_to_execbatch(arrays, validity, dicts, n,
-                                    self.node.columns, self.node.schema,
-                                    device)
-            # evaluate pushed filters as an early mask (zonemap pruning
-            # already dropped fully-excluded chunks host-side)
-            if apply_mask:
-                for f in filters:
-                    pred = eval_expr(f, ex)
-                    ex.mask = ex.mask & F.predicate_mask(pred, ex.batch)
-            yield ex
+        depth = prefetch_depth(self.rel, self.node.columns)
+        if getattr(self.rel, "scan_is_cold", None) is not None:
+            read_args = dict(read_args, device=device,
+                             read_ahead=depth > 0)
+        chunks = self.rel.iter_chunks(
+            self.node.columns, batch_rows, filters=filters,
+            qualified_names=qnames, **read_args)
+        prefetcher = None
+        if depth > 0:
+            prefetcher = _ChunkPrefetcher(chunks, depth)
+            chunks = iter(prefetcher)
+        from matrixone_tpu_torch.storage.engine import resolve_chunk
+        try:
+            for arrays, validity, dicts, n in chunks:
+                arrays, validity = resolve_chunk(arrays, validity, device)
+                ex = chunk_to_execbatch(arrays, validity, dicts, n,
+                                        self.node.columns,
+                                        self.node.schema, device)
+                # evaluate pushed filters as an early mask (zonemap
+                # pruning already dropped fully-excluded chunks host-side)
+                if apply_mask:
+                    for f in filters:
+                        pred = eval_expr(f, ex)
+                        ex.mask = ex.mask & F.predicate_mask(pred, ex.batch)
+                yield ex
+        finally:
+            if prefetcher is not None:
+                prefetcher.close()
 
 
 class ValuesOp(Operator):

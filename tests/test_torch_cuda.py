@@ -1330,3 +1330,152 @@ def test_sorted_search_in_a_graph_is_the_plain_search(cuda):
                                                               else 1)
         assert torch.equal(out, CK.sorted_search_plain(s, q))
     assert step.replays == 4
+
+
+# ------------------------------- object-backed segments (the device tier)
+
+def _object_backed(tmp_path, rows=20_000, batches=3, sub="obj"):
+    """`big` (id, grp, val, f, g) in `batches` commits of `rows` rows,
+    checkpointed and demoted to object-backed segments on a LocalFS,
+    with some rows deleted before the checkpoint; the block cache
+    cold."""
+    from matrixone_tpu_torch.frontend import Session
+    from matrixone_tpu_torch.storage import blockcache
+    from matrixone_tpu_torch.storage.engine import Engine
+    from matrixone_tpu_torch.storage.fileservice import LocalFS
+    eng = Engine(LocalFS(str(tmp_path / sub)))
+    s = Session(catalog=eng, device="cpu")
+    s.execute("create table big (id bigint, grp bigint, val bigint, "
+              "f double, g varchar(4))")
+    rng = np.random.default_rng(23)
+    t = eng.get_table("big")
+    for b in range(batches):
+        ids = np.arange(b * rows, (b + 1) * rows, dtype=np.int64)
+        t.insert_numpy({"id": ids, "grp": ids % 7, "val": ids * 3,
+                        "f": rng.standard_normal(rows)},
+                       strings={"g": (rng.integers(0, 3, rows),
+                                      ["x", "y", "z"])})
+    s.execute("delete from big where id % 1000 = 7")
+    eng.checkpoint(demote=True)
+    assert all(seg.is_lazy for seg in t.segments)
+    blockcache.CACHE.clear()
+    blockcache.CACHE.reset_stats()
+    return eng
+
+
+OBJ_SQL = ("select grp, g, count(*), sum(val), sum(f) from big "
+           "where id >= 100 group by grp, g order by grp, g")
+
+
+@pytest.fixture
+def cache_env(cuda, monkeypatch):
+    for v in ("MO_BLOCK_CACHE_MB", "MO_DEVICE_CACHE_MB",
+              "MO_BLOCK_CACHE_DISABLE", "MO_SCAN_PREFETCH"):
+        monkeypatch.delenv(v, raising=False)
+    yield cuda
+    from matrixone_tpu_torch.storage import blockcache
+    blockcache.CACHE.clear()
+
+
+def test_warm_object_backed_scan_uploads_nothing(cache_env, tmp_path):
+    """After one cold scan every column lives in the device tier as a
+    CUDA tensor; a warm scan decodes and uploads nothing, and its rows
+    are the CPU session's."""
+    from matrixone_tpu_torch.frontend import Session
+    from matrixone_tpu_torch.storage import blockcache
+    eng = _object_backed(tmp_path)
+    card = Session(catalog=eng)
+    card.execute("set plan_fusion = 0")
+    want = Session(catalog=eng, device="cpu").execute(OBJ_SQL).rows()
+    assert _close(card.execute(OBJ_SQL).rows(), want)
+    blockcache.CACHE.reset_stats()
+    for _ in range(2):
+        assert _close(card.execute(OBJ_SQL).rows(), want)
+    st = blockcache.CACHE.stats()
+    assert st["uploaded_bytes"] == 0 and st["decode_seconds"] == 0.0, st
+    assert st["device_tier"]["hit_rate"] == 1.0, st
+    cuda_keys = [k for k in blockcache.CACHE._dev if k[-1].startswith(
+        "cuda")]
+    assert cuda_keys
+    for k in cuda_keys:
+        assert blockcache.CACHE._dev[k].is_cuda
+
+
+def test_cold_fused_scan_with_read_ahead_captures(cache_env, tmp_path,
+                                                  monkeypatch):
+    """A cold fused scan over 3+ batches with the read-ahead thread on:
+    the thread decodes into the host tier only, so the steps' graphs
+    capture while it runs; the rows are the CPU session's, warm too."""
+    from matrixone_tpu_torch.frontend import Session
+    from matrixone_tpu_torch.utils import metrics as M
+    monkeypatch.setenv("MO_FUSION_MIN_ROWS", "0")
+    monkeypatch.setenv("MO_SCAN_PREFETCH", "2")
+    monkeypatch.delenv("MO_PLAN_FUSION", raising=False)
+    eng = _object_backed(tmp_path)
+    host = Session(catalog=eng, device="cpu")
+    card = Session(catalog=eng)
+    for s in (host, card):
+        s.execute("set batch_rows = 8192")
+    sqls = [OBJ_SQL,
+            "select count(*), sum(val), min(f), max(id) from big "
+            "where grp < 5"]
+    wants = [host.execute(q).rows() for q in sqls]
+    from matrixone_tpu_torch.storage import blockcache
+    blockcache.CACHE.clear()
+    c0 = M.fusion_graphs.get(event="capture")
+    r0 = M.fusion_graphs.get(event="replay")
+    p0 = M.scan_prefetch.get(outcome="ready") + \
+        M.scan_prefetch.get(outcome="waited")
+    for q, want in zip(sqls, wants):
+        assert _close(card.execute(q).rows(), want), q
+    assert M.fusion_graphs.get(event="capture") > c0
+    assert M.fusion_graphs.get(event="replay") - r0 >= 3
+    assert M.scan_prefetch.get(outcome="ready") + \
+        M.scan_prefetch.get(outcome="waited") - p0 >= 3
+    c1 = M.fusion_graphs.get(event="capture")
+    for q, want in zip(sqls, wants):
+        assert _close(card.execute(q).rows(), want), q
+    assert M.fusion_graphs.get(event="capture") == c1
+
+
+def test_device_tier_eviction_holds_a_1mb_budget(cache_env, tmp_path,
+                                                  monkeypatch):
+    from matrixone_tpu_torch.frontend import Session
+    from matrixone_tpu_torch.storage import blockcache
+    monkeypatch.setenv("MO_DEVICE_CACHE_MB", "1")
+    eng = _object_backed(tmp_path)
+    card = Session(catalog=eng)
+    card.execute("set plan_fusion = 0")
+    want = Session(catalog=eng, device="cpu").execute(OBJ_SQL).rows()
+    for _ in range(2):
+        assert _close(card.execute(OBJ_SQL).rows(), want)
+        dev = blockcache.CACHE.stats()["device_tier"]
+        assert dev["used_bytes"] <= 1 << 20, dev
+    st = blockcache.CACHE.stats()
+    assert st["device_tier"]["evictions"] > 0
+    assert st["device_tier"]["peak_bytes"] <= 1 << 20
+    assert st["host_tier"]["evictions"] == 0
+
+
+def test_drop_path_after_a_merge_leaves_no_stale_tensor(cache_env,
+                                                        tmp_path):
+    """A merge and its fence GC drop the merged-away objects' tensors
+    from the device tier; the merged table's rows stay the CPU's."""
+    from matrixone_tpu_torch.frontend import Session
+    from matrixone_tpu_torch.storage import blockcache
+    eng = _object_backed(tmp_path)
+    card = Session(catalog=eng)
+    card.execute("set plan_fusion = 0")
+    host = Session(catalog=eng, device="cpu")
+    card.execute(OBJ_SQL).rows()
+    old = {seg.obj_path for seg in eng.get_table("big").segments}
+    assert any(k[1] in old for k in blockcache.CACHE._dev)
+    card.execute("delete from big where id < 50")
+    assert eng.merge_table("big") > 0
+    assert eng.gc_fences()["released"] == 1
+    assert not any(k[1] in old for k in blockcache.CACHE._dev)
+    assert not any(k[1] in old for k in blockcache.CACHE._host)
+    assert _close(card.execute(OBJ_SQL).rows(),
+                  host.execute(OBJ_SQL).rows())
+    assert card.execute("select count(*) from big where id < 100"
+                        ).rows() == [(50,)]

@@ -1,7 +1,9 @@
 """Rules of the port package `matrixone_tpu_torch` and of chip_smoke.py.
 
   * neither imports `jax` or anything of `matrixone_tpu` (an AST scan,
-    so a lazy import inside a function counts too);
+    so a lazy import inside a function counts too), nor a package the
+    card machine lacks (`pyarrow`, `lz4`, `zstandard`, `pandas`,
+    `grpc`);
   * entry points taking host data default to CUDA and raise a clear
     RuntimeError without it, unless the caller names the CPU;
   * importing the package builds no kernel and does not initialise CUDA.
@@ -51,7 +53,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
-            if top in ("jax", "jaxlib", "matrixone_tpu", "ml_dtypes"):
+            if top in ("jax", "jaxlib", "matrixone_tpu", "ml_dtypes",
+                       "pyarrow", "lz4", "zstandard", "pandas", "grpc"):
                 bad.append((os.path.relpath(path, REPO), mod))
     assert not bad, bad
 
