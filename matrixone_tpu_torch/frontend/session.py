@@ -28,20 +28,40 @@ makes every DDL statement and commit durable in the engine's WAL,
 PARTITION BY specs and snapshots included, and `Engine.open(fs)`
 restarts from it.
 
-Not ported yet (ROADMAP.md, section A): the result and plan caches,
-admission control, tracing, `mo_ctl`, the fault hooks, and every other
-statement (LOAD DATA, indexes, materialized views, UDFs, accounts ...),
-which raises NotImplementedError.  The session runs
-on `device` (CUDA unless the caller names the CPU); every scan uploads
-its chunks there.
+`execute(sql, params)` is the serving path (matrixone_tpu_torch/serving):
+a statement is normalized (literals become parameters), a repeated one
+is served from the plan cache, which keeps the bound, optimized plan
+and the compiled operator tree of its last execution (the new values
+are patched into the tree's literals and `vm/compile.retarget_tree`
+resets its per-execution state), and, when it is on, from the result
+cache, keyed by the versions of the tables the plan reads.  Workload
+statements pass admission control when it is armed; every statement is
+a motrace `statement` span (parse, plan, run, ...), observed in
+`query_seconds` and recorded in `system_statement_info`.  The
+operations surface: KILL [QUERY] n, SHOW PROCESSLIST, SHOW TRACE,
+ANALYZE TABLE, SET fault_point / fault_point_clear, EXPLAIN ANALYZE
+(rows, batches and time per operator, and each fused fragment's mode,
+step calls, trace and capture milliseconds and cache outcome), and
+`select mo_ctl(...)` with checkpoint, merge, flush, fault, serving,
+fusion, trace, metrics and keys.
+
+Not ported yet (ROADMAP.md, section A): LOAD DATA and `load_file()`,
+indexes, materialized views, UDFs, accounts, the mo_ctl commands over
+modules the port lacks (lint, san, qa, crash, mview, rpc, udf), and
+every other statement, which raises NotImplementedError.  The session
+runs on `device` (CUDA unless the caller names the CPU); every scan
+uploads its chunks there.
 """
 
 from __future__ import annotations
 
 import contextvars
+import copy
 import dataclasses
 import datetime
+import json
 import re
+import time
 import types
 from typing import List, Optional
 
@@ -57,9 +77,16 @@ from matrixone_tpu_torch.sql.binder import Binder, BindError, Scope, \
     type_from_name
 from matrixone_tpu_torch.sql.expr import BoundCol
 from matrixone_tpu_torch.sql.parser import parse, parse_one
+from matrixone_tpu_torch.queryservice import QueryKilled, registry_for
+from matrixone_tpu_torch.serving import serving_for
+from matrixone_tpu_torch.serving.plan_cache import iter_plan_values
 from matrixone_tpu_torch.storage.engine import ROWID, Engine, TableMeta
 from matrixone_tpu_torch.txn.client import TxnClient
-from matrixone_tpu_torch.vm.compile import compile_plan
+from matrixone_tpu_torch.utils import keys as keyaudit
+from matrixone_tpu_torch.utils import metrics as M, motrace
+from matrixone_tpu_torch.utils.fault import INJECTOR, parse_spec
+from matrixone_tpu_torch.utils.trace import STMT_TABLE, StatementRecorder
+from matrixone_tpu_torch.vm.compile import compile_plan, retarget_tree
 from matrixone_tpu_torch.vm.process import ExecContext
 
 #: the session currently executing a statement on this thread — info
@@ -107,13 +134,18 @@ class Session:
         self.txn = None                 # active explicit transaction
         self.last_insert_id = 0         # MySQL LAST_INSERT_ID()
         self.variables = {"batch_rows": 1 << 20}
+        self._procs = registry_for(self.catalog)
+        self._admission_depth = 0      # re-entrant execute() guard
+        self.conn_id = self._procs.register("root")  # no accounts yet
 
     def close(self) -> None:
         """End the session: roll back its open transaction, if any (the
-        engine's count of open transactions defers merges)."""
+        engine's count of open transactions defers merges), and release
+        its process-registry slot."""
         if self.txn is not None:
             self.txn.rollback()
             self.txn = None
+        self._procs.unregister(self.conn_id)
 
     def _ctx(self, frozen_ts: Optional[int] = None) -> ExecContext:
         if frozen_ts is None and self.txn is None:
@@ -133,26 +165,162 @@ class Session:
         return frozenset()
 
     # ------------------------------------------------------------ execute
-    def execute(self, sql: str) -> Result:
-        stmts = parse(sql)
+    def execute(self, sql: str, params: Optional[list] = None) -> Result:
+        """Run one or more statements; `params` fill the `?` placeholders
+        in order (ints, floats, strings, bools, None, dates)."""
+        # the statement is the trace boundary: parse, cache lookups,
+        # admission wait, plan, fragment capture and replay and commit
+        # are its children (a re-entrant execute nests as a child span)
+        with motrace.statement_span(sql):
+            return self._execute_traced(sql, params)
+
+    def _execute_traced(self, sql: str,
+                        params: Optional[list] = None) -> Result:
+        if not hasattr(self.catalog, "stmt_recorder"):
+            self.catalog.stmt_recorder = StatementRecorder(self.catalog)
+        if STMT_TABLE in sql:
+            self.catalog.stmt_recorder.flush()
+        # serving layer: normalize the statement and route repeated
+        # shapes through the plan and result caches; the raw parse path
+        # serves whatever is off-template
+        sv = self._serving_prepare(sql, params)
+        stmts = sv.make_stmts() if sv is not None else None
+        if stmts is None:
+            # raw path: first occurrence of a template (or an unusable
+            # one): the result cache still takes part through sv, the
+            # plan cache does not
+            if sv is not None:
+                sv.template_mode = False
+                if not sv.result_enabled():
+                    sv = None
+            with motrace.span("parse"):
+                stmts = parse(sql)
+            if params is not None:
+                stmts = [_substitute_params(st, params) for st in stmts]
         tok = _CURRENT_SESSION.set(self)
         try:
-            results = []
-            for st in stmts:
-                self._liid_set = False     # last_insert_id(): per statement
-                results.append(self._execute_stmt(st))
-            return results[-1] if results else Result()
+            return self._execute_stmts(stmts, sql, sv)
         finally:
             _CURRENT_SESSION.reset(tok)
+
+    def _serving_prepare(self, sql: str, params):
+        """-> _ServingCtx when this statement may use the serving caches
+        (one statement, autocommit, deterministic, plain parameters)."""
+        if self.txn is not None:
+            return None
+        state = serving_for(self.catalog)
+        if not (state.plan_cache.enabled or state.result_cache.enabled):
+            return None
+        norm = state.plan_cache.normalized(sql)
+        if norm is None or norm.n_stmts != 1 or norm.nondet:
+            return None
+        try:
+            full = norm.full_params(params)
+        except (IndexError, TypeError, ValueError):
+            return None            # arity mismatch: the raw path raises it
+        for p in full:
+            if not isinstance(p, (int, float, str, bool, type(None),
+                                  datetime.date)):
+                return None
+        return _ServingCtx(state, norm, full, self._acct())
+
+    def _execute_stmts(self, stmts, sql: str, serving=None) -> Result:
+        adm = serving_for(self.catalog).admission
+        results = []
+        # per-statement span attribution in a multi-statement text: each
+        # statement records only the spans past the previous one's mark
+        # (the first one's window starts at 0, so it owns `parse`)
+        tr_mark = 0
+        for st in stmts:
+            if self._procs.is_terminated(self.conn_id):
+                raise QueryKilled(f"connection {self.conn_id} was killed")
+            t0 = time.perf_counter()
+            self._procs.start_query(self.conn_id, sql)
+            self._liid_set = False     # last_insert_id(): per statement
+            ann = {"cache_hit": "none", "queue_wait_ms": 0}
+            self._exec_ann = ann
+            ticket = None
+            try:
+                with motrace.span("run", stmt=type(st).__name__):
+                    if adm.enabled and self._admission_gated(st):
+                        lane = ("background" if str(self.variables.get(
+                            "query_priority", "")).lower() == "background"
+                            else "interactive")
+                        ticket = adm.acquire(account=self._acct(),
+                                             lane=lane,
+                                             conn_id=self.conn_id,
+                                             registry=self._procs)
+                        self._admission_depth += 1
+                        ann["queue_wait_ms"] = int(
+                            ticket.queue_wait_s * 1000)
+                    r = self._execute_stmt(st, serving)
+                    motrace.annotate(cache_hit=ann["cache_hit"])
+            except Exception as e:   # noqa: BLE001 — recorded, re-raised
+                dt_ = time.perf_counter() - t0
+                M.query_seconds.observe(dt_)
+                tr_id, n_sp, summ, tree = motrace.statement_record(
+                    dt_ * 1000.0, since=tr_mark)
+                self.catalog.stmt_recorder.record(
+                    sql, "error", dt_, 0, error=str(e)[:1024],
+                    cache_hit=ann["cache_hit"],
+                    queue_wait_ms=ann["queue_wait_ms"],
+                    trace_id=tr_id, span_count=n_sp,
+                    span_summary=summ, span_tree=tree)
+                raise
+            finally:
+                if ticket is not None:
+                    self._admission_depth -= 1
+                    ticket.release()
+                self._procs.end_query(self.conn_id)
+            dt_ = time.perf_counter() - t0
+            M.query_seconds.observe(dt_)
+            rows_out = len(r.batch) if r.batch is not None else r.affected
+            # slow-query hook: past MO_TRACE_SLOW_MS the full span tree
+            # goes into the statement table (motrace.statement_record)
+            tr_id, n_sp, summ, tree = motrace.statement_record(
+                dt_ * 1000.0, since=tr_mark)
+            tr_mark += n_sp
+            self.catalog.stmt_recorder.record(
+                sql, "ok", dt_, rows_out, cache_hit=ann["cache_hit"],
+                queue_wait_ms=ann["queue_wait_ms"],
+                trace_id=tr_id, span_count=n_sp, span_summary=summ,
+                span_tree=tree)
+            results.append(r)
+        return results[-1] if results else Result()
+
+    def _admission_gated(self, st: ast.Node) -> bool:
+        """Workload statements pass admission; control statements (SET,
+        transaction control, KILL, SHOW, mo_ctl) never queue: an
+        operator must always be able to inspect and kill.  A re-entrant
+        execute inside an admitted statement bypasses too, or a 1-slot
+        server would deadlock against itself."""
+        if self._admission_depth > 0:
+            return False
+        if isinstance(st, (ast.Select, ast.Union)):
+            return not self._is_ctl_select(st)
+        return isinstance(st, (ast.Insert, ast.Update, ast.Delete,
+                               ast.LoadData))
+
+    @staticmethod
+    def _is_ctl_select(st: ast.Node) -> bool:
+        return (isinstance(st, ast.Select) and st.from_ is None
+                and len(st.items) == 1
+                and isinstance(st.items[0].expr, ast.FuncCall)
+                and st.items[0].expr.name == "mo_ctl")
+
+    def _acct(self) -> str:
+        """The account the session belongs to: accounts are not ported
+        yet, every session is the sys account's."""
+        return "sys"
 
     def plan(self, sql: str):
         """The bound, cost-optimized and index-rewritten plan of one
         SELECT: the tree `execute` compiles (EXPLAIN's tree)."""
         return self.plan_select(parse_one(sql))
 
-    def _execute_stmt(self, stmt: ast.Node) -> Result:
+    def _execute_stmt(self, stmt: ast.Node, serving=None) -> Result:
         if isinstance(stmt, (ast.Select, ast.Union)):
-            return self._select(stmt)
+            return self._select(stmt, serving=serving)
         if isinstance(stmt, ast.CreateTable):
             return self._create_table(stmt)
         if isinstance(stmt, ast.DropTable):
@@ -167,9 +335,9 @@ class Session:
         if isinstance(stmt, ast.Explain):
             if not isinstance(stmt.stmt, (ast.Select, ast.Union)):
                 raise BindError("EXPLAIN supports SELECT only for now")
-            if stmt.analyze:
-                raise _not_ported("EXPLAIN ANALYZE")
             node = self.plan_select(stmt.stmt)
+            if stmt.analyze:
+                return Result(text=self._explain_analyze(node))
             return Result(text=P.explain(
                 node, annotate=self._fragment_annotator(node)))
         if isinstance(stmt, ast.ShowTables):
@@ -206,11 +374,52 @@ class Session:
             return _show({"Variable_name": names,
                           "Value": [str(self.variables[n]) for n in names]})
         if isinstance(stmt, ast.SetVariable):
-            if stmt.name in ("fault_point", "fault_point_clear"):
-                raise _not_ported("fault injection (SET fault_point)")
             if isinstance(stmt.value, ast.Literal):
-                self.variables[stmt.name] = stmt.value.value
+                value = stmt.value.value
+                # fault injection control (reference: mo_ctl
+                # addfaultpoint)
+                if stmt.name == "fault_point" and isinstance(value, str):
+                    try:
+                        INJECTOR.add(**parse_spec(value))
+                    except ValueError as e:
+                        raise BindError(str(e))
+                elif stmt.name == "fault_point_clear":
+                    INJECTOR.remove(str(value))
+                else:
+                    self.variables[stmt.name] = value
             return Result()
+        if isinstance(stmt, ast.ShowProcesslist):
+            pl = self._procs.processlist()
+            return _show({"Id": [p["Id"] for p in pl],
+                          "User": [p["User"] for p in pl],
+                          "State": [p["State"] for p in pl],
+                          "Time": [p["Time"] for p in pl],
+                          "Query": [p["Query"] for p in pl]},
+                         {"Id": dt.INT64, "Time": dt.FLOAT64,
+                          "Query": dt.TEXT})
+        if isinstance(stmt, ast.Kill):
+            if self._procs.owner_account(stmt.conn_id) is None \
+                    or not self._procs.kill(stmt.conn_id,
+                                            query_only=stmt.query_only):
+                raise BindError(f"no connection {stmt.conn_id}")
+            return Result()
+        if isinstance(stmt, ast.AnalyzeTable):
+            from matrixone_tpu_torch.sql.stats import provider_for
+            st = provider_for(self.catalog).refresh(stmt.name)
+            return _show({"table": [stmt.name], "rows": [st.row_count],
+                          "columns": [len(st.cols)]},
+                         {"rows": dt.INT64, "columns": dt.INT64})
+        if isinstance(stmt, ast.ShowTrace):
+            # recent traces from the motrace ring, oldest first
+            ts = motrace.TRACER.traces()
+            return _show({"TraceId": [t["trace_id"] for t in ts],
+                          "Root": [t["root"] for t in ts],
+                          "Procs": [t["procs"] for t in ts],
+                          "Spans": [t["spans"] for t in ts],
+                          "StartUs": [t["ts_us"] for t in ts],
+                          "DurationMs": [t["dur_ms"] for t in ts]},
+                         {"Spans": dt.INT64, "StartUs": dt.INT64,
+                          "DurationMs": dt.FLOAT64})
         if isinstance(stmt, ast.CreateSnapshot):
             self.catalog.create_snapshot(stmt.name)
             return Result()
@@ -367,6 +576,215 @@ class Session:
             sel.having = self._inline_subqueries(sel.having, ctes=ctes)
         sel._mo_prepared = True
 
+    def _try_mo_ctl(self, sel) -> Optional[Result]:
+        """`select mo_ctl('cmd'[, 'arg'])`: the operations commands,
+        answered by the session before binding (reference: plan/function
+        ctl mo_ctl)."""
+        if not (isinstance(sel, ast.Select) and sel.from_ is None
+                and len(sel.items) == 1):
+            return None
+        e = sel.items[0].expr
+        if not (isinstance(e, ast.FuncCall) and e.name == "mo_ctl"):
+            return None
+        args = [a.value for a in e.args if isinstance(a, ast.Literal)]
+        cmd = str(args[0]).lower() if args else ""
+        arg = str(args[1]) if len(args) > 1 else ""
+        if cmd == "checkpoint":
+            self.catalog.checkpoint()
+            out = "checkpoint done"
+        elif cmd == "merge":
+            out = self._mo_ctl_merge(arg)
+        elif cmd == "flush":
+            if hasattr(self.catalog, "stmt_recorder"):
+                self.catalog.stmt_recorder.flush()
+            out = "flushed"
+        elif cmd == "fault":
+            # status | clear | arm:<spec>
+            if arg in ("", "status"):
+                out = json.dumps(INJECTOR.describe(), sort_keys=True)
+            elif arg == "clear":
+                INJECTOR.clear()
+                out = "faults cleared"
+            elif arg.startswith("arm:"):
+                try:
+                    INJECTOR.add(**parse_spec(arg[4:]))
+                except ValueError as err:
+                    raise BindError(str(err))
+                out = f"armed {arg[4:].split(':', 1)[0]}"
+            else:
+                raise BindError(f"unknown fault subcommand {arg!r}; "
+                                "use status | clear | arm:<spec>")
+        elif cmd == "serving":
+            out = self._mo_ctl_serving(arg)
+        elif cmd == "fusion":
+            from matrixone_tpu_torch.vm import fusion
+            if arg in ("", "status"):
+                out = json.dumps(fusion.stats(), sort_keys=True)
+            elif arg == "clear":
+                fusion.CACHE.clear()
+                out = "fusion compile cache cleared"
+            else:
+                raise BindError(f"unknown fusion subcommand {arg!r}; "
+                                "use status | clear")
+        elif cmd == "keys":
+            if arg in ("", "status"):
+                out = json.dumps(dict(keyaudit.report(), static=None),
+                                 sort_keys=True, default=str)
+            elif arg == "clear":
+                keyaudit.clear()
+                out = "key-audit records and findings cleared"
+            elif arg == "audit:on":
+                keyaudit.arm()
+                out = "key audit armed"
+            elif arg == "audit:off":
+                keyaudit.disarm()
+                out = "key audit disarmed"
+            else:
+                raise BindError(f"unknown keys subcommand {arg!r}; "
+                                "use status | clear | audit:on | "
+                                "audit:off")
+        elif cmd == "trace":
+            out = self._mo_ctl_trace(arg)
+        elif cmd == "metrics":
+            if arg in ("", "dump"):
+                out = M.REGISTRY.render()
+            elif arg == "snapshot":
+                out = json.dumps(M.REGISTRY.snapshot(), sort_keys=True)
+            else:
+                raise BindError(f"unknown metrics subcommand {arg!r}; "
+                                "use dump | snapshot")
+        elif cmd in _MO_CTL_NOT_PORTED:
+            raise BindError(f"mo_ctl('{cmd}') is not ported yet: it needs "
+                            f"{_MO_CTL_NOT_PORTED[cmd]} (ROADMAP.md, "
+                            f"section A)")
+        else:
+            raise BindError(f"unknown mo_ctl command {cmd!r}")
+        return _show({"mo_ctl": [out]})
+
+    def _mo_ctl_merge(self, arg: str) -> str:
+        def describe(code):
+            if code == -1:
+                return "skipped (too few segments)"
+            if code == -2:
+                return "deferred (open transactions)"
+            if code == -3:
+                return "deferred (lost race with a concurrent write — retry)"
+            return f"kept {code} rows"
+        if arg in ("status", "run", "pause", "resume", "gc"):
+            # the background merge scheduler (storage/merge_sched)
+            from matrixone_tpu_torch.storage import merge_sched
+            sched = merge_sched.scheduler_for(self.catalog)
+            if arg == "status":
+                return json.dumps(sched.status(), sort_keys=True,
+                                  default=str)
+            if arg == "run":
+                return json.dumps(sched.run_cycle(), sort_keys=True,
+                                  default=str)
+            if arg == "gc":
+                return json.dumps(self.catalog.gc_fences(), sort_keys=True)
+            if arg == "pause":
+                sched.pause()
+                return "merge scheduler paused"
+            sched.resume()
+            return "merge scheduler resumed"
+        if arg:
+            return f"merge {arg}: " + describe(self.catalog.merge_table(arg))
+        results = []
+        for name in list(self.catalog.tables):
+            if not name.startswith("system_"):
+                r = self.catalog.merge_table(name, checkpoint=False)
+                if r >= 0:
+                    results.append(f"{name}: {describe(r)}")
+        if results:
+            self.catalog.checkpoint()
+        return "; ".join(results) or "nothing to merge"
+
+    def _mo_ctl_serving(self, arg: str) -> str:
+        """The serving layer: the plan and result caches and admission."""
+        sv = serving_for(self.catalog)
+        if arg in ("", "status"):
+            return json.dumps(sv.status(), sort_keys=True, default=str)
+        if arg == "clear":
+            sv.clear()
+            return "serving caches cleared"
+        if arg.startswith("slots:"):
+            try:
+                sv.admission.slots = int(arg.split(":", 1)[1])
+            except ValueError:
+                raise BindError(f"bad slot count in {arg!r}")
+            return f"admission slots = {sv.admission.slots}"
+        if arg.startswith("account_slots:"):
+            try:
+                sv.admission.account_slots = int(arg.split(":", 1)[1])
+            except ValueError:
+                raise BindError(f"bad account slot count in {arg!r}")
+            return f"admission account_slots = {sv.admission.account_slots}"
+        if arg in ("plan:on", "plan:off"):
+            sv.plan_cache.enabled = arg.endswith(":on")
+            if not sv.plan_cache.enabled:
+                sv.plan_cache.clear()
+            return f"plan cache {'on' if sv.plan_cache.enabled else 'off'}"
+        if arg.startswith("result:"):
+            sub = arg.split(":", 1)[1]
+            if sub == "off":
+                sv.result_cache.max_bytes = 0
+                sv.result_cache.clear()
+            elif sub == "on":
+                if sv.result_cache.max_bytes <= 0:
+                    sv.result_cache.max_bytes = 64 << 20
+            else:
+                try:
+                    mb = int(sub)
+                except ValueError:
+                    raise BindError(f"unknown result subcommand {sub!r}; "
+                                    f"use on | off | <mb>")
+                # shrinking evicts now: a read-hot workload never calls
+                # put(), so its eviction loop would not run
+                sv.result_cache.set_max_bytes(mb << 20)
+                if sv.result_cache.max_bytes <= 0:
+                    sv.result_cache.clear()
+            return f"result cache {sv.result_cache.max_bytes >> 20} MB"
+        raise BindError(
+            f"unknown serving subcommand {arg!r}; use status | clear | "
+            f"slots:<n> | account_slots:<n> | plan:<on|off> | "
+            f"result:<on|off|mb>")
+
+    def _mo_ctl_trace(self, arg: str) -> str:
+        """status | on | off | clear | sample:<f> | slow:<ms> |
+        dump:<path>"""
+        tr = motrace.TRACER
+        if arg in ("", "status"):
+            return json.dumps(tr.status(), sort_keys=True)
+        if arg == "on":
+            tr.arm()
+            return "trace armed"
+        if arg == "off":
+            tr.disarm()
+            return "trace disarmed"
+        if arg == "clear":
+            tr.clear()
+            return "trace ring cleared"
+        if arg.startswith("sample:"):
+            try:
+                tr.sample = float(arg.split(":", 1)[1])
+            except ValueError:
+                raise BindError(f"bad sample fraction in {arg!r}")
+            return f"trace sample = {tr.sample}"
+        if arg.startswith("slow:"):
+            try:
+                tr.slow_ms = float(arg.split(":", 1)[1])
+            except ValueError:
+                raise BindError(f"bad slow threshold in {arg!r}")
+            return f"trace slow_ms = {tr.slow_ms}"
+        if arg.startswith("dump:"):
+            paths = motrace.dump(arg.split(":", 1)[1])
+            return (f"dumped {len(paths)} trace(s) -> "
+                    + (paths[0].rsplit('/', 1)[0] if paths
+                       else "nothing to dump"))
+        raise BindError(f"unknown trace subcommand {arg!r}; use status | "
+                        f"on | off | clear | sample:<f> | slow:<ms> | "
+                        f"dump:<path>")
+
     def _cbo(self, node):
         """Stats-driven join reordering (reference: plan/query_builder.go
         determineJoinOrder). `cbo = 0` in the variables disables it."""
@@ -376,24 +794,272 @@ class Session:
         return optimize_plan(node, self.catalog)
 
     # ------------------------------------------------------------- select
-    def _select(self, sel) -> Result:
-        node = self.plan_select(sel)
-        op = compile_plan(node, self._ctx())
-        out_batches = [self._to_host(ex, node.schema)
-                       for ex in op.execute()]
+    def _select(self, sel, serving=None) -> Result:
+        ctl = self._try_mo_ctl(sel)
+        if ctl is not None:
+            return ctl
+        sv = serving if (serving is not None and self.txn is None) else None
+        lazy = sv is not None and sv.owns_pristine(sel)
+        if sv is not None and not sv.usable_for(sel):
+            sv = None
+        if sv is None and lazy:
+            # the caches declined but the caller handed over the pristine
+            # template: bind a private substituted copy, never the shared
+            # template itself
+            sel = serving.instantiate(raise_errors=True)
+            lazy = False
+        ann = getattr(self, "_exec_ann", None)
+        # ---- result cache: serve the whole statement if every scanned
+        # table is still at the version the entry was stored under
+        if sv is not None and sv.result_enabled():
+            hit = sv.state.result_cache.get(sv.result_key(),
+                                            self._recompute_versions)
+            if hit is not None:
+                if ann is not None:
+                    ann["cache_hit"] = "result"
+                return Result(batch=hit[0])
+        # ---- plan cache: skip prepare, bind and optimize on a hit (in
+        # template mode only: raw-path literals carry no parameter tags)
+        node = None
+        plan_missed = False
+        gens = self._serving_gens()
+        if sv is not None and sv.template_mode and sv.plan_enabled():
+            outcome, node = sv.state.plan_cache.lookup(
+                sv.plan_key(), gens[0], gens[1], sv.full)
+            plan_missed = outcome == "miss"
+            if node is not None and ann is not None \
+                    and ann["cache_hit"] == "none":
+                ann["cache_hit"] = "plan"
+        if node is None:
+            if lazy:
+                # instantiate the template only now: a plan-cache hit
+                # above never pays the AST deepcopy
+                sel = sv.instantiate(raise_errors=True)
+            with motrace.span("plan"):
+                node = self.plan_select(sel)
+            if sv is not None and sv.template_mode \
+                    and sv.plan_enabled() and plan_missed:
+                # stored under the gens captured at lookup: a DDL racing
+                # the bind orphans this entry
+                sv.state.plan_cache.store(
+                    sv.plan_key(), node, len(sv.full), gens[0], gens[1])
+        # versions and the execution snapshot are captured in ONE hold
+        # of the engine's commit lock (a commit moves table versions
+        # before it advances committed_ts); execution is then frozen at
+        # the captured ts
+        versions = frozen = None
+        if sv is not None and sv.result_enabled():
+            versions, frozen = self._capture_versions(node)
+        ctx = self._ctx(frozen_ts=frozen)
+        # ---- compiled-tree reuse: the tree of the last completed
+        # execution rides the plan-cache entry (pop semantics: a
+        # concurrent execution finds none and compiles its own)
+        op = cached = None
+        tree_cacheable = (sv is not None and sv.template_mode
+                          and sv.plan_enabled())
+        tree_vars = self._tree_vars_sig() if tree_cacheable else None
+        if tree_cacheable:
+            if keyaudit.armed():
+                # each build-time knob re-read independently of the
+                # signature: one that steers tree construction without
+                # riding it mismatches here
+                keyaudit.audit(
+                    "serving/plan_cache.py:tree",
+                    (sv.plan_key(), gens[0], gens[1], tree_vars),
+                    self._tree_vars_deps())
+            cached = sv.state.plan_cache.take_tree(
+                sv.plan_key(), gens[0], gens[1], tree_vars)
+            if cached is not None:
+                op = sv.state.plan_cache.rebind_tree(cached, sv.full)
+                if op is not None:
+                    retarget_tree(op, ctx)
+                    # the tree's plan nodes are this execution's (the
+                    # parameters were patched into them in place)
+                    node = cached["plan"]
+        if op is None:
+            op = compile_plan(node, ctx)
+            built = {"op": op, "plan": node} if tree_cacheable else None
+        else:
+            built = cached
+        out_batches = []
+        batches = op.execute()
+        try:
+            for ex in batches:
+                # KILL lands between device batches: the pull loop is
+                # the executor's preemption point
+                self._procs.check_killed(self.conn_id)
+                out_batches.append(self._to_host(ex, node.schema))
+        finally:
+            # a killed or failed run closes the operators' generators
+            # now: their fragments release the graphs they own
+            batches.close()
+        if built is not None:
+            sv.state.plan_cache.put_tree(sv.plan_key(), built, gens[0],
+                                         gens[1], tree_vars)
         if not out_batches:
             empty = {n: Vector.from_values([], d) for n, d in node.schema}
-            return Result(batch=Batch(empty))
-        if len(out_batches) == 1:
-            return Result(batch=out_batches[0])
-        # concatenate host batches
-        cols = {}
-        for n, d in node.schema:
-            vals = []
-            for b in out_batches:
-                vals.extend(b.columns[n].to_pylist())
-            cols[n] = Vector.from_values(vals, d)
-        return Result(batch=Batch(cols))
+            result = Result(batch=Batch(empty))
+        elif len(out_batches) == 1:
+            result = Result(batch=out_batches[0])
+        else:
+            # concatenate host batches
+            cols = {}
+            for n, d in node.schema:
+                vals = []
+                for b in out_batches:
+                    vals.extend(b.columns[n].to_pylist())
+                cols[n] = Vector.from_values(vals, d)
+            result = Result(batch=Batch(cols))
+        if versions is not None and result.batch is not None:
+            # a host batch (`_to_host` copies every column off the card),
+            # never a view of a graph's output buffers
+            sv.state.result_cache.put(sv.result_key(), result.batch,
+                                      versions)
+        return result
+
+    def _tree_vars_sig(self) -> tuple:
+        """Session state baked into a compiled operator tree at build
+        time (everything else is re-read through the ExecContext at
+        execute time), derived from `_tree_vars_deps` so the signature
+        and the audited set cannot drift."""
+        return tuple(self._tree_vars_deps().values())
+
+    def _tree_vars_deps(self) -> dict:
+        """Every knob a compiled tree of the port bakes, named: the
+        fusion switches the planner consults while building fragments,
+        the session's join build budget (JoinOp reads it at
+        construction), the session's device and the narrow-encoding
+        policy of that device.  The port has no `use_pallas` switch.
+        Adding a build-time knob means adding a row here (append: the
+        order is part of the signature)."""
+        from matrixone_tpu_torch.ops import encodings as ENC
+        from matrixone_tpu_torch.vm import fusion
+        return {
+            "plan_fusion": fusion.enabled(self._ctx()),
+            "fusion_join": fusion.join_fusion_enabled(),
+            "fusion_window": fusion.window_fusion_enabled(),
+            "fusion_topk": fusion.topk_fusion_enabled(),
+            "join_build_budget": self.variables.get("join_build_budget"),
+            "device": str(self.device),
+            "encodings": ENC.signature(self.device),
+        }
+
+    # ------------------------------------------------- serving versions
+    def _serving_gens(self):
+        return (getattr(self.catalog, "ddl_gen", 0),
+                getattr(self.catalog, "stats_gen", 0))
+
+    def _capture_versions(self, node):
+        """-> ((ddl_gen, per-scan table versions), frozen_ts) for the
+        result cache, under the engine's commit lock so the version
+        tuple and the snapshot ts are one consistent point."""
+        lock = self.catalog._commit_lock
+        scans = set()
+        for v in iter_plan_values(node):
+            if isinstance(v, P.Scan):
+                scans.add((v.table, v.as_of_ts))
+        with lock:
+            ts0 = self.catalog.committed_ts
+            entries = []
+            for table, as_of in sorted(scans,
+                                       key=lambda x: (x[0], x[1] or -1)):
+                t = self.catalog.tables.get(table)
+                if t is None:
+                    return None, None      # raced drop: bypass
+                if as_of is not None and as_of <= ts0:
+                    # strictly in the committed past: immutable (every
+                    # later commit gets a ts past committed_ts >= as_of);
+                    # a future-dated AS OF still sees later commits and
+                    # versions like a live read
+                    entries.append((table, "asof", as_of))
+                    continue
+                entries.append((table, t.last_commit_ts, len(t.segments),
+                                len(t.tombstones)))
+            return (self.catalog.ddl_gen, tuple(entries)), ts0
+
+    def _recompute_versions(self, stored):
+        """A stored entry's version tuple re-read from the live catalog
+        under the commit lock; a dropped table never matches."""
+        with self.catalog._commit_lock:
+            entries = []
+            for ent in stored[1]:
+                if ent[1] == "asof":
+                    entries.append(ent)          # immutable past
+                    continue
+                t = self.catalog.tables.get(ent[0])
+                if t is None:
+                    return None
+                entries.append((ent[0], t.last_commit_ts, len(t.segments),
+                                len(t.tombstones)))
+            return (self.catalog.ddl_gen, tuple(entries))
+
+    def _explain_analyze(self, node) -> str:
+        """Run the plan, recording each operator's batches, rows and
+        seconds (reference: EXPLAIN ANALYZE via process.Analyzer).  Each
+        batch's device work is settled (`torch.cuda.synchronize` on its
+        device) before the operator is stamped, so a heavy step's time
+        is not billed to whichever operator above first touches it; no
+        capture is open on this thread between two batches."""
+        import torch
+        from matrixone_tpu_torch.vm.fusion import FusedFragmentOp
+        op = compile_plan(node, self._ctx())
+        stats = {}
+
+        def wrap(o):
+            orig = o.execute
+            st = stats.setdefault(id(o), {"op": type(o).__name__,
+                                          "batches": 0, "rows": 0,
+                                          "seconds": 0.0})
+
+            def timed():
+                it = orig()
+                while True:
+                    t0 = time.perf_counter()
+                    try:
+                        ex = next(it)
+                    except StopIteration:
+                        st["seconds"] += time.perf_counter() - t0
+                        return
+                    if ex.device.type == "cuda":
+                        torch.cuda.synchronize(ex.device)
+                    st["seconds"] += time.perf_counter() - t0
+                    st["batches"] += 1
+                    st["rows"] += int(ex.mask.sum())
+                    yield ex
+            o.execute = timed
+            for attr in ("child", "left", "right"):
+                c = getattr(o, attr, None)
+                if c is not None:
+                    wrap(c)
+            for c in getattr(o, "children", []) or []:
+                wrap(c)
+        wrap(op)
+        for _ in op.execute():
+            pass
+
+        def render(o, indent=0):
+            st = stats[id(o)]
+            out = ["  " * indent + f"{st['op']}  rows={st['rows']} "
+                   f"batches={st['batches']} "
+                   f"time={st['seconds'] * 1000:.1f}ms"]
+            if isinstance(o, FusedFragmentOp):
+                fs = o.last_stats
+                build = ("" if "build_dispatches" not in fs else
+                         f" build_dispatches={fs['build_dispatches']}")
+                out.append(
+                    "  " * (indent + 1)
+                    + f"fragment f{o.fragment_id} [{o.describe()}] "
+                      f"mode={fs['mode']} dispatches={fs['dispatches']} "
+                      f"trace_ms={fs['trace_ms']:.1f} "
+                      f"compile_cache={fs['cache']}" + build)
+            for attr in ("child", "left", "right"):
+                c = getattr(o, attr, None)
+                if c is not None:
+                    out.extend(render(c, indent + 1))
+            for c in getattr(o, "children", []) or []:
+                out.extend(render(c, indent + 1))
+            return out
+        return "\n".join(render(op))
 
     def _fragment_annotator(self, node):
         """EXPLAIN decoration: compile the operator tree (no execution)
@@ -690,6 +1356,138 @@ class Session:
         else:
             n = table.insert_batch(batch)
         return Result(affected=n)
+
+
+#: mo_ctl commands over modules the port lacks, and what each needs
+_MO_CTL_NOT_PORTED = {
+    "lint": "the molint tool of the JAX package",
+    "san": "the concurrency sanitizer",
+    "qa": "the moqa corpus runner",
+    "crash": "the crash-recovery sweep (mocrash)",
+    "mview": "materialized views",
+    "rpc": "distribution (the RPC fabric)",
+    "udf": "UDFs",
+}
+
+
+class _ServingCtx:
+    """One normalized statement routed through the plan and result
+    caches (matrixone_tpu_torch/serving).
+
+    Two modes: `template_mode` (the template is active: the plan cache
+    takes part and parameter literals are tagged) and raw mode (the first
+    occurrence of a template: only the result cache takes part, and the
+    statement runs through the ordinary parse path at no added cost)."""
+
+    def __init__(self, state, norm, full_params, scope: str):
+        self.state = state
+        self.norm = norm
+        self.full = full_params
+        self.scope = scope
+        self.template_mode = False
+        self._pristine = None      # cached template AST (never mutated)
+        self._usable = None        # computed lazily on the template AST
+
+    def make_stmts(self):
+        """-> [stmt] from the cached template AST, or None (raw path).
+        A SELECT or UNION returns the pristine template (`_select`
+        instantiates it lazily, so a plan-cache hit never pays the AST
+        deepcopy); other statements instantiate at once (their executors
+        mutate the AST)."""
+        tpl = self.state.plan_cache.template_ast(self.norm.template)
+        if tpl is None:
+            return None
+        # every `?` must surface as an ast.Param: a template whose
+        # parameters the parser consumed structurally is unusable
+        if _param_indexes(tpl) != set(range(len(self.full))):
+            return None
+        self.template_mode = True
+        self._pristine = tpl
+        if isinstance(tpl, (ast.Select, ast.Union)):
+            return [tpl]
+        st = self.instantiate()
+        return None if st is None else [st]
+
+    def owns_pristine(self, stmt) -> bool:
+        return self._pristine is not None and stmt is self._pristine
+
+    def instantiate(self, raise_errors: bool = False):
+        """A fresh substituted copy of the template.  Bind-time parameter
+        errors raise when `raise_errors`, else give None (the raw path
+        reports them)."""
+        st = copy.deepcopy(self._pristine)
+        try:
+            return _substitute_params(st, self.full)
+        except BindError:
+            if raise_errors:
+                raise
+            return None
+
+    def usable_for(self, sel) -> bool:
+        """The caches are safe only for statements whose execution is
+        visible in the final plan: uncorrelated subqueries and EXISTS run
+        at prepare time and fold to constants (their tables would escape
+        the version key), and @@sysvars read session state."""
+        if self._usable is None:
+            self._usable = not _ast_has(
+                sel, (ast.Subquery, ast.Exists, ast.SysVar))
+        return self._usable
+
+    def result_enabled(self) -> bool:
+        return self.state.result_cache.enabled
+
+    def plan_enabled(self) -> bool:
+        return self.state.plan_cache.enabled
+
+    def _vars_key(self):
+        s = current_session()
+        v = s.variables if s is not None else {}
+        return (str(v.get("cbo", 1)), int(v.get("ivf_nprobe", 8) or 8))
+
+    def plan_key(self) -> tuple:
+        return ("plan", self.scope, self.norm.template,
+                self.norm.sig_for(self.full), self._vars_key())
+
+    def result_key(self) -> tuple:
+        # the sig keeps numerically equal parameters of different types
+        # apart: (1,) == (1.0,) but their results' types differ
+        return ("result", self.scope, self.norm.template,
+                self.norm.sig_for(self.full), tuple(self.full),
+                self._vars_key())
+
+
+def _param_indexes(node) -> set:
+    """Every ast.Param index reachable in a statement."""
+    return {x.index for x in iter_plan_values(node)
+            if isinstance(x, ast.Param)}
+
+
+def _ast_has(node, kinds) -> bool:
+    return any(isinstance(x, kinds) for x in iter_plan_values(node))
+
+
+def _substitute_params(node, params: list):
+    """Replace the `?` placeholders (ast.Param) by literal values, each
+    tagged with its parameter index (the tag survives into the
+    BoundLiteral, so a cached plan can be re-parameterized)."""
+    if isinstance(node, ast.Param):
+        if node.index >= len(params):
+            raise BindError(f"missing value for parameter {node.index + 1}")
+        lit = _param_literal(params[node.index])
+        lit._param_idx = node.index
+        return lit
+    if dataclasses.is_dataclass(node) and isinstance(node, ast.Node):
+        def sub(x):
+            if isinstance(x, ast.Node):
+                return _substitute_params(x, params)
+            if isinstance(x, tuple):
+                return tuple(sub(y) for y in x)
+            if isinstance(x, list):
+                return [sub(y) for y in x]
+            return x
+        for f in dataclasses.fields(node):
+            setattr(node, f.name, sub(getattr(node, f.name)))
+    return node
 
 
 def _show(data: dict, dtypes: Optional[dict] = None) -> Result:

@@ -28,6 +28,7 @@ Kernels (the TPU kernel each replaces in brackets):
 
 from __future__ import annotations
 
+import contextlib
 import os
 import threading
 
@@ -51,28 +52,39 @@ class LaunchCounts:
     else, so a run can show that its path went through the kernels, and
     at which shapes.  The segment sum also counts the walk each launch
     took under "segment_sum_walk".  A wrapper called while a CUDA graph
-    is captured launches nothing then: vm/graphs.py takes those adds
-    back and adds them again at each replay of the graph."""
+    is captured launches nothing then: vm/graphs.py records those adds
+    on the capturing thread (`recording`) and adds them at each replay
+    of the graph."""
 
     def __init__(self):
         self._lock = threading.Lock()
         self._counts = {}
         self._shapes = {}
+        self._tls = threading.local()
 
     def add(self, name: str, shape: tuple = (), n: int = 1) -> None:
+        rec = getattr(self._tls, "rec", None)
+        if rec is not None:          # this thread is capturing a graph
+            rec[(name, shape)] = rec.get((name, shape), 0) + n
+            return
         with self._lock:
             self._counts[name] = self._counts.get(name, 0) + n
             by_shape = self._shapes.setdefault(name, {})
             by_shape[shape] = by_shape.get(shape, 0) + n
 
-    def events(self) -> dict:
-        """{(name, shape): launches} since the last reset: what a CUDA
-        graph's capture reads before and after itself (vm/graphs.py),
-        to move the launches it recorded onto its replays."""
-        with self._lock:
-            return {(name, shape): n
-                    for name, by_shape in self._shapes.items()
-                    for shape, n in by_shape.items()}
+    @contextlib.contextmanager
+    def recording(self):
+        """Collect the adds this thread makes in the scope into the
+        yielded dict {(name, shape): launches} instead of the counts:
+        what a CUDA graph's capture records (vm/graphs.py), kept apart
+        from the launches other threads make meanwhile."""
+        prev = getattr(self._tls, "rec", None)
+        rec: dict = {}
+        self._tls.rec = rec
+        try:
+            yield rec
+        finally:
+            self._tls.rec = prev
 
     def get(self, name: str) -> int:
         with self._lock:

@@ -964,9 +964,12 @@ class Binder:
                     f"top-level select item")
             return _bind_udf_call(u, args)
         if e.name == "mo_ctl":
-            # the reference's session answers `select mo_ctl(...)` itself
+            # the session answers `select mo_ctl(...)` as the only item
+            # of a FROM-less select before binding; anywhere else it is
+            # not ported
             raise NotImplementedError(
-                "mo_ctl() is not ported yet (ROADMAP.md, section A)")
+                "mo_ctl() elsewhere than as the only item of a select "
+                "without FROM is not ported yet (ROADMAP.md, section A)")
         if e.name == "load_file":
             # datalink resolution (reference: load_file over the datalink
             # type): a constant URL reads at bind time through the stage

@@ -38,8 +38,12 @@ A partitioned table (`storage/partition.py`) splits every insert so one
 segment holds one partition's rows, and a scan skips the segments of
 the partitions its filters exclude.
 
-Not ported yet (ROADMAP.md, section A): the fault hooks, the CN
-bootstrap (`open_checkpoint`), external tables, publications, stages,
+The fault points `commit.before`, `merge.rewrite` and `merge.swap`
+(utils/fault.py) sit where the reference's do; `Engine.open` runs
+under an `engine.recover` span annotated with the recovery summary, and
+`close()` flushes the statement recorder.
+
+Not ported yet (ROADMAP.md, section A): the CN bootstrap (`open_checkpoint`), external tables, publications, stages,
 sources and dynamic tables, the logtail subscribers (CDC), indexes (so
 merges mark none dirty) and the co-partitioned shard read.
 """
@@ -63,7 +67,8 @@ from matrixone_tpu_torch.storage import blockcache, objectio
 from matrixone_tpu_torch.storage import wal as walmod
 from matrixone_tpu_torch.storage.fileservice import FileService, MemoryFS
 from matrixone_tpu_torch.txn.hlc import HLC
-from matrixone_tpu_torch.utils import metrics
+from matrixone_tpu_torch.utils import metrics, motrace
+from matrixone_tpu_torch.utils.fault import INJECTOR
 
 Schema = List[Tuple[str, DType]]
 
@@ -1019,6 +1024,9 @@ class Engine:
         """The commit pipeline (tae/rpc/handle.go:547 HandleCommit):
         conflict check -> constraints -> commit ts -> WAL -> apply ->
         frontier.  Returns rows affected."""
+        if INJECTOR.trigger("commit.before") == "fail":
+            metrics.txn_commits.inc(outcome="fault")
+            raise RuntimeError("injected commit failure")
         with self._commit_lock:
             # write-write conflict: someone deleted my victim after my
             # snapshot (first-committer-wins)
@@ -1029,6 +1037,7 @@ class Engine:
                     newer = [g for ts, g in t.tombstones if ts > snapshot_ts]
                     if newer and len(np.intersect1d(
                             mine, np.concatenate(newer))):
+                        metrics.txn_commits.inc(outcome="conflict")
                         raise ConflictError(
                             f"write-write conflict on {tname}")
             # NOT NULL constraints (PK columns are implicitly NOT NULL
@@ -1103,6 +1112,7 @@ class Engine:
                         affected += seg.n_rows
             # max(): the read frontier must never retreat
             self.committed_ts = max(self.committed_ts, commit_ts)
+            metrics.txn_commits.inc(outcome="ok")
         return affected
 
     # ---------------------------------------------------------- compaction
@@ -1139,6 +1149,8 @@ class Engine:
         # --- rewrite (no lock): captured segments and tombstones are
         # immutable once committed; concurrent commits only APPEND
         t0 = time.perf_counter()
+        if INJECTOR.trigger("merge.rewrite"):
+            raise RuntimeError("injected fault: merge.rewrite")
         cols = [c for c, _ in t.meta.schema]
         parts_a = {c: [] for c in cols}
         parts_v = {c: [] for c in cols}
@@ -1173,6 +1185,8 @@ class Engine:
                                   phase="rewrite")
         # --- swap (brief lock): publish the merged segment + the fence
         t0 = time.perf_counter()
+        if INJECTOR.trigger("merge.swap"):
+            raise RuntimeError("injected fault: merge.swap")
         with self._commit_lock:
             if self.tables.get(name) is not t:
                 return -3          # dropped or replaced during the rewrite
@@ -1370,25 +1384,36 @@ class Engine:
         replayed, the torn-tail bytes discarded, the checkpoint ts and
         the orphaned tmp files deleted (also as `mo_recovery_*`)."""
         eng = cls(fs, wal=wal)
-        with eng._commit_lock:
-            eng._load_checkpoint()
-            wal_stats = eng._replay_wal()
-        # a writer that died between its tmp fsync and the atomic
-        # replace left an orphan no reader sees: delete it now, the one
-        # moment no writer can be mid-protocol
-        orphans = eng.fs.orphans()
-        for p in orphans:
-            eng.fs.delete(p)
-        eng.recovery_summary = {
-            "frames_replayed": wal_stats.get("frames", 0),
-            "torn_bytes": wal_stats.get("torn_bytes", 0),
-            "ckpt_ts": eng._ckpt_ts,
-            "orphans_gcd": len(orphans)}
-        metrics.recovery_frames.inc(wal_stats.get("frames", 0))
-        metrics.recovery_torn_bytes.inc(wal_stats.get("torn_bytes", 0))
-        metrics.recovery_orphans.inc(len(orphans))
+        with motrace.root_span("engine.recover"):
+            with eng._commit_lock:
+                eng._load_checkpoint()
+                wal_stats = eng._replay_wal()
+            # a writer that died between its tmp fsync and the atomic
+            # replace left an orphan no reader sees: delete it now, the
+            # one moment no writer can be mid-protocol
+            orphans = eng.fs.orphans()
+            for p in orphans:
+                eng.fs.delete(p)
+            eng.recovery_summary = {
+                "frames_replayed": wal_stats.get("frames", 0),
+                "torn_bytes": wal_stats.get("torn_bytes", 0),
+                "ckpt_ts": eng._ckpt_ts,
+                "orphans_gcd": len(orphans)}
+            metrics.recovery_frames.inc(wal_stats.get("frames", 0))
+            metrics.recovery_torn_bytes.inc(wal_stats.get("torn_bytes", 0))
+            metrics.recovery_orphans.inc(len(orphans))
+            motrace.annotate(**eng.recovery_summary)
         eng.committed_ts = eng.hlc.now()
         return eng
+
+    def close(self) -> None:
+        """Orderly shutdown: flush the statement recorder's tail (its
+        64-statement buffering would otherwise drop the last statements
+        of a session).  Idempotent; safe on an engine that never
+        recorded anything."""
+        rec = getattr(self, "stmt_recorder", None)
+        if rec is not None:
+            rec.flush()
 
     def _load_checkpoint(self) -> None:
         if not self.fs.exists("meta/manifest.json"):

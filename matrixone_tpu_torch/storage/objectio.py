@@ -42,6 +42,7 @@ import numpy as np
 
 from matrixone_tpu_torch.storage.fileservice import FileService
 from matrixone_tpu_torch.utils import metrics
+from matrixone_tpu_torch.utils.fault import INJECTOR
 
 _MAGIC = b"MOTO"
 _VERSION = 1
@@ -199,6 +200,8 @@ def write_object(fs: FileService, meta: ObjectMeta,
     head = _PREFIX.pack(_MAGIC, _VERSION, len(hj), zlib.crc32(hj)) + hj
     head += b"\0" * _pad(len(head))
     path = object_path(meta.table, meta.object_id)
+    if INJECTOR.trigger("object.write") == "fail":
+        raise IOError(f"fault injected: object.write {path}")
     fs.write(path, b"".join([head] + parts))
     metrics.object_write_seconds.inc(time.perf_counter() - t0)
     return path
@@ -243,6 +246,8 @@ def read_column_block(fs: FileService, path: str, raw: dict, col: str
                       ) -> Tuple[np.ndarray, np.ndarray]:
     """One column of an object, given its parsed header `raw`: one
     ranged read of its data and validity blocks.  -> (data, validity)."""
+    if INJECTOR.trigger("object.read") == "fail":
+        raise IOError(f"fault injected: object.read {path}")
     ent = raw["cols"][col]
     lo = min(ent["data"][0], ent["validity"][0])
     hi = max(ent["data"][0] + ent["data"][1],
@@ -255,6 +260,8 @@ def read_object(fs: FileService, path: str
                 ) -> Tuple[ObjectMeta, Dict[str, np.ndarray],
                            Dict[str, np.ndarray]]:
     """The whole object in one read."""
+    if INJECTOR.trigger("object.read") == "fail":
+        raise IOError(f"fault injected: object.read {path}")
     blob = fs.read(path)
     hlen, hcrc = _parse_prefix(blob, path)
     raw = _parse_header(blob, hlen, hcrc, path)

@@ -28,6 +28,7 @@ import numpy as np
 
 from matrixone_tpu_torch.storage import objectio
 from matrixone_tpu_torch.storage.fileservice import FileService
+from matrixone_tpu_torch.utils.fault import INJECTOR
 
 _FRAME_MAGIC = 0x4D4F5741  # 'MOWA'
 _FRAME = struct.Struct("<III")
@@ -94,6 +95,8 @@ class WalWriter:
 
     def append(self, header: dict, blob=b"") -> None:
         """One frame; `blob` is bytes or a list of byte-like parts."""
+        if INJECTOR.trigger("wal.append") == "fail":
+            raise IOError("fault injected: wal.append failed")
         parts = blob if isinstance(blob, list) else [blob]
         hj = json.dumps(header).encode()
         payload = b"".join([struct.pack("<I", len(hj)), hj] + parts)

@@ -23,6 +23,7 @@ from typing import Dict, List
 import numpy as np
 
 from matrixone_tpu_torch.storage.engine import Engine, Segment
+from matrixone_tpu_torch.utils import motrace
 
 
 class TxnState(enum.Enum):
@@ -120,8 +121,9 @@ class TxnHandle:
         deletes = {t: w.all_deletes() for t, w in self.workspace.items()
                    if w.delete_gids}
         try:
-            affected = self.engine.commit_txn(self.snapshot_ts,
-                                              inserts, deletes)
+            with motrace.span("txn.commit", tables=len(inserts)):
+                affected = self.engine.commit_txn(self.snapshot_ts,
+                                                  inserts, deletes)
         except Exception:   # noqa: BLE001 — abort/unlock cleanup for
             # ANY commit failure (conflict, constraint, transport,
             # injected fault); always re-raised

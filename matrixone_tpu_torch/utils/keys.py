@@ -53,6 +53,11 @@ def arm() -> None:
     _ARMED = True
 
 
+def disarm() -> None:
+    global _ARMED
+    _ARMED = False
+
+
 class _ArmedScope:
     """Context manager: arm for the duration, restore the prior state."""
 

@@ -51,6 +51,56 @@ def iter_ops(root: ops.Operator):
                 stack.append(c)
 
 
+def retarget_tree(root: ops.Operator, ctx: ExecContext) -> None:
+    """Prepare a cached compiled operator tree for a fresh execution:
+    point every operator at the new ExecContext (snapshot ts, session
+    variables, device) and clear what an execution leaves behind that
+    the next one would read.  What a tree bakes at construction (the
+    fusion switches, the join build budget, the device, the encoding
+    policy) is the session's `_tree_vars_sig`, not reset here.
+
+    The audit, operator by operator:
+      * ScanOp: the runtime filters its joins appended (a reused tree
+        would AND the previous parameters' build-key ranges into this
+        execution's); the read-ahead thread and the device references
+        are per execution already (`_batches` closes the thread).
+      * JoinOp: a fused fragment's build-state handoff left by an
+        execution that ended in its degrade ladder before consuming it;
+        the build side and the Grace spill are per execution already.
+      * AggOp: the group-table capacity grown by the last execution,
+        its dictionary tracker and a spill an aborted execution left.
+      * UnionOp: its union-wide dictionaries (also reset at execute).
+      * fused fragments: the graphs an interrupted execution still owns
+        (released back to the fragment cache), the EXPLAIN ANALYZE stats
+        and a fallback rewire of the original chain.  Their LIMIT
+        counters, top-k and aggregate carries and `_ReplaySource` are
+        made per execution.
+      * window operators keep no state between executions."""
+    from matrixone_tpu_torch.vm import fusion
+    tree = list(iter_ops(root))
+    for op in list(tree):
+        if isinstance(op, fusion.FusedFragmentOp):
+            tree.extend(op.original_ops())
+    for op in tree:
+        if hasattr(op, "ctx"):
+            op.ctx = ctx
+        if isinstance(op, ops.ScanOp):
+            op.runtime_filters = []
+        elif isinstance(op, JoinOp):
+            op._prepared_build = None
+        elif isinstance(op, ops.AggOp):
+            op.max_groups = op.initial_max_groups
+            op.__dict__.pop("_agg_tracker", None)
+            if op._spill is not None:
+                op._spill.cleanup()
+                op._spill = None
+        elif isinstance(op, ops.UnionOp):
+            op._union_dicts = {}
+            op._union_lut = {}
+        if isinstance(op, fusion.FusedFragmentOp):
+            op.reset_execution()
+
+
 def _compile_node(node: P.PlanNode, ctx: ExecContext) -> ops.Operator:
     if isinstance(node, P.Scan):
         rel = ctx.catalog.get_table(node.table)

@@ -69,7 +69,7 @@ from matrixone_tpu_torch.sql.expr import (BoundCase, BoundCast, BoundCol,
                                           BoundLiteral, BoundUdfCall)
 from matrixone_tpu_torch.sql.parser import STDDEV_AGGS
 from matrixone_tpu_torch.utils import keys as keyaudit
-from matrixone_tpu_torch.utils import metrics as M
+from matrixone_tpu_torch.utils import metrics as M, motrace
 from matrixone_tpu_torch.vm import exprs as EX
 from matrixone_tpu_torch.vm import graphs as G
 from matrixone_tpu_torch.vm import operators as O
@@ -433,21 +433,27 @@ class FragmentCompileCache:
     @staticmethod
     def _held_bytes(entries) -> int:
         return sum(g.held_bytes for e in entries
-                   for g in e["graphs"].values())
+                   for g in G.entry_graphs(e))
 
     def note_capture(self, device) -> None:
-        """After a capture: evict the least recently used entries until
-        the bytes the cached graphs hold fit the bound.  The newest entry
-        and those whose graphs an execution still runs stay (evicting
-        them frees nothing before the execution ends, and its next batch
-        would capture again); an evicted graph's pool goes back to the
-        allocator."""
+        """After a capture: drop the spare graphs no execution owns, then
+        evict the least recently used entries, until the bytes the cached
+        graphs hold fit the bound.  The newest entry and those whose
+        graphs an execution still runs stay (evicting them frees nothing
+        before the execution ends, and its next batch would capture
+        again); an evicted graph's pool goes back to the allocator."""
         bound = self.max_held_bytes(device)
+        entries = self._lru.snapshot()
+        # first the spares concurrent executions left, which no
+        # execution now needs, then whole entries
+        M.fusion_graphs.inc(G.drop_free_spares(
+            entries, lambda: self._held_bytes(entries) > bound),
+            event="evict")
         for e in self._lru.evict_oldest_while(
                 lambda es: self._held_bytes(es) > bound,
                 pinned=lambda e: any(g.active
-                                     for g in e["graphs"].values())):
-            M.fusion_graphs.inc(len(e["graphs"]), event="evict")
+                                     for g in G.entry_graphs(e))):
+            M.fusion_graphs.inc(len(G.entry_graphs(e)), event="evict")
 
     @property
     def max_entries(self) -> int:
@@ -458,7 +464,8 @@ class FragmentCompileCache:
         if e is not None:
             M.fusion_compile.inc(outcome="hit")
             return e
-        e = self._lru.insert(key, {"fn": {}, "graphs": {}, "trace_s": 0.0})
+        e = self._lru.insert(key, {"fn": {}, "graphs": {}, "spares": {},
+                                   "trace_s": 0.0})
         M.fusion_compile.inc(outcome="miss")
         return e
 
@@ -467,7 +474,7 @@ class FragmentCompileCache:
 
     def stats(self) -> dict:
         entries = self._lru.snapshot()
-        graphs = [g for e in entries for g in e["graphs"].values()]
+        graphs = [g for e in entries for g in G.entry_graphs(e)]
         return {"entries": len(entries),
                 "graphs": len(graphs),
                 "graph_replays": sum(g.replays for g in graphs),
@@ -478,6 +485,7 @@ class FragmentCompileCache:
                 "misses": int(M.fusion_compile.get(outcome="miss")),
                 "trace_seconds": round(M.fusion_trace_seconds.get(), 4),
                 "captures": int(M.fusion_graphs.get(event="capture")),
+                "spare_graphs": int(M.fusion_graphs.get(event="spare")),
                 "replays": int(M.fusion_graphs.get(event="replay")),
                 "dispatches": int(M.fusion_dispatch.get(kind="step")),
                 "eager_dispatches": int(
@@ -845,6 +853,12 @@ class FusedFragmentOp(O.Operator):
         if self._scan_defer:
             self.covered_nodes.add(id(source.node))
         self._graphs_used: list = []
+        #: the execution that owns this fragment's graphs (vm/graphs.py)
+        self._owner = None
+        #: EXPLAIN ANALYZE surface for the last execution: mode, step
+        #: calls, milliseconds of first runs and captures, whether the
+        #: fragment cache held the key
+        self.last_stats = self._new_stats()
 
     # -------------------------------------------- subclass seam points
     def _source_schema(self):
@@ -918,23 +932,46 @@ class FusedFragmentOp(O.Operator):
         return []
 
     # ------------------------------------------------- step dispatch
-    def _run(self, entry, slot, fn, args, carry_index=None, stable=()):
-        """One step: the entry's graph on the card, the eager step on
-        the CPU.  -> (outputs, whether they came from a graph).  Under
-        MO_FUSION_PROFILE=1 the step's seconds are taken to its end on
-        the device (a sync per step: a diagnostic, not the fused path's
-        cost)."""
+    def _run(self, entry, slot, fn, args, carry_index=None, stable=(),
+             stat="dispatches"):
+        """One step: a graph of the entry on the card, owned by this
+        execution (vm/graphs.py), the eager step on the CPU.  -> (outputs,
+        whether they came from a graph).  A first run on the CPU and a
+        capture on the card are `fusion.compile` spans, every other call
+        a `fusion.dispatch` span.  Under MO_FUSION_PROFILE=1 the step's
+        seconds are taken to its end on the device (a sync per step on
+        the batch's device, after the capture has ended: a diagnostic,
+        not the fused path's cost)."""
         t0 = time.perf_counter()
-        captured = slot not in entry["graphs"]
-        out, graph = G.run_step(entry, slot, fn, args, carry_index,
-                                stable)
-        if graph is not None and captured:
-            CACHE.note_capture(graph.device)
+        graph = G.claim(entry, slot, fn, args, carry_index, stable,
+                        owner=self._owner)
         if graph is not None and graph not in self._graphs_used:
-            self._graphs_used.append(graph)
-        if os.environ.get("MO_FUSION_PROFILE") == "1":
-            if graph is not None:
-                torch.cuda.synchronize()
+            self._graphs_used.append(graph)     # released at the end
+        captured = graph is not None and graph.graph is None
+        first = captured or (graph is None
+                             and slot not in entry.setdefault("ran", set()))
+        profile = os.environ.get("MO_FUSION_PROFILE") == "1"
+        with motrace.span("fusion.compile" if first
+                          else "fusion.dispatch", slot=slot,
+                          profiled=profile):
+            if graph is None:
+                out = fn(*args)
+                entry["ran"].add(slot)
+            else:
+                out = graph(args)
+                if profile:
+                    torch.cuda.synchronize(graph.device)
+        if graph is None and first:
+            self.last_stats["trace_ms"] += (time.perf_counter() - t0) * 1e3
+        if captured:
+            entry["trace_s"] += graph.capture_s
+            M.fusion_trace_seconds.inc(graph.capture_s)
+            CACHE.note_capture(graph.device)
+            self.last_stats["trace_ms"] += graph.capture_s * 1000.0
+        if self.last_stats["cache"] == "-":
+            self.last_stats["cache"] = "miss" if first else "hit"
+        self.last_stats[stat] += 1
+        if profile:
             M.fusion_step_seconds.inc(time.perf_counter() - t0,
                                       kind="device")
         M.fusion_dispatch.inc(kind="step")
@@ -944,6 +981,32 @@ class FusedFragmentOp(O.Operator):
         for g in self._graphs_used:
             g.release()
         self._graphs_used = []
+
+    def _new_stats(self) -> dict:
+        return {"mode": "none", "dispatches": 0, "trace_ms": 0.0,
+                "cache": "-"}
+
+    def _begin_execution(self) -> None:
+        """A fresh owner token for this execution's graphs, fresh
+        EXPLAIN ANALYZE stats."""
+        self._owner = object()
+        self.last_stats = self._new_stats()
+
+    def original_ops(self) -> list:
+        """The operators the fragment replaced, which its degrade ladders
+        still run (vm/compile.retarget_tree resets them too)."""
+        out = [st.op for st in self.stages]
+        out += [op for op in (self._agg_op, self._sort_op) if op is not None]
+        return out
+
+    def reset_execution(self) -> None:
+        """Before a cached tree runs again (vm/compile.retarget_tree):
+        release the graphs an interrupted execution still owns, undo a
+        fallback rewire of the original chain, reset the stats."""
+        self._release_graphs()
+        if self._orig_bottom is not None:
+            self._orig_bottom.child = self.child
+        self.last_stats = self._new_stats()
 
     def _init_grouped_carry(self, sizes, device):
         """Full NULL-slotted accumulator, one field array per aggregate
@@ -1038,6 +1101,7 @@ class FusedFragmentOp(O.Operator):
 
     # --------------------------------------------------------- execute
     def execute(self):
+        self._begin_execution()
         if self._orig_bottom is not None:
             # undo a stale fallback rewire from a previous execution
             self._orig_bottom.child = self.child
@@ -1052,6 +1116,7 @@ class FusedFragmentOp(O.Operator):
                 # runtime filters are ge/le numeric compares by
                 # construction; if ever not, run the chain eagerly
                 M.fusion_exec.inc(mode="fallback")
+                self.last_stats["mode"] = "fallback"
                 yield from self._fallback(None, self.child.execute(), [])
                 return
             filters = list(self.child.node.filters) + rt_filters
@@ -1061,10 +1126,12 @@ class FusedFragmentOp(O.Operator):
         first = next(src_iter, None)
         if first is None:
             M.fusion_exec.inc(mode="fallback")
+            self.last_stats["mode"] = "fallback"
             yield from self._fallback(None, src_iter, filters)
             return
         if first.padded_len < min_fused_rows():
             M.fusion_exec.inc(mode="eager")
+            self.last_stats["mode"] = "eager"
             yield from self._fallback(first, src_iter, filters)
             return
         try:
@@ -1179,6 +1246,7 @@ class FusedFragmentOp(O.Operator):
     def _execute_fused(self, first, src_iter, filters, rt_filters,
                        rt_info):
         M.fusion_exec.inc(mode="fused")
+        self.last_stats["mode"] = "fused"
         node = self._agg_op.node if self._agg_op is not None else None
         grouped = self._terminal == "agg_grouped"
         nkeys = len(node.group_keys) if grouped else 0
@@ -1211,6 +1279,7 @@ class FusedFragmentOp(O.Operator):
                     # key space not dense / changed mid-stream: degrade
                     # to the general path, folding fused partials in
                     M.fusion_exec.inc(mode="degraded")
+                    self.last_stats["mode"] = "degraded"
                     yield from self._degrade_grouped(
                         self._carry_out(carry), trace_sizes, key_dicts,
                         ex, batches, scan_filters)

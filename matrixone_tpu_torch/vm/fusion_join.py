@@ -186,7 +186,14 @@ class FusedJoinProbeOp(FF.FusedFragmentOp):
         return J._maybe_compact(out)
 
     # ----------------------------------------------------- execution
+    def original_ops(self) -> list:
+        return [self._join] + super().original_ops()
+
+    def _new_stats(self) -> dict:
+        return dict(super()._new_stats(), build_dispatches=0)
+
     def execute(self):
+        self._begin_execution()
         join = self._join
         node = join.node
         build_iter = self.right.execute()
@@ -196,6 +203,7 @@ class FusedJoinProbeOp(FF.FusedFragmentOp):
             # over budget or empty build side: the original JoinOp owns
             # every one of those ladders
             M.fusion_exec.inc(mode="fallback")
+            self.last_stats["mode"] = "fallback"
             yield from self._orig_join_chain(build_batches, build_iter)
             return
         build = _concat_batches(build_batches, node.right.schema)
@@ -214,11 +222,13 @@ class FusedJoinProbeOp(FF.FusedFragmentOp):
                                     bkeys, list(self._bkey_dicts))
             if first is None:
                 M.fusion_exec.inc(mode="fallback")
+                self.last_stats["mode"] = "fallback"
                 yield from self._orig_join_chain([build], iter(()),
                                                  probe=([], iter(())))
                 return
             if first.padded_len < FF.min_fused_rows():
                 M.fusion_exec.inc(mode="eager")
+                self.last_stats["mode"] = "eager"
                 yield from self._orig_join_chain(
                     [build], iter(()), probe=([first], probe_iter))
                 return
@@ -329,7 +339,8 @@ class FusedJoinProbeOp(FF.FusedFragmentOp):
                 tuple(torch.tensor([lit.value],
                                    dtype=lit.dtype.torch_dtype)
                       for lit in lift_lits))
-        out, graphed = self._run(entry, "build", fn, args)
+        out, graphed = self._run(entry, "build", fn, args,
+                                 stat="build_dispatches")
         if graphed:
             # the build state outlives later replays of this graph (the
             # next execution of the same build key)
@@ -417,6 +428,7 @@ class FusedJoinProbeOp(FF.FusedFragmentOp):
 
     def _execute_join_fused(self, build, bstate, first, probe_iter):
         M.fusion_exec.inc(mode="fused")
+        self.last_stats["mode"] = "fused"
         sorted_hash, border, bvalid, bkeys, build_key = bstate
         node = self._agg_op.node if self._agg_op is not None else None
         grouped = self._terminal == "agg_grouped"
@@ -453,6 +465,7 @@ class FusedJoinProbeOp(FF.FusedFragmentOp):
                     trace_sizes = sizes
                 if sizes is None or sizes != trace_sizes:
                     M.fusion_exec.inc(mode="degraded")
+                    self.last_stats["mode"] = "degraded"
                     # same build-state handoff as the execute() ladders
                     self._join._prepared_build = (
                         build, sorted_hash, border, bvalid, bkeys,

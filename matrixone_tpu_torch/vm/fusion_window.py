@@ -143,15 +143,21 @@ class FusedWindowOp(FF.FusedFragmentOp):
         return ([n for n, _ in wn.schema], [d for _, d in wn.schema])
 
     # ----------------------------------------------------- execution
+    def original_ops(self) -> list:
+        return [self._window] + super().original_ops()
+
     def execute(self):
+        self._begin_execution()
         batches = list(self.child.execute())
         if not batches:
             M.fusion_exec.inc(mode="fallback")
+            self.last_stats["mode"] = "fallback"
             yield from self._orig_window_chain([])
             return
         ex = _concat_batches(batches, self._window.node.child.schema)
         if ex.padded_len < FF.min_fused_rows():
             M.fusion_exec.inc(mode="eager")
+            self.last_stats["mode"] = "eager"
             yield from self._orig_window_chain(batches)
             return
         try:

@@ -40,12 +40,26 @@ buffers inside the graph, so the carry stays on the card between
 replays.  The outputs of a graph are overwritten by its next replay: a
 caller that keeps one across the next call clones it.
 
+Concurrent executions (sessions on several threads, the same fragment
+key) never share a graph: a graph belongs to one execution from its
+first call in it to `release` at the execution's end (`owner`), and an
+execution that finds its key's graph owned by another captures a spare
+of its own (`claim`), kept in the cache entry for the next
+concurrent execution.  Captures are serialized (`_CAPTURE_LOCK`:
+`torch.cuda.graph` captures on one side stream shared by all captures)
+and run in the thread-local capture mode, so another thread's CUDA work
+meanwhile neither fails the capture nor lands in it; the launches a
+capture records are counted on the capturing thread only
+(`LAUNCHES.recording`).  Nothing falls back to eager execution on a
+conflict.
+
 Nothing here catches an error: a capture or replay that raises on the
 card is a fault of the step and propagates.
 """
 
 from __future__ import annotations
 
+import threading
 import time
 from typing import Optional, Sequence
 
@@ -55,6 +69,14 @@ from torch.utils._pytree import tree_flatten, tree_unflatten
 from matrixone_tpu_torch.container.device import ConstTape, const_tape
 from matrixone_tpu_torch.ops.cuda_kernels import LAUNCHES
 from matrixone_tpu_torch.utils import metrics as M
+
+
+#: one capture at a time (the capture side stream is shared)
+_CAPTURE_LOCK = threading.Lock()
+#: guards which execution owns which graph and the entries' graph
+#: lists (re-entrant: `drop_free_spares` holds it while its `over`
+#: reads `entry_graphs`)
+_OWN_LOCK = threading.RLock()
 
 
 def _static_copy(x, device):
@@ -87,9 +109,14 @@ class StepGraph:
         #: device bytes the graph holds: its static buffers and recorded
         #: constants, and what its capture reserved (its private pool)
         self.held_bytes = 0
-        #: called in an execution that has not ended (`release`)
-        self.active = False
+        #: the execution that runs the graph until its `release`
+        self.owner = None
         self.device = None
+
+    @property
+    def active(self) -> bool:
+        """Owned by an execution that has not ended."""
+        return self.owner is not None
 
     # --------------------------------------------------------- helpers
     def _body(self, *args):
@@ -151,7 +178,6 @@ class StepGraph:
 
     # ----------------------------------------------------------- call
     def __call__(self, args):
-        self.active = True
         flat, spec = tree_flatten(args)
         if self.graph is None:
             return self._capture(flat, spec)
@@ -168,7 +194,6 @@ class StepGraph:
         device = self.device = next(
             x.device for x in flat
             if isinstance(x, torch.Tensor) and x.is_cuda)
-        allocated = torch.cuda.memory_allocated(device)
         self._bind(flat, spec, [_static_copy(x, device) for x in flat])
         args = tree_unflatten(self._static, spec)
         carry = (args[self.carry_index] if self.carry_index is not None
@@ -182,23 +207,20 @@ class StepGraph:
         for c, v in zip(carry_flat, carry_saved):
             c.copy_(v)                 # undo the warm-up's carry update
         del carry_saved
-        # the static buffers and the recorded constants, held outside
-        # the graph's pool
-        outside = torch.cuda.memory_allocated(device) - allocated
-        before = LAUNCHES.events()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            # entering empties the allocator's cache: count from here
-            reserved = torch.cuda.memory_reserved(device)
-            with const_tape(self._tape, "replay"):
-                out = self._body(*args)
-        self.held_bytes = max(outside, 0) + max(
-            torch.cuda.memory_reserved(device) - reserved, 0)
-        after = LAUNCHES.events()
-        self.launches = {k: n - before.get(k, 0) for k, n in after.items()
-                         if n != before.get(k, 0)}
-        for (name, shape), n in self.launches.items():
-            LAUNCHES.add(name, shape, -n)      # capture launched nothing
+        with _CAPTURE_LOCK, LAUNCHES.recording() as recorded:
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                with const_tape(self._tape, "replay"):
+                    out = self._body(*args)
+        # what the graph holds: its static buffers, the recorded
+        # constants and its private pool's segments (counted by pool, so
+        # other threads' allocations meanwhile are not the graph's)
+        self.held_bytes = sum(
+            x.nbytes for x in self._static + [d for _h, d in self._tape.items]
+            if isinstance(x, torch.Tensor)) + _pool_bytes(device,
+                                                          graph.pool())
+        # the capture launched nothing: its launches count at replays
+        self.launches = {k: n for k, n in recorded.items() if n}
         self.graph = graph
         self._out = out
         M.fusion_graphs.inc(event="capture")
@@ -209,32 +231,87 @@ class StepGraph:
         return out
 
     def release(self) -> None:
-        """Drop the references to the last stable inputs (kept so an
-        unchanged one is not copied again) at the end of an execution."""
-        self.active = False
+        """End of the owning execution: the graph is free for the next,
+        and the references to the last stable inputs (kept so an
+        unchanged one is not copied again) are dropped."""
         if self._last is not None:
             self._last = [None] * len(self._last)
+        self.owner = None
 
 
-def run_step(entry: dict, slot: str, fn, args, carry_index=None,
-             stable: Sequence[int] = ()):
-    """Run one fused step: on the card through the entry's graph for
-    `slot` (captured at the first call), elsewhere eagerly, which on
-    the CPU is the fused path itself.  `stable` names the top-level
-    arguments that stay the same tensors for the whole execution.
-    -> (outputs, graph or None)."""
+def _pool_bytes(device, pool) -> int:
+    """Bytes of the card's memory segments in a graph's private pool."""
+    pool = tuple(pool)
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if seg.get("device") == device.index
+               and tuple(seg.get("segment_pool_id", ())) == pool)
+
+
+def drop_free_spares(entries, over) -> int:
+    """Drop the spare graphs no execution owns, oldest entries first,
+    while `over()` holds -> how many were dropped (their pools go back
+    to the allocator with them)."""
+    dropped = 0
+    with _OWN_LOCK:
+        for e in entries:
+            for spares in e.get("spares", {}).values():
+                for g in list(spares):
+                    if not over():
+                        return dropped
+                    if g.owner is None:
+                        spares.remove(g)
+                        dropped += 1
+    return dropped
+
+
+def entry_graphs(entry: dict) -> list:
+    """Every graph of a fragment cache entry: one per slot, and the
+    spares concurrent executions captured."""
+    with _OWN_LOCK:
+        out = list(entry["graphs"].values())
+        for spares in entry.get("spares", {}).values():
+            out.extend(spares)
+    return out
+
+
+def claim(entry: dict, slot: str, fn, args, carry_index=None,
+          stable: Sequence[int] = (), owner=None) -> Optional[StepGraph]:
+    """The graph of `slot` that `owner`'s execution runs (a new one
+    captures at its first call), or None when the step's inputs are not
+    on the card: the caller then calls the step eagerly, which on the
+    CPU is the fused path itself.  The graph is the one the execution
+    owns already, else a free one, else a new one: the slot's first
+    graph, or a spare when other executions own every graph of the slot.
+    `stable` names the top-level arguments that stay the same tensors
+    for the whole execution."""
     device = _device_of(args)
     if device is None or device.type != "cuda":
-        return fn(*args), None
-    g = entry["graphs"].get(slot)
-    if g is None:
-        g = StepGraph(fn, carry_index, stable)
-        entry["graphs"][slot] = g
-        out = g(args)
-        entry["trace_s"] += g.capture_s
-        M.fusion_trace_seconds.inc(g.capture_s)
-        return out, g
-    return g(args), g
+        return None
+    return claim_in(entry, slot, lambda: StepGraph(fn, carry_index, stable),
+                    owner)
+
+
+def claim_in(entry: dict, slot: str, new_graph, owner):
+    """The ownership rule of `claim`, `new_graph()` making a new graph."""
+    with _OWN_LOCK:
+        first = entry["graphs"].get(slot)
+        spares = entry.setdefault("spares", {}).setdefault(slot, [])
+        pool = ([first] if first is not None else []) + spares
+        for g in pool:
+            if g.owner is owner:
+                return g
+        for g in pool:
+            if g.owner is None:
+                g.owner = owner
+                return g
+        g = new_graph()
+        g.owner = owner
+        if first is None:
+            entry["graphs"][slot] = g
+        else:
+            spares.append(g)
+            M.fusion_graphs.inc(event="spare")
+        return g
 
 
 def _device_of(args) -> Optional[torch.device]:

@@ -68,7 +68,7 @@ from matrixone_tpu_torch.ops import filter as F, hash as H
 from matrixone_tpu_torch.ops import kernels as HK
 from matrixone_tpu_torch.sql import plan as P
 from matrixone_tpu_torch.sql.expr import BoundCol, BoundFunc, BoundLiteral
-from matrixone_tpu_torch.utils import metrics as M
+from matrixone_tpu_torch.utils import metrics as M, motrace
 from matrixone_tpu_torch.vm import operators as O
 from matrixone_tpu_torch.vm.exprs import EvalError, ExecBatch, eval_expr
 from matrixone_tpu_torch.vm.operators import (Operator, _broadcast_full,
@@ -368,7 +368,8 @@ def stream_build_side(build_iter, budget: int):
     (batches, overflowed).  The padded lane count bounds live rows from
     above, so a build fitting the budget never syncs; past the bound the
     per-batch mask sums are stacked on the device and drained in one
-    reduction only when the un-synced upper bound could cross."""
+    reduction only when the un-synced upper bound could cross.  Each
+    drain is a `join.build.livesync` span."""
     batches: List[ExecBatch] = []
     pending = []
     padded_pending = 0
@@ -380,7 +381,8 @@ def stream_build_side(build_iter, budget: int):
         padded_pending += int(ex.padded_len)
         if live + padded_pending <= budget:
             continue
-        live += int(torch.stack(pending).sum())
+        with motrace.span("join.build.livesync", pending=len(pending)):
+            live += int(torch.stack(pending).sum())
         pending = []
         padded_pending = 0
         if live > budget:

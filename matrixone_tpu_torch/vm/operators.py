@@ -58,6 +58,7 @@ from matrixone_tpu_torch.sql import plan as P
 from matrixone_tpu_torch.sql.expr import AggCall, BoundExpr, BoundLiteral
 from matrixone_tpu_torch.sql.parser import BIT_AGGS, STDDEV_AGGS
 from matrixone_tpu_torch.utils import metrics
+from matrixone_tpu_torch.utils.fault import INJECTOR
 from matrixone_tpu_torch.vm.exprs import (EvalError, ExecBatch, _dict_of,
                                           eval_expr, lut_gather)
 
@@ -212,6 +213,7 @@ class ScanOp(Operator):
         still prune chunks by zonemap, but are not evaluated as an early
         row mask: a fused fragment (vm/fusion.py) evaluates them in its
         step instead."""
+        INJECTOR.trigger("scan.before")
         read_args = self.ctx.table_read_args(self.node.table)
         if self.node.as_of_ts is not None:
             # time travel: a historical read, independent of the txn view
@@ -235,6 +237,7 @@ class ScanOp(Operator):
         from matrixone_tpu_torch.storage.engine import resolve_chunk
         try:
             for arrays, validity, dicts, n in chunks:
+                metrics.rows_scanned.inc(n, table=self.node.table)
                 arrays, validity = resolve_chunk(arrays, validity, device)
                 ex = chunk_to_execbatch(arrays, validity, dicts, n,
                                         self.node.columns,
@@ -492,7 +495,7 @@ class AggOp(Operator):
         self.child = child
         self.ctx = ctx
         self.schema = node.schema
-        self.max_groups = max_groups
+        self.max_groups = self.initial_max_groups = max_groups
         self.max_device_groups = max(max_groups, max_device_groups)
         self.spill_partitions = spill_partitions
         self.use_pallas = use_pallas

@@ -885,6 +885,7 @@ def test_spilled_group_by_on_the_card_equals_the_unspilled(cuda,
     integer sums, float sums within rtol 1e-4 / atol 1e-3 of the
     unspilled run; the segment sum launches in the partitions."""
     from matrixone_tpu_torch.frontend import Session
+    from matrixone_tpu_torch.serving import serving_for
     from matrixone_tpu_torch.utils import metrics as M
     from matrixone_tpu_torch.vm import operators as O
     from torch_scripts import insert_sql
@@ -905,6 +906,9 @@ def test_spilled_group_by_on_the_card_equals_the_unspilled(cuda,
                   spill_partitions=8)
         orig(self, node, child, **kw)
     monkeypatch.setattr(O.AggOp, "__init__", tiny)
+    # a cached tree holds the AggOps built before the patch
+    monkeypatch.setattr(serving_for(card.catalog).plan_cache, "enabled",
+                        False)
     a0 = M.agg_spills.get()
     CK.LAUNCHES.reset()
     got = card.execute(sql).rows()
@@ -1479,3 +1483,274 @@ def test_drop_path_after_a_merge_leaves_no_stale_tensor(cache_env,
                   host.execute(OBJ_SQL).rows())
     assert card.execute("select count(*) from big where id < 100"
                         ).rows() == [(50,)]
+
+
+# ---------------------------------------------- serving on the card
+
+
+def _q3_engine(n=60_000):
+    """TPC-H Q3's tables at sf 0.01 (lineitem 60000 rows) in an
+    in-memory engine."""
+    from matrixone_tpu_torch.storage.engine import Engine
+    from matrixone_tpu_torch.utils import tpch
+    eng = Engine()
+    tpch.load_lineitem(eng, n, seed=3)
+    tpch.load_tpch_q3(eng, n // 4, seed=3)
+    return eng
+
+
+def test_tree_reuse_of_fused_q3_equals_a_fresh_compile(fused_everywhere):
+    """Fused Q3 over 4 probe batches, 3 segment values, through the plan
+    cache's reused tree: each run equals a fresh compile (plan cache
+    off) on the card and the CPU session; a second round reuses the
+    tree and replays the probe graphs without capturing."""
+    from matrixone_tpu_torch.frontend import Session
+    from matrixone_tpu_torch.serving import serving_for
+    from matrixone_tpu_torch.utils import metrics as M
+    from matrixone_tpu_torch.utils import tpch
+    sql = tpch.Q3_SQL.replace("'BUILDING'", "?")
+    values = ["MACHINERY", "AUTOMOBILE", "BUILDING"]
+    eng = _q3_engine()
+    card = Session(catalog=eng)
+    host = Session(catalog=eng, device="cpu")
+    for s in (card, host):
+        s.execute("set batch_rows = 16384")
+    want = [host.execute(sql, [v]).rows() for v in values]
+    card.execute(sql, ["HOUSEHOLD"])        # notes the template
+    got = [card.execute(sql, [v]).rows() for v in values]
+    t0 = M.plan_cache_ops.get(outcome="tree_hit")
+    c0 = M.fusion_graphs.get(event="capture")
+    r0 = M.fusion_graphs.get(event="replay")
+    again = [card.execute(sql, [v]).rows() for v in values]
+    assert M.plan_cache_ops.get(outcome="tree_hit") - t0 == 3
+    assert M.fusion_graphs.get(event="capture") == c0
+    assert M.fusion_graphs.get(event="replay") - r0 >= 3 * 4
+    sv = serving_for(eng)
+    sv.plan_cache.enabled = False
+    try:
+        fresh = [card.execute(sql, [v]).rows() for v in values]
+    finally:
+        sv.plan_cache.enabled = True
+    for g, a, f, w in zip(got, again, fresh, want):
+        assert g == a == f
+        assert _close(g, w)
+    assert len({str(g) for g in got}) == 3
+
+
+def test_concurrent_fused_statements_equal_the_serial_rows(
+        fused_everywhere):
+    """Four threads, each its own session on one engine, run the same
+    fused statements with their own parameters 20 times: every result
+    equals the serial run's, no capture fails and nothing runs eagerly
+    (a thread that finds its key's graph owned captures a spare)."""
+    import threading
+    from matrixone_tpu_torch.frontend import Session
+    from matrixone_tpu_torch.utils import metrics as M
+    card = Session()
+    for st in _fusion_tables():
+        card.execute(st)
+    sqls = ["select g, count(*) c, sum(q) sq, avg(q) aq from ft"
+            " where k > ? group by g order by g",
+            "select fd.name, sum(ft.q) s, count(*) n from ft join fd"
+            " on ft.k = fd.k where ft.x > ? group by fd.name"
+            " order by fd.name",
+            "select id from ft where k > ? limit 20"]
+    params = [[3], [17], [29], [41]]
+    serial = {(i, t): card.execute(q, p).rows()
+              for i, q in enumerate(sqls) for t, p in enumerate(params)}
+    e0 = M.fusion_exec.get(mode="eager")
+    d0 = M.fusion_dispatch.get(kind="eager")
+    errors, mismatches = [], []
+
+    def worker(t):
+        s = Session(catalog=card.catalog)
+        s.execute("set batch_rows = 1024")
+        try:
+            for _ in range(20):
+                for i, q in enumerate(sqls):
+                    got = s.execute(q, params[t]).rows()
+                    if got != serial[(i, t)]:
+                        mismatches.append((t, i))
+        except Exception as e:      # noqa: BLE001 — asserted below
+            errors.append(repr(e))
+        finally:
+            s.close()
+    threads = [threading.Thread(target=worker, args=(t,))
+               for t in range(4)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(300)
+    assert not errors, errors[:3]
+    assert not mismatches, mismatches[:5]
+    assert M.fusion_exec.get(mode="eager") == e0
+    assert M.fusion_dispatch.get(kind="eager") == d0
+
+
+def test_result_cache_hit_is_host_and_survives_replays(fused_everywhere):
+    """A result-cache hit returns the host columns of the first run;
+    later executions of the same fused graph with other parameters
+    (which rewrite the graph's outputs) leave them unchanged."""
+    from matrixone_tpu_torch.frontend import Session
+    card = Session()
+    for st in _fusion_tables():
+        card.execute(st)
+    card.execute("select mo_ctl('serving','result:on')")
+    sql = "select id, x * 2 y from ft where k > ? and g = 'aa' order by id"
+    first = card.execute(sql, [5])
+    rows = first.rows()
+    for col in first.batch.columns.values():
+        assert isinstance(col.data, np.ndarray)
+    for lo in (10, 20, 30, 40):
+        card.execute(sql, [lo])
+    hit = card.execute(sql, [5])
+    assert hit.batch is first.batch
+    assert hit.rows() == rows == first.rows()
+    card.execute("select mo_ctl('serving','result:off')")
+
+
+def test_object_read_fault_in_the_read_ahead_raises_cleanly(
+        cache_env, tmp_path, monkeypatch):
+    """An `object.read` fault hit by the read-ahead thread of a cold
+    fused scan reaches the query as its error; the next query answers
+    with the CPU session's rows and no read-ahead thread is left."""
+    import threading
+    from matrixone_tpu_torch.frontend import Session
+    from matrixone_tpu_torch.storage import blockcache
+    from matrixone_tpu_torch.utils.fault import INJECTOR
+    monkeypatch.setenv("MO_FUSION_MIN_ROWS", "0")
+    monkeypatch.setenv("MO_SCAN_PREFETCH", "2")
+    eng = _object_backed(tmp_path)
+    host = Session(catalog=eng, device="cpu")
+    card = Session(catalog=eng)
+    for s in (host, card):
+        s.execute("set batch_rows = 8192")
+    want = host.execute(OBJ_SQL).rows()
+    card.plan(OBJ_SQL)
+    blockcache.CACHE.clear()
+    INJECTOR.add("object.read", "return", "fail", every=4)
+    try:
+        with pytest.raises(IOError, match="object.read"):
+            card.execute(OBJ_SQL)
+    finally:
+        INJECTOR.clear()
+    assert not any(t.name == "mo-scan-prefetch" and t.is_alive()
+                   for t in threading.enumerate())
+    assert _close(card.execute(OBJ_SQL).rows(), want)
+    assert _close(card.execute(OBJ_SQL).rows(), want)
+
+
+def test_tree_reuse_rekeys_baked_string_parameters(fused_everywhere):
+    """A string parameter the fused step bakes (the scan's deferred
+    `g = ?`) re-keys the fragment through a reused tree: each value over
+    five batches gives the CPU session's rows, a value seen before
+    replays its own graph, and a second round captures nothing.  An IN
+    list of parameters is uncacheable, as in the reference (the binder
+    folds its values), and runs right all the same."""
+    from matrixone_tpu_torch.frontend import Session
+    from matrixone_tpu_torch.utils import metrics as M
+    card, host = Session(), Session(device="cpu")
+    for st in _fusion_tables():
+        card.execute(st)
+        host.execute(st)
+    cases = [("select count(*), sum(q) s, max(k) from ft where g = ?"
+              " and k > 3", [["aa"], ["bb"], ["cc"], ["dd"]], True),
+             ("select g, count(*) c, sum(x) sx from ft where g in (?, ?)"
+              " group by g order by g",
+              [["aa", "bb"], ["cc", "dd"], ["bb", "cc"]], False)]
+    for sql, vals, cacheable in cases:
+        # the CPU session's runs count in the same process-wide counters:
+        # take its rows first
+        want = [host.execute(sql, v).rows() for v in vals]
+        card.execute(sql, vals[-1])           # notes the template
+        t0 = M.plan_cache_ops.get(outcome="tree_hit")
+        for v, w in zip(vals, want):
+            assert _close(card.execute(sql, v).rows(), w), (sql, v)
+        assert M.plan_cache_ops.get(outcome="tree_hit") - t0 == \
+            (len(vals) - 1 if cacheable else 0)
+        c0 = M.fusion_graphs.get(event="capture")
+        r0 = M.fusion_graphs.get(event="replay")
+        for v, w in zip(vals, want):
+            assert _close(card.execute(sql, v).rows(), w), (sql, v)
+        assert M.fusion_graphs.get(event="capture") == c0
+        assert M.fusion_graphs.get(event="replay") - r0 >= 5 * len(vals)
+
+
+#: (SQL with `?` parameters, the warm-up's values, three runs' values):
+#: tests/test_torch_serving.py's tree-reuse cases, on the card
+TPCH_PARAM_CARD = {
+    "q1": ("Q1_SQL", ("where l_shipdate", "where l_quantity >= ? and"
+                      " l_shipdate"), [1], [[3], [10], [25]]),
+    "q3": ("Q3_SQL", ("'BUILDING'", "?"), ["BUILDING"],
+           [["MACHINERY"], ["AUTOMOBILE"], ["BUILDING"]]),
+    "q6": ("Q6_SQL", ("0.05 and 0.07", "? and ?"), [0.05, 0.07],
+           [[0.02, 0.04], [0.06, 0.08], [0.01, 0.09]]),
+    "group_by": (None, None, [0], [[100], [7000], [31000]]),
+}
+
+
+@pytest.fixture(scope="module")
+def tpch_card_engine():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    from matrixone_tpu_torch.container import dtypes as dt
+    from matrixone_tpu_torch.storage.engine import TableMeta
+    eng = _q3_engine()
+    rng = np.random.default_rng(5)
+    ids = np.arange(60_000, dtype=np.int64)
+    eng.create_table(TableMeta("v", [("id", dt.INT64), ("grp", dt.INT64),
+                                     ("xi", dt.FLOAT32), ("xn", dt.FLOAT32)],
+                               ["id"]))
+    eng.get_table("v").insert_numpy(
+        {"id": ids, "grp": ids % 1000,
+         "xi": rng.integers(0, 16, 60_000).astype(np.float32),
+         "xn": rng.standard_normal(60_000).astype(np.float32)})
+    return eng
+
+
+@pytest.mark.parametrize("path", ["fused", "per_operator"])
+@pytest.mark.parametrize("query", sorted(TPCH_PARAM_CARD))
+def test_tree_reuse_on_the_card_equals_a_fresh_compile(
+        tpch_card_engine, monkeypatch, query, path):
+    """Q1, Q3, Q6 and 5c's GROUP BY at sf 0.01 through the plan cache's
+    reused tree on the card, 16384-row batches (4+ of lineitem), three
+    parameter values: each equals a fresh compile on the card (plan
+    cache off) and the CPU session; the three runs take the tree
+    twice."""
+    from matrixone_tpu_torch.frontend import Session
+    from matrixone_tpu_torch.serving import serving_for
+    from matrixone_tpu_torch.utils import metrics as M
+    from matrixone_tpu_torch.utils import tpch
+    monkeypatch.setenv("MO_FUSION_MIN_ROWS", "0")
+    name, swap, warm, runs = TPCH_PARAM_CARD[query]
+    if name is None:
+        sql = ("select grp, sum(xi), sum(xn) from v where id >= ?"
+               " group by grp order by grp")
+    else:
+        sql = getattr(tpch, name).replace(*swap)
+        if query == "q6":
+            sql = sql.replace("< 24", "< ?")
+            warm = warm + [24]
+            runs = [r + [q] for r, q in zip(runs, (30, 12, 40))]
+    eng = tpch_card_engine
+    sv = serving_for(eng)
+    sv.plan_cache.clear()
+    host = Session(catalog=eng, device="cpu")
+    card = Session(catalog=eng)
+    for s in (host, card):
+        s.execute("set batch_rows = 16384")
+        s.variables["plan_fusion"] = 1 if path == "fused" else 0
+    sv.plan_cache.enabled = False
+    try:
+        want = [host.execute(sql, p).rows() for p in runs]
+        fresh = [card.execute(sql, p).rows() for p in runs]
+    finally:
+        sv.plan_cache.enabled = True
+    card.execute(sql, warm)
+    t0 = M.plan_cache_ops.get(outcome="tree_hit")
+    got = [card.execute(sql, p).rows() for p in runs]
+    assert M.plan_cache_ops.get(outcome="tree_hit") - t0 == 2
+    assert got == fresh
+    for g, w in zip(got, want):
+        assert _close(g, w), (g[:3], w[:3])
+    assert len({str(g) for g in got}) == 3

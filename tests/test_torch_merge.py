@@ -1,13 +1,13 @@
 """Merges, their snapshot fences, fence GC and the merge scheduler, on
 the CPU, held to the JAX package's.
 
-The scenarios of tests/test_merge_sched.py that need no fault hooks, CDC
-or materialized views (none is ported): AS OF a snapshot is the same
-before a merge, after it and after a restart that reloads the fence;
-the swap window (the merge held just before its swap by patching
-`Engine._merge_write_object` in both packages, where the reference's
-test parks it with a fault hook); GC holding a fence and its objects
-for a named snapshot and for a registered watermark; the scheduler's
+The scenarios of tests/test_merge_sched.py that need no CDC or
+materialized views (neither is ported; the fault-hook ones are in
+test_torch_ops_surface.py): AS OF a snapshot is the same before a
+merge, after it and after a restart that reloads the fence; the swap
+window (the merge parked just before its swap by a `merge.swap` wait
+fault, as the reference's test parks it); GC holding a fence and its
+objects for a named snapshot and for a registered watermark; the scheduler's
 candidates and its thread's lifecycle.  Also the merge's refusals (-1,
 -2 with a transaction open, -3 when a commit deleted a captured row
 during the rewrite), a partitioned table's merge, and a scheduler cycle
@@ -20,6 +20,8 @@ import time
 
 import pytest
 
+from matrixone_tpu.utils import fault as jfault
+from matrixone_tpu_torch.utils import fault as tfault
 from matrixone_tpu_torch.utils import metrics as TM
 from torch_storage_pkgs import packages, run_both, storage_env  # noqa: F401
 
@@ -57,11 +59,13 @@ def test_as_of_reads_bit_identical_across_merge_and_restart(tmp_path):
     run_both(scenario, tmp_path)
 
 
-def test_as_of_read_during_merge_swap_window(tmp_path, monkeypatch):
-    """A reader racing the merge sees either side consistently: held
-    between its rewrite and its swap, current and AS OF reads return
-    the pre-swap rows; after the swap, the same."""
+def test_as_of_read_during_merge_swap_window(tmp_path):
+    """A reader racing the merge sees either side consistently: with the
+    merge parked right before its swap (a `merge.swap` wait fault, in
+    both packages), current and AS OF reads return the pre-swap rows;
+    after the release, the same."""
     def scenario(pkg):
+        injector = (jfault if pkg.name == "jax" else tfault).INJECTOR
         eng = pkg.Engine()
         s = pkg.session(eng)
         s.execute("create table t (id bigint)")
@@ -69,29 +73,27 @@ def test_as_of_read_during_merge_swap_window(tmp_path, monkeypatch):
         s.execute("insert into t values (2)")
         s.execute("create snapshot pin")
         s.execute("insert into t values (3)")
-        reached, release = threading.Event(), threading.Event()
-        real = pkg.Engine._merge_write_object
-
-        def held(self, name, arrays, validity):
-            out = real(self, name, arrays, validity)
-            reached.set()
-            assert release.wait(10)
-            return out
-        monkeypatch.setattr(pkg.Engine, "_merge_write_object", held)
-        res = []
-        th = threading.Thread(target=lambda: res.append(
-            eng.merge_table("t", min_segments=1, checkpoint=False)))
-        th.start()
-        assert reached.wait(10), "merge never reached its swap"
-        assert pkg.rows(s, "select id from t order by id") == \
-            [(1,), (2,), (3,)]
-        assert pkg.rows(s, "select id from t as of snapshot 'pin' "
-                           "order by id") == [(1,), (2,)]
-        assert not eng.get_table("t").fences
-        release.set()
-        th.join(timeout=10)
-        monkeypatch.setattr(pkg.Engine, "_merge_write_object", real)
-        assert res == [3]
+        injector.add("merge.swap", "wait", "10", times=1)
+        try:
+            res = []
+            th = threading.Thread(target=lambda: res.append(
+                eng.merge_table("t", min_segments=1, checkpoint=False)))
+            th.start()
+            deadline = time.monotonic() + 5
+            while injector.status().get("merge.swap", (0, 0, 0))[2] == 0:
+                assert time.monotonic() < deadline, \
+                    "merge never reached its swap"
+                time.sleep(0.005)
+            assert pkg.rows(s, "select id from t order by id") == \
+                [(1,), (2,), (3,)]
+            assert pkg.rows(s, "select id from t as of snapshot 'pin' "
+                               "order by id") == [(1,), (2,)]
+            assert not eng.get_table("t").fences
+            injector.notify("merge.swap")
+            th.join(timeout=10)
+            assert res == [3]
+        finally:
+            injector.clear()
         assert len(eng.get_table("t").segments) == 1
         assert pkg.rows(s, "select id from t order by id") == \
             [(1,), (2,), (3,)]
@@ -364,12 +366,17 @@ def test_scheduler_thread_lifecycle_pause_and_status(tmp_path, monkeypatch):
 
 def test_mo_ctl_is_not_ported(tmp_path):
     """The reference operates the scheduler through `mo_ctl('merge',
-    ...)`; the port says it has none yet, and runs the cycle through
-    `scheduler_for(engine).run_cycle()`."""
+    ...)`; so does the port since its operations surface was ported:
+    `mo_ctl('merge', 'status')` answers the status of the engine's one
+    scheduler (`scheduler_for`), whose cycle also runs directly."""
+    import json
     pkg = packages(tmp_path)[1]
     s = pkg.session()
-    with pytest.raises(NotImplementedError, match="mo_ctl"):
-        s.execute("select mo_ctl('merge', 'status')")
     sched = pkg.merge_sched.scheduler_for(s.catalog)
+    st = json.loads(s.execute("select mo_ctl('merge', 'status')")
+                    .rows()[0][0])
+    assert st["cycles"] == sched.cycles == 0 and st["running"] is False
     assert sched is pkg.merge_sched.scheduler_for(s.catalog)
     assert sched.run_cycle()["merged"] == []
+    assert json.loads(s.execute("select mo_ctl('merge', 'status')")
+                      .rows()[0][0])["cycles"] == 1

@@ -313,8 +313,29 @@ def test_explain_equals_reference():
 def test_statements_not_ported_raise(sql):
     s = TSession(device="cpu")
     s.execute("create table t (id bigint)")
+    if sql in NOW_PORTED:
+        # ported since (SET fault_point, EXPLAIN ANALYZE): the port gives
+        # the reference's outcome (the malformed fault spec raises the
+        # reference's BindError; EXPLAIN ANALYZE returns its text)
+        j = JSession()
+        j.execute("create table t (id bigint)")
+        assert _outcome(s, sql) == _outcome(j, sql) == NOW_PORTED[sql]
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         s.execute(sql)
+
+
+#: statements of the list above that the port runs now, and the outcome
+#: both packages give
+NOW_PORTED = {"set fault_point = 'commit.before:fail'": ("err", "BindError"),
+              "explain analyze select id from t": ("ok", True)}
+
+
+def _outcome(sess, sql):
+    try:
+        return "ok", sess.execute(sql).text is not None
+    except Exception as e:   # noqa: BLE001 — the class is compared
+        return "err", type(e).__name__
 
 
 # ------------------------------------------------ pessimistic transactions
