@@ -241,6 +241,35 @@ Phases, each of which raises on failure:
        eagerly;
     e. EXPLAIN ANALYZE of Q3; an `object.read` fault on a cold scan
        raises, and the next Q1 is exact.
+13. vector search through SQL, last, in an engine of its own, at
+    bench.py's configuration: 1M x 768 rows of the clustered recipe
+    (`datagen.make_clustered`, `--seed`) loaded with `insert_numpy`,
+    `lists = 1024`, `ivf_nprobe` 8, `limit 20`, 64 queries:
+    a. `create index ... using ivfflat` (seconds, the index's bytes in
+       the `IndexCache`); the plan holds VectorTopK and no Scan; a
+       counted pass and a timed pass of the 64 statements (the busy
+       share from a trace of 8 more): each query's VectorTopK candidates (20 x the
+       planner's overfetch of 3) equal to the exact top over its 8
+       probed lists scored in f64 from what the index stores
+       (`probed_truth_stored`; rows within the L2 kernel's error bound
+       of the cut may swap), and its rows equal, ids and distances, to
+       an f64 re-rank of its candidates, in both passes; recall@20
+       against the exact scan of the same session (a transaction: the
+       planner skips the index); three warm runs capture no graph;
+    b. upkeep: 100 rows inserted near a centre are served from the
+       delta of the same index (the L2 kernel scores them), deleted
+       they are gone, an insert past `RECLUSTER_FRACTION` reclusters,
+       `fold_delta` folds a second delta in, and an index evicted under
+       a small `IndexCache` budget frees its card memory and is rebuilt
+       by the next query;
+    c. `using ivfpq` (96 subspaces, `pick_subspaces`) on a second table
+       of the same rows: candidates (x 3 again) equal to
+       `pq_probed_truth`'s over the probed lists, rows as in a; recall
+       before and after the overfetch's exact re-rank, recorded without
+       a gate;
+    d. the L2 kernel and the ADC kernel's list form against their plain
+       versions at every shape 13a-13c launched them with, on the
+       paths' own inputs, timed at each.
 
 The second-to-last line of output is the kernels' JSON record and the
 last is {"ok": true, "device": {...}}.  Without CUDA, or outside a
@@ -732,47 +761,60 @@ def probed_truth(idx, data_np: np.ndarray, q_np: np.ndarray, k: int,
 
 
 def probed_truth_stored(torch, idx, q_np: np.ndarray, k: int,
-                        nprobe: int) -> np.ndarray:
+                        nprobe: int, with_scores: bool = False):
     """Exact top-k among the rows of each query's nprobe nearest lists,
     scored in float64 from what the index stores, with the search's own
     formula: ||c-q||^2 + ||r||^2 + 2 r.c - 2 r.q, r the stored bf16
     residual and q rounded to bf16 as the search's compute dtype rounds
-    it, both widened.  The score stage may lose none of these."""
+    it, both widened.  The score stage may lose none of these.  With
+    `with_scores`: also, per query, every probed row's id and score."""
     ids = idx.ids.cpu().numpy().astype(np.int64)
     rn = idx.r_norm2.cpu().double().numpy()
     rc = idx.r_dot_c.cpu().double().numpy()
     qb = torch.from_numpy(q_np).to(torch.bfloat16).double().numpy()
     out = np.empty((len(q_np), k), np.int64)
+    scored = []
     for i, q in enumerate(q_np.astype(np.float64)):
         cd, pos, owner = probed_rows(idx, q, nprobe)
+        # the search rounds r to its compute dtype (a no-op on bf16
+        # storage, the rounding the score makes of f32 storage); r.q in
+        # f64 where r lies, so the rows never cross to the host
         r = idx.vectors[torch.from_numpy(pos).to(idx.device)]
-        r = r.double().cpu().numpy()
-        score = cd[owner] + rn[pos] + 2.0 * rc[pos] - 2.0 * (r @ qb[i])
+        r = r.to(torch.bfloat16).double()
+        rq = (r @ torch.from_numpy(qb[i]).to(r.device)).cpu().numpy()
+        score = cd[owner] + rn[pos] + 2.0 * rc[pos] - 2.0 * rq
         out[i] = ids[pos[np.argsort(score, kind="stable")[:k]]]
-    return out
+        scored.append((ids[pos], score))
+    return (out, scored) if with_scores else out
 
 
 def pq_probed_truth(torch, idx, q_np: np.ndarray, k: int,
-                    nprobe: int) -> np.ndarray:
+                    nprobe: int, compute_dtype="bfloat16",
+                    with_scores: bool = False):
     """Exact top-k ADC score among the rows of each query's nprobe
     nearest lists, in float64 on the host: the query residual and the
-    codebooks rounded to bf16 as the search rounds them for the LUT
-    product, both widened; ||q_r||^2 and ||codebook||^2 from f32, as
-    the search takes them.  This checks the port's LUT, gather, ADC and
-    top-k, not PQ's quantisation."""
+    codebooks rounded to the search's compute dtype (bf16, or None: f32)
+    as the search rounds them for the LUT product, both widened;
+    ||q_r||^2 and ||codebook||^2 from f32, as the search takes them.
+    This checks the port's LUT, gather, ADC and top-k, not PQ's
+    quantisation.  With `with_scores`: a list of (top-k row positions,
+    every probed row position, their scores) per query."""
+    cdt = (getattr(torch, compute_dtype) if compute_dtype
+           else torch.float32)
     cents32 = idx.centroids.cpu().numpy()
     ids = idx.ids.cpu().numpy().astype(np.int64)
     codes = idx.codes.cpu().numpy().astype(np.int64)          # [n, M]
     cb32 = idx.codebooks.cpu()                                # [M, 256, ds]
-    cbb = cb32.to(torch.bfloat16).double().numpy()
+    cbb = cb32.to(cdt).double().numpy()
     cb2 = (cb32.double().numpy() ** 2).sum(-1)                # [M, 256]
     m_sub, _, ds = cbb.shape
     out = np.empty((len(q_np), k), np.int64)
+    scored = []
     for i, q in enumerate(q_np):
         cd, pos, owner = probed_rows(idx, q.astype(np.float64), nprobe)
         lists = np.unique(owner)
         qr = (q[None, :] - cents32[lists]).reshape(len(lists), m_sub, ds)
-        qrb = torch.from_numpy(qr).to(torch.bfloat16).double().numpy()
+        qrb = torch.from_numpy(qr).to(cdt).double().numpy()
         qr2 = (qr.astype(np.float64) ** 2).sum(-1)            # [L, M]
         lut = (qr2[:, :, None] + cb2[None]
                - 2.0 * np.einsum("lmd,mjd->lmj", qrb, cbb))   # [L, M, 256]
@@ -780,7 +822,8 @@ def pq_probed_truth(torch, idx, q_np: np.ndarray, k: int,
         score = lut[li[:, None], np.arange(m_sub)[None, :],
                     codes[pos]].sum(1)
         out[i] = ids[pos[np.argsort(score, kind="stable")[:k]]]
-    return out
+        scored.append((ids[pos], score))
+    return (out, scored) if with_scores else out
 
 
 def profile_run(torch, fn, label: str, top: int = 8) -> dict:
@@ -4368,6 +4411,497 @@ def phase_serving(torch, CK, eng, lineitem, q3data, v, seed: int) -> tuple:
     return report, search_rows, segsum_rows
 
 
+# ---------------------------------------------------------------- phase 13
+#: 13a/13c's queries a pass, and how many of them the exact scan (the
+#: same session's plan without the index, about 0.5 s a statement at
+#: 1M x 768) answers for recall: cut to half to keep phase 13 near 150 s
+VSQL_QUERIES = 64
+VSQL_EXACT_QUERIES = 32
+VSQL_LISTS = 1024
+#: sql/optimize.apply_indices' overfetch (x 3 again for IVF-PQ)
+VSQL_OVERFETCH = 3
+VSQL_DELTA_ROWS = 100
+
+
+def vec_literal(v) -> str:
+    """A vector literal whose text parses back to the same f32 values."""
+    return "[" + ",".join(repr(float(x)) for x in v) + "]"
+
+
+def knn_sql(table: str, q) -> str:
+    return (f"select id, l2_distance(emb, '{vec_literal(q)}') d "
+            f"from {table} order by d limit {K}")
+
+
+def load_items(session, name: str, data_np: np.ndarray,
+               first_id: int = 0) -> float:
+    """Create `name` (id bigint primary key, emb vecf32(d)) if needed and
+    load `data_np` through `insert_numpy`, ids from `first_id` -> the
+    load's seconds."""
+    if name not in session.catalog.tables:
+        session.execute(f"create table {name} (id bigint primary key, "
+                        f"emb vecf32({data_np.shape[1]}))")
+    t0 = time.perf_counter()
+    session.catalog.get_table(name).insert_numpy(
+        {"id": np.arange(first_id, first_id + len(data_np),
+                         dtype=np.int64), "emb": data_np})
+    return time.perf_counter() - t0
+
+
+class VectorTopKSpy:
+    """Records the candidate ids each VectorTopK source of the path
+    yields, in the search's order, without changing its batches."""
+
+    def __init__(self, session):
+        self.session = session
+        self.ids = []
+
+    def __enter__(self):
+        from matrixone_tpu_torch.vm import vector_scan as VS
+        self._vs, self._real = VS, VS.VectorTopKOp.execute
+        spy, real = self, self._real
+
+        def execute(op):
+            for ex in real(op):
+                b = spy.session._to_host(ex, op.node.schema)
+                spy.ids.append(np.asarray(
+                    b.columns[f"{op.node.table}.id"].to_pylist(), np.int64))
+                yield ex
+        VS.VectorTopKOp.execute = execute
+        return self
+
+    def __exit__(self, *exc):
+        self._vs.VectorTopKOp.execute = self._real
+        return False
+
+
+class VectorInputs:
+    """Records, for one run of a path, the inputs it hands the L2 kernel
+    and the ADC kernel's list form: one capture per launch shape, keyed
+    as `LAUNCHES` keys them.  It wraps the two seam functions and calls
+    the real ones, so the path's launches are unchanged."""
+
+    def __init__(self, torch, TK):
+        self.torch, self.TK = torch, TK
+        self.l2, self.adc = {}, {}
+
+    def __enter__(self):
+        torch, TK = self.torch, self.TK
+        self._real = (TK.l2_distance_sq_exact, TK.adc_score_lists)
+        real_l2, real_adc = self._real
+
+        def l2(x, q):
+            key = (x.shape[0], q.shape[0], x.shape[1])
+            if key not in self.l2:
+                self.l2[key] = (x.float().contiguous().clone(),
+                                q.float().contiguous().clone())
+            return real_l2(x, q)
+
+        def adc(codes, starts, ends, lut, pad):
+            key = (lut.shape[0], int(pad), codes.shape[1])
+            if key not in self.adc:
+                self.adc[key] = (codes,
+                                 starts.to(torch.int32).contiguous().clone(),
+                                 ends.to(torch.int32).contiguous().clone(),
+                                 lut.float().contiguous().clone())
+            return real_adc(codes, starts, ends, lut, pad)
+
+        TK.l2_distance_sq_exact, TK.adc_score_lists = l2, adc
+        return self
+
+    def __exit__(self, *exc):
+        self.TK.l2_distance_sq_exact, self.TK.adc_score_lists = self._real
+        return False
+
+
+def same_candidates(label: str, got: np.ndarray, scored, k: int,
+                    q2: float) -> int:
+    """The VectorTopK's candidates against the f64 oracle's top-k over
+    the same probed lists (`scored`: every probed row's id and score):
+    the same ids, but for rows whose oracle score lies within the L2
+    kernel's error bound, 1e-5 (||q||^2 + s_k) + 1e-4, of the k-th score
+    s_k (a tie the search's f32 arithmetic may break either way) -> the
+    number of such swaps."""
+    ids, score = scored
+    k = min(k, len(ids))
+    order = np.argsort(score, kind="stable")
+    kth = score[order[k - 1]]
+    tol = 1e-5 * (q2 + abs(kth)) + 1e-4
+    want = set(ids[order[:k]].tolist())
+    have = set(got.tolist())
+    by_id = dict(zip(ids.tolist(), score.tolist()))
+    diff = want ^ have
+    if len(got) != k or any(abs(by_id.get(i, INF) - kth) > tol
+                            for i in diff):
+        raise AssertionError(
+            f"{label}: the VectorTopK candidates differ from the oracle's "
+            f"top {k} of the probed lists beyond ties ({len(diff)} ids, "
+            f"{len(got)} candidates)")
+    return len(diff) // 2
+
+
+def rerank_check(label: str, rows, cand: np.ndarray, data_np: np.ndarray,
+                 q: np.ndarray) -> None:
+    """The statement's rows against an f64 re-rank of its candidates on
+    the host: the k nearest by a left-fold f64 distance (3c's oracle,
+    what the Project recomputes), ids and distances equal."""
+    sq = (data_np[cand].astype(np.float64) - q.astype(np.float64)) ** 2
+    acc = np.zeros(len(cand))
+    for j in range(sq.shape[1]):
+        acc = acc + sq[:, j]
+    dist = np.sqrt(acc)
+    order = np.argsort(dist, kind="stable")[:K]
+    got_ids = np.array([r[0] for r in rows], np.int64)
+    got_d = np.array([r[1] for r in rows], np.float64)
+    if not (np.array_equal(got_ids, cand[order])
+            and np.allclose(got_d, dist[order], rtol=1e-12, atol=0)):
+        raise AssertionError(f"{label}: rows differ from the f64 re-rank "
+                             f"of the candidates")
+
+
+def knn_pass(torch, session, table: str, q_np: np.ndarray, spy=False):
+    """One statement per query -> (rows per query, candidates per query
+    or None, seconds of the pass)."""
+    rows = []
+    ctx = VectorTopKSpy(session) if spy else None
+    t0 = time.perf_counter()
+    if ctx is not None:
+        ctx.__enter__()
+    try:
+        for q in q_np:
+            rows.append(session.execute(knn_sql(table, q)).rows())
+        torch.cuda.synchronize()
+    finally:
+        if ctx is not None:
+            ctx.__exit__(None, None, None)
+    return rows, (ctx.ids if ctx is not None else None), \
+        time.perf_counter() - t0
+
+
+def exact_knn(session, table: str, q) -> list:
+    """The statement inside a transaction, where the planner takes the
+    exact scan (sql/optimize.apply_indices' skip_tables)."""
+    session.execute("begin")
+    try:
+        return session.execute(knn_sql(table, q)).rows()
+    finally:
+        session.execute("commit")
+
+
+def vsql_recall(rows, truth) -> float:
+    return float(np.mean([len({r[0] for r in a} & {r[0] for r in b}) / K
+                          for a, b in zip(rows, truth)]))
+
+
+def vsql_index_pass(torch, CK, TK, label: str, session, table: str, ix,
+                    q_np: np.ndarray, data_np: np.ndarray, oracle,
+                    required: tuple) -> tuple:
+    """13a/13c: the plan holds VectorTopK and no Scan of the table; one
+    counted pass (launches, inputs, candidates) and one timed pass of
+    every query, and a profiled run of 8; each pass's rows equal the f64
+    re-rank of that query's candidates, and the candidates the oracle's
+    top over the probed lists."""
+    plan = session.execute("explain " + knn_sql(table, q_np[0])).text
+    if "VectorTopK" not in plan or "Scan" in plan:
+        raise AssertionError(f"{label}: the plan is not an index scan:\n"
+                             f"{plan}")
+    CK.LAUNCHES.reset()
+    with VectorInputs(torch, TK) as cap:
+        rows, cands, _ = knn_pass(torch, session, table, q_np, spy=True)
+    launches = kernel_launches(CK, label, ("l2_distance_sq",
+                                           "adc_score_lists", "adc_score"),
+                               required=required)
+    if launches["adc_score"]["launches"]:
+        raise AssertionError(f"{label}: the search ran the ADC kernel's "
+                             f"dense form")
+    timed, _, secs = knn_pass(torch, session, table, q_np)
+    # the busy share from a trace of the first 8 statements: tracing all
+    # 64 costs seconds of the profiler's own host work
+    t0 = time.perf_counter()
+    prof = profile_run(torch, lambda: knn_pass(torch, session, table,
+                                               q_np[:8]),
+                       f"{label}, 8 statements")
+    prof_s = time.perf_counter() - t0
+    k_cand = len(cands[0])
+    t0 = time.perf_counter()
+    _ids, scored = oracle(k_cand)
+    oracle_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    swaps = 0
+    for i, q in enumerate(q_np):
+        swaps += same_candidates(f"{label} query {i}", cands[i], scored[i],
+                                 k_cand, float((q.astype(np.float64) ** 2)
+                                               .sum()))
+        for r in (rows[i], timed[i]):
+            rerank_check(f"{label} query {i}", r, cands[i], data_np, q)
+    out = {"plan": plan, "launches": launches, "candidates": k_cand,
+           "candidate_tie_swaps": swaps, "oracle_seconds": oracle_s,
+           "profile_seconds": prof_s,
+           "check_seconds": time.perf_counter() - t0,
+           "ms_per_query": secs * 1e3 / len(q_np), "profile": prof,
+           "index_bytes_cache": session.catalog.index_cache.stats()["used"],
+           "nlist": ix.index_obj.nlist,
+           "max_cluster_size": ix.index_obj.max_cluster_size}
+    log(f"[{label}] {len(q_np)} statements: candidates {k_cand} equal to "
+        f"the oracle's ({swaps} tie swaps), rows equal to the f64 re-rank "
+        f"(twice); {out['ms_per_query']:.2f} ms a statement, busy "
+        f"{prof['device_busy_share']:.1%} (8 statements traced in "
+        f"{prof_s:.1f}s); the oracle {oracle_s:.1f}s, the checks "
+        f"{out['check_seconds']:.1f}s")
+    return out, rows, cands, cap
+
+
+def vsql_kernel_rows(torch, CK, label: str, cap, launches: dict) -> tuple:
+    """13d: each kernel at every shape `label` launched it with, on the
+    path's own inputs -> (L2 rows, ADC list-form rows)."""
+    l2 = [dict(check_kernel(torch, CK, f"{label}_{n}x{b}", x, q),
+               path=label, path_launches=launches["l2_distance_sq"][
+                   "by_shape_map"].get((n, b, d), 0))
+          for (n, b, d), (x, q) in sorted(cap.l2.items())]
+    adc = [dict(check_adc_lists(torch, CK, f"{label}_G{g}", codes, st, en,
+                                lut, pad),
+                path=label, path_launches=launches["adc_score_lists"][
+                    "by_shape_map"].get((g, pad, m), 0))
+           for (g, pad, m), (codes, st, en, lut) in sorted(cap.adc.items())]
+    return l2, adc
+
+
+def phase_vector_sql(torch, CK, args, dev: str = "cuda") -> tuple:
+    """Phase 13: vector search through SQL at bench.py's configuration
+    -> (report, L2 rows, ADC list-form rows)."""
+    import gc
+
+    from matrixone_tpu_torch import indexing
+    from matrixone_tpu_torch.frontend import Session
+    from matrixone_tpu_torch.ops import kernels as TK
+    from matrixone_tpu_torch.utils import datagen
+    from matrixone_tpu_torch.vectorindex import ivf_pq
+    from matrixone_tpu_torch.vectorindex.cache import index_nbytes
+
+    n, d = args.n, args.d
+    nq = VSQL_QUERIES
+    report = {}
+    t_phase = time.perf_counter()
+    data, queries = datagen.make_clustered(n, d, nq, seed=args.seed,
+                                           device=dev)
+    data_np, q_np = data.cpu().numpy(), queries.cpu().numpy()
+    # make_clustered's first draw: its centres
+    g = torch.Generator(device=dev)
+    g.manual_seed(args.seed)
+    centres = torch.randn(min(2048, n // 4 or 1), d, generator=g,
+                          device=dev).cpu().numpy()
+    del data, queries
+    sess = Session(device=dev)
+    eng = sess.catalog
+    load_s = load_items(sess, "items", data_np)
+    t0 = time.perf_counter()
+    sess.execute(f"create index iv using ivfflat on items (emb) "
+                 f"lists = {VSQL_LISTS}")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    ix = eng.indexes["iv"]
+    log(f"[13a] items {n}x{d} loaded in {load_s:.2f}s, create index "
+        f"(ivfflat, lists {VSQL_LISTS}) {build_s:.2f}s, "
+        f"{eng.index_cache.stats()['used'] / 1e9:.3f} GB on the card")
+
+    # the exact scan (a transaction: the planner skips the index), on a
+    # per-operator session: a fused step bakes each query's vector
+    exact = Session(catalog=eng, device=dev)
+    exact.execute("set plan_fusion = 0")
+    ne = min(VSQL_EXACT_QUERIES, nq)
+    t0 = time.perf_counter()
+    truth = [exact_knn(exact, "items", q) for q in q_np[:ne]]
+    exact_s = time.perf_counter() - t0
+
+    def flat_oracle(k):
+        return probed_truth_stored(torch, ix.index_obj, q_np, k, NPROBE,
+                                   with_scores=True)
+
+    rep, rows, _, cap_a = vsql_index_pass(torch, CK, TK, "13a_ivfflat_sql",
+                                          sess, "items", ix, q_np, data_np,
+                                          flat_oracle, ("l2_distance_sq",))
+    rep.update(load_seconds=load_s, build_seconds=build_s,
+               exact_scan_ms_per_query=exact_s * 1e3 / ne,
+               exact_queries=ne,
+               recall_at_20_vs_exact_scan=vsql_recall(rows[:ne], truth))
+    # a warm statement captures nothing new
+    before = fusion_counts()
+    for _ in range(3):
+        sess.execute(knn_sql("items", q_np[0]))
+    rep["warm_fusion_counts"] = counts_since(before)
+    if rep["warm_fusion_counts"]["captures"]:
+        raise AssertionError("13a: a warm statement captured a graph")
+    rep["seconds"] = time.perf_counter() - t_phase
+    report["13a"] = rep
+    log(f"[13a] recall@20 against the exact scan "
+        f"{rep['recall_at_20_vs_exact_scan']:.4f} ({ne} queries; the exact "
+        f"scan {rep['exact_scan_ms_per_query']:.1f} ms a statement)")
+
+    # 13b: upkeep on the card
+    t_sub = time.perf_counter()
+    b = {}
+    rng = np.random.default_rng(args.seed)
+    built = ix.index_obj
+    c0 = centres[0]
+    near0 = (c0 + 0.01 * rng.standard_normal((VSQL_DELTA_ROWS, d))).astype(
+        np.float32)
+    first = n
+    t0 = time.perf_counter()
+    sess.execute("insert into items values " + ", ".join(
+        f"({first + i}, '{vec_literal(v)}')" for i, v in enumerate(near0)))
+    b["insert_100_seconds"] = time.perf_counter() - t0
+    new_ids = set(range(first, first + VSQL_DELTA_ROWS))
+    CK.LAUNCHES.reset()
+    with VectorInputs(torch, TK) as cap_b:
+        t0 = time.perf_counter()
+        got = sess.execute(knn_sql("items", c0)).rows()
+        torch.cuda.synchronize()
+        b["delta_query_seconds"] = time.perf_counter() - t0
+    b["launches"] = kernel_launches(CK, "13b_delta", ("l2_distance_sq",),
+                                    required=("l2_distance_sq",))
+    if not ({r[0] for r in got} <= new_ids and ix.index_obj is built
+            and len(ix.options["_delta_gids"]) == VSQL_DELTA_ROWS):
+        raise AssertionError("13b: the inserted rows are not served from "
+                             "the delta of the same index")
+    # the 20 nearest of the inserted rows, ids and f64 distances
+    rerank_check("13b delta", [(r[0] - first, r[1]) for r in got],
+                 np.arange(VSQL_DELTA_ROWS), near0, c0)
+    sess.execute(f"delete from items where id >= {first}")
+    got = sess.execute(knn_sql("items", c0)).rows()
+    if {r[0] for r in got} & new_ids or ix.index_obj is not built:
+        raise AssertionError("13b: deleted rows served, or a rebuild")
+    # past RECLUSTER_FRACTION of the indexed rows: a full recluster
+    extra = int(indexing.RECLUSTER_FRACTION * n) + 1
+    more = data_np[rng.integers(0, n, extra)] + 0.01 * rng.standard_normal(
+        (extra, d)).astype(np.float32)
+    b["insert_recluster_rows"] = extra
+    b["insert_recluster_seconds"] = load_items(sess, "items", more,
+                                               first + VSQL_DELTA_ROWS)
+    del more
+    t0 = time.perf_counter()
+    sess.execute(knn_sql("items", c0))
+    torch.cuda.synchronize()
+    b["recluster_query_seconds"] = time.perf_counter() - t0
+    if ix.index_obj is built or "_delta_gids" in ix.options:
+        raise AssertionError("13b: an insert past RECLUSTER_FRACTION did "
+                             "not recluster")
+    del built
+    # a delta folded in by fold_delta
+    c1 = centres[1]
+    near1 = (c1 + 0.01 * rng.standard_normal((VSQL_DELTA_ROWS, d))).astype(
+        np.float32)
+    first1 = first + VSQL_DELTA_ROWS + extra
+    sess.execute("insert into items values " + ", ".join(
+        f"({first1 + i}, '{vec_literal(v)}')" for i, v in enumerate(near1)))
+    ids1 = set(range(first1, first1 + VSQL_DELTA_ROWS))
+    got = sess.execute(knn_sql("items", c1)).rows()
+    if not ({r[0] for r in got} <= ids1
+            and len(ix.options["_delta_gids"]) == VSQL_DELTA_ROWS):
+        raise AssertionError("13b: the second delta is not served")
+    t0 = time.perf_counter()
+    if not indexing.fold_delta(eng, ix, dev):
+        raise AssertionError("13b: fold_delta folded nothing")
+    torch.cuda.synchronize()
+    b["fold_delta_seconds"] = time.perf_counter() - t0
+    got = sess.execute(knn_sql("items", c1)).rows()
+    if "_delta_gids" in ix.options or not {r[0] for r in got} <= ids1:
+        raise AssertionError("13b: fold_delta lost the delta's rows")
+    # eviction under a small budget frees the index's card memory
+    idx_bytes = index_nbytes(ix.index_obj)
+    gc.collect()
+    mem0 = torch.cuda.memory_allocated()
+    budget = eng.index_cache.budget
+    eng.index_cache.budget = 1
+    load_items(sess, "items_small", data_np[:1000])
+    sess.execute("create index ivs using ivfflat on items_small (emb) "
+                 "lists = 4")
+    eng.index_cache.budget = budget
+    gc.collect()
+    mem1 = torch.cuda.memory_allocated()
+    b.update(index_bytes=idx_bytes, memory_before_eviction=mem0,
+             memory_after_eviction=mem1,
+             evictions=eng.index_cache.stats()["evictions"])
+    if ix.index_obj is not None or not ix.dirty \
+            or mem0 - mem1 < 0.9 * idx_bytes:
+        raise AssertionError(f"13b: eviction freed {mem0 - mem1} B of a "
+                             f"{idx_bytes} B index")
+    t0 = time.perf_counter()
+    got = sess.execute(knn_sql("items", c1)).rows()
+    torch.cuda.synchronize()
+    b["rebuild_query_seconds"] = time.perf_counter() - t0
+    if ix.index_obj is None or not {r[0] for r in got} <= ids1:
+        raise AssertionError("13b: the evicted index was not rebuilt")
+    b["seconds"] = time.perf_counter() - t_sub
+    report["13b"] = b
+    log(f"[13b] insert {VSQL_DELTA_ROWS} rows "
+        f"{b['insert_100_seconds']:.2f}s, served from the delta of the "
+        f"same index ({b['delta_query_seconds']:.2f}s with the refresh); "
+        f"deleted: gone; {extra} rows: reclustered "
+        f"({b['recluster_query_seconds']:.2f}s); fold_delta "
+        f"{b['fold_delta_seconds']:.2f}s; eviction freed "
+        f"{(mem0 - mem1) / 1e9:.3f} GB of a {idx_bytes / 1e9:.3f} GB "
+        f"index, rebuilt on the next query "
+        f"({b['rebuild_query_seconds']:.2f}s); 13b {b['seconds']:.1f}s")
+    sess.execute("drop table items_small")
+    sess.execute("drop table items")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 13c: IVF-PQ on a second table of the same recipe (the same rows)
+    t_sub = time.perf_counter()
+    load_s = load_items(sess, "items_pq", data_np)
+    m_sub = ivf_pq.pick_subspaces(d)
+    t0 = time.perf_counter()
+    sess.execute(f"create index ipq using ivfpq on items_pq (emb) "
+                 f"lists = {VSQL_LISTS}")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    pix = eng.indexes["ipq"]
+    if pix.index_obj.n_subspaces != m_sub:
+        raise AssertionError(f"13c: {pix.index_obj.n_subspaces} subspaces, "
+                             f"_pick_subspaces gives {m_sub}")
+
+    def pq_oracle(k):
+        return pq_probed_truth(torch, pix.index_obj, q_np, k, NPROBE,
+                               compute_dtype=None, with_scores=True)
+
+    rep, rows, cands, cap_c = vsql_index_pass(
+        torch, CK, TK, "13c_ivfpq_sql", sess, "items_pq", pix, q_np,
+        data_np, pq_oracle, ("l2_distance_sq", "adc_score_lists"))
+    raw = [[(int(i),) for i in c[:K]] for c in cands]
+    rep.update(load_seconds=load_s, build_seconds=build_s,
+               n_subspaces=m_sub,
+               recall_at_20_raw_adc=vsql_recall(raw[:ne], truth),
+               recall_at_20_after_rerank=vsql_recall(rows[:ne], truth),
+               seconds=time.perf_counter() - t_sub)
+    report["13c"] = rep
+    log(f"[13c] IVF-PQ (M {m_sub}) create index {build_s:.2f}s; recall@20 "
+        f"against the exact scan ({ne} queries, no gate): raw ADC "
+        f"{rep['recall_at_20_raw_adc']:.4f}, after the overfetch's exact "
+        f"re-rank {rep['recall_at_20_after_rerank']:.4f}; 13c "
+        f"{rep['seconds']:.1f}s")
+
+    # 13d: both kernels at every phase-13 shape, on the paths' own inputs
+    l2_rows, adc_rows = [], []
+    for label, cap, launches in (
+            ("13a_ivfflat_sql", cap_a, report["13a"]["launches"]),
+            ("13b_delta", cap_b, {"l2_distance_sq": b["launches"]
+                                  ["l2_distance_sq"]}),
+            ("13c_ivfpq_sql", cap_c, report["13c"]["launches"])):
+        for rec in launches.values():
+            rec["by_shape_map"] = {tuple(r[:-1]): r[-1]
+                                   for r in rec["by_shape"]}
+        l2, adc = vsql_kernel_rows(torch, CK, label, cap, launches)
+        l2_rows += l2
+        adc_rows += adc
+        for rec in launches.values():
+            del rec["by_shape_map"]
+    sess.execute("drop table items_pq")
+    report["seconds"] = time.perf_counter() - t_phase
+    log(f"[13] phase 13 took {report['seconds']:.1f}s")
+    return report, l2_rows, adc_rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=1_000_000)
@@ -4454,13 +4988,15 @@ def main(argv=None) -> int:
                                                               args)
     report["objects"]["seconds"] = time.perf_counter() - t0
     log(f"[11] phase 11 took {report['objects']['seconds']:.1f}s")
+    report["vector_sql"], vsql_l2, vsql_adc = phase_vector_sql(torch, CK,
+                                                               args)
     search_rows += (search_path + tpch_search + rf01_search + refresh_search
                     + exec_search + fusion_search + spill_search
                     + obj_search)
     segsum_rows += (segsum_path + rf01_segsum + refresh_segsum + exec_segsum
                     + spill_segsum + obj_segsum)
-    rows += path_rows + pq_rows
-    adc_rows += pq_adc_rows
+    rows += path_rows + pq_rows + vsql_l2
+    adc_rows += pq_adc_rows + vsql_adc
     pq_build = report["ivf_pq"]["build_launches"]
     pq_search = report["ivf_pq"]["search_launches"]
     timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -4525,6 +5061,20 @@ def main(argv=None) -> int:
                  for k, rec in objects["serving"].items()
                  if k.startswith("12b_")}
         for kernel in ("sorted_search", "segment_sum")}
+    vsql = report["vector_sql"]
+    vsql_l2_launches = {
+        "13a_ivfflat_sql": vsql["13a"]["launches"]["l2_distance_sq"],
+        "13b_delta": vsql["13b"]["launches"]["l2_distance_sq"],
+        "13c_ivfpq_sql": vsql["13c"]["launches"]["l2_distance_sq"]}
+    # phase 13 (vector search through SQL): each kernel at its most
+    # launched phase-13 shape
+    vsql_timed = {
+        "l2_distance_sq": max(vsql_l2, key=lambda r: r["path_launches"]),
+        "adc_score": max(vsql_adc, key=lambda r: r["path_launches"])}
+    vsql_timed = {k: {"shape": r["shape"], "path": r["path"],
+                      "path_launches": r["path_launches"],
+                      **{key: r[key] for key in timed}}
+                  for k, r in vsql_timed.items()}
     record = {"kernels": [{
         "name": "l2_distance_sq", "route": "cuda",
         "source": "matrixone_tpu_torch/csrc/l2_distance.cu",
@@ -4536,7 +5086,9 @@ def main(argv=None) -> int:
                 report["bench_3a"]["launches"],
             "truth": report["truth"]["launches"],
             "4_pq_build": pq_build["l2_distance_sq"]["launches"],
-            "4_pq_search": pq_search["l2_distance_sq"]["launches"]},
+            "4_pq_search": pq_search["l2_distance_sq"]["launches"],
+            **{p: v["launches"] for p, v in vsql_l2_launches.items()}},
+        "phase13": vsql_timed["l2_distance_sq"],
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         **{key: l2_row[key] for key in timed},
         "shapes": rows}, {
@@ -4550,7 +5102,10 @@ def main(argv=None) -> int:
         "launches_by_path": {
             "4_pq_search": pq_search["adc_score_lists"]["launches"],
             "4_pq_build": pq_build["adc_score_lists"]["launches"]
-            + pq_build["adc_score"]["launches"]},
+            + pq_build["adc_score"]["launches"],
+            "13c_ivfpq_sql":
+                vsql["13c"]["launches"]["adc_score_lists"]["launches"]},
+        "phase13": vsql_timed["adc_score"],
         "max_abs_err": max(r["max_abs_err"] for r in adc_rows),
         **{key: adc_row[key] for key in timed},
         "padded_path_ms": adc_row["padded_path_ms"],

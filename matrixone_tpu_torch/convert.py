@@ -17,6 +17,12 @@ dictionaries, counters and the engine's named snapshots;
 for segment and code for code, so both engines hold the same rows in
 the same order and give the same view at every timestamp (`AS OF`
 reads included).
+
+`indexes_to_numpy` reads an engine's secondary indexes (IVF-Flat and
+IVF-PQ) with their built index as numpy fields, their row gids and
+delta segment; `indexes_from_numpy` registers them in a port engine
+holding the same tables, each index on a device, so both sessions
+search the same lists.
 """
 
 from __future__ import annotations
@@ -25,8 +31,8 @@ import numpy as np
 import torch
 
 from matrixone_tpu_torch import resolve_device
-from matrixone_tpu_torch.storage.engine import (Engine, Segment, TableMeta,
-                                                schema_from_json,
+from matrixone_tpu_torch.storage.engine import (Engine, IndexMeta, Segment,
+                                                TableMeta, schema_from_json,
                                                 schema_to_json)
 from matrixone_tpu_torch.storage.partition import PartitionSpec
 from matrixone_tpu_torch.vectorindex.ivf_flat import IvfFlatIndex
@@ -147,4 +153,61 @@ def tables_from_numpy(tables: dict, engine=None) -> Engine:
         engine.hlc.update(max([f["committed_ts"]]
                               + list(f["snapshots"].values())))
         engine.committed_ts = max(engine.committed_ts, f["committed_ts"])
+    return engine
+
+
+#: options a session keeps on an index meta for itself: a device, a
+#: sharded repack; never carried across
+_LOCAL_OPTIONS = ("_device", "_sharded")
+
+
+def indexes_to_numpy(engine) -> dict:
+    """{index name: {"table", "columns", "algo", "dirty", "options",
+    "index"}} of every IVF-Flat or IVF-PQ index of `engine` (the JAX
+    package's or the port's): the options with their arrays (`_row_gids`,
+    `_delta_vecs`, `_delta_gids`) as numpy, and the built index as the
+    numpy fields `ivf_flat_from_numpy` / `ivf_pq_from_numpy` take, or
+    None (an empty table, an evicted index)."""
+    out = {}
+    for name, ix in engine.indexes.items():
+        if ix.algo not in ("ivfflat", "ivfpq"):
+            raise NotImplementedError(
+                f"index {name!r} is {ix.algo}: only ivfflat and ivfpq are "
+                f"ported (ROADMAP.md, section A)")
+        opts = {k: (np.asarray(v) if k.startswith("_") and k != "_metric"
+                    else v)
+                for k, v in ix.options.items() if k not in _LOCAL_OPTIONS}
+        fields = None
+        if ix.index_obj is not None:
+            names = IVF_PQ_FIELDS if ix.algo == "ivfpq" else IVF_FLAT_FIELDS
+            obj = ix.index_obj
+            fields = {f: (getattr(obj, f).cpu().numpy()
+                          if isinstance(getattr(obj, f), torch.Tensor)
+                          else np.asarray(getattr(obj, f))) for f in names}
+            fields.update(metric=obj.metric,
+                          max_cluster_size=obj.max_cluster_size, n=obj.n)
+        out[name] = {"table": ix.table, "columns": list(ix.columns),
+                     "algo": ix.algo, "dirty": bool(ix.dirty),
+                     "options": opts, "index": fields}
+    return out
+
+
+def indexes_from_numpy(indexes: dict, engine: Engine, device=None) -> Engine:
+    """Register `indexes` (as `indexes_to_numpy` gives them) in `engine`,
+    which holds their tables, each built index placed on `device` (CUDA
+    unless named) field by field, and in the engine's index cache."""
+    from matrixone_tpu_torch import indexing
+    dev = resolve_device(device)
+    for name, f in indexes.items():
+        opts = {k: (np.array(v) if isinstance(v, np.ndarray) else v)
+                for k, v in f["options"].items()}
+        opts["_device"] = dev
+        obj = None
+        if f["index"] is not None:
+            obj = (ivf_pq_from_numpy(f["index"], dev) if f["algo"] == "ivfpq"
+                   else ivf_flat_from_numpy(f["index"], dev))
+        meta = IndexMeta(name, f["table"], list(f["columns"]), f["algo"],
+                         opts, index_obj=obj, dirty=f["dirty"])
+        engine.register_index(meta)
+        indexing.register_in_cache(engine, meta)
     return engine

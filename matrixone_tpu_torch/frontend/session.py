@@ -45,8 +45,16 @@ step calls, trace and capture milliseconds and cache outcome), and
 `select mo_ctl(...)` with checkpoint, merge, flush, fault, serving,
 fusion, trace, metrics and keys.
 
+Vector indexes: CREATE INDEX ... USING ivfflat | ivfpq (op_type
+vector_l2_ops, vector_cosine_ops or vector_ip_ops; ivfpq not with ip)
+builds the index on the session's device and registers it in the
+engine's catalog and index cache; SHOW INDEXES lists them; a SELECT of
+the form `ORDER BY <distance>(col, '[...]') LIMIT k` is rewritten to a
+VectorTopK source (`sql/optimize.apply_indices`, `vm/vector_scan.py`)
+outside transactions.
+
 Not ported yet (ROADMAP.md, section A): LOAD DATA and `load_file()`,
-indexes, materialized views, UDFs, accounts, the mo_ctl commands over
+HNSW and FULLTEXT indexes, materialized views, UDFs, accounts, the mo_ctl commands over
 modules the port lacks (lint, san, qa, crash, mview, rpc, udf), and
 every other statement, which raises NotImplementedError.  The session
 runs on `device` (CUDA unless the caller names the CPU); every scan
@@ -80,7 +88,8 @@ from matrixone_tpu_torch.sql.parser import parse, parse_one
 from matrixone_tpu_torch.queryservice import QueryKilled, registry_for
 from matrixone_tpu_torch.serving import serving_for
 from matrixone_tpu_torch.serving.plan_cache import iter_plan_values
-from matrixone_tpu_torch.storage.engine import ROWID, Engine, TableMeta
+from matrixone_tpu_torch.storage.engine import ROWID, Engine, IndexMeta, \
+    TableMeta
 from matrixone_tpu_torch.txn.client import TxnClient
 from matrixone_tpu_torch.utils import keys as keyaudit
 from matrixone_tpu_torch.utils import metrics as M, motrace
@@ -326,6 +335,8 @@ class Session:
         if isinstance(stmt, ast.DropTable):
             self.catalog.drop_table(stmt.name, stmt.if_exists)
             return Result()
+        if isinstance(stmt, ast.CreateIndex):
+            return self._create_index(stmt)
         if isinstance(stmt, ast.Insert):
             return self._insert(stmt)
         if isinstance(stmt, ast.Delete):
@@ -362,6 +373,13 @@ class Session:
                           "Type": [str(d) for _, d in t.meta.schema],
                           "Key": ["PRI" if c in t.meta.primary_key else ""
                                   for c, _ in t.meta.schema]})
+        if isinstance(stmt, ast.ShowIndexes):
+            ixs = self.catalog.indexes_on(stmt.name)
+            return _show({"Key_name": [ix.name for ix in ixs],
+                          "Algo": [ix.algo for ix in ixs],
+                          "Columns": [",".join(ix.columns) for ix in ixs],
+                          "Dirty": [int(ix.dirty) for ix in ixs]},
+                         {"Dirty": dt.INT64})
         if isinstance(stmt, ast.ShowVariables):
             names = sorted(self.variables)
             if stmt.like:
@@ -1128,6 +1146,36 @@ class Session:
                 g = g[~np.isin(g, dead)]
             gids.append(g)
         return np.concatenate(gids) if gids else np.zeros(0, np.int64)
+
+    def _create_index(self, stmt: ast.CreateIndex) -> Result:
+        from matrixone_tpu_torch import indexing
+        table = self.catalog.get_table(stmt.table)
+        algo = (stmt.using or "").lower()
+        if algo in ("hnsw", "fulltext"):
+            raise _not_ported(f"{algo} indexes")
+        if algo not in ("ivfflat", "ivf_flat", "ivfpq", "ivf_pq"):
+            raise BindError(f"unsupported index algo {stmt.using!r}")
+        col = stmt.columns[0]
+        coltype = dict(table.meta.schema)[col]
+        if not coltype.is_vector:
+            raise BindError(f"{algo} index requires a vecf32 column")
+        op_type = stmt.options.get("op_type", "vector_l2_ops")
+        metric = {"vector_l2_ops": "l2", "vector_cosine_ops": "cosine",
+                  "vector_ip_ops": "ip"}.get(op_type, "l2")
+        algo_name = "ivfpq" if "pq" in algo else "ivfflat"
+        if algo_name == "ivfpq" and metric == "ip":
+            raise BindError(
+                "ivfpq does not support vector_ip_ops; use ivfflat")
+        meta = IndexMeta(stmt.name, stmt.table, stmt.columns, algo_name,
+                         dict(stmt.options), dirty=True)
+        meta.options["_metric"] = metric
+        try:
+            indexing.build_ivfflat(self.catalog, meta, self.device)
+        except ValueError as e:
+            raise BindError(str(e))
+        self.catalog.register_index(meta)
+        indexing.register_in_cache(self.catalog, meta)
+        return Result()
 
     def _alter_partition(self, stmt: ast.AlterPartition) -> Result:
         """TRUNCATE/DROP PARTITION (partitionservice management ops):

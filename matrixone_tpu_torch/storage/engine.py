@@ -43,9 +43,16 @@ The fault points `commit.before`, `merge.rewrite` and `merge.swap`
 under an `engine.recover` span annotated with the recovery summary, and
 `close()` flushes the statement recorder.
 
+Secondary indexes (`IndexMeta`, `register_index`, `indexes_on`) live in
+the catalog as the reference keeps them: a commit, a merge and a WAL
+replay mark the table's indexes dirty, dropping a table drops its
+indexes and frees their `index_cache` entries (vectorindex/cache.py),
+and, as in the reference, indexes are not persisted (no WAL record, no
+manifest entry): `indexing.py` builds them again on demand.
+
 Not ported yet (ROADMAP.md, section A): the CN bootstrap (`open_checkpoint`), external tables, publications, stages,
-sources and dynamic tables, the logtail subscribers (CDC), indexes (so
-merges mark none dirty) and the co-partitioned shard read.
+sources and dynamic tables, the logtail subscribers (CDC) and the
+co-partitioned shard read.
 """
 
 from __future__ import annotations
@@ -98,6 +105,17 @@ class TableMeta:
     not_null: List[str] = dataclasses.field(default_factory=list)
     # partitionservice: segments are split per partition on insert
     partition: "object" = None             # Optional[partition.PartitionSpec]
+
+
+@dataclasses.dataclass
+class IndexMeta:
+    name: str
+    table: str
+    columns: List[str]
+    algo: str
+    options: dict
+    index_obj: object = None
+    dirty: bool = False        # table changed since build -> lazy rebuild
 
 
 @dataclasses.dataclass
@@ -696,6 +714,28 @@ class MVCCTable:
                 validity[c] = np.zeros(0, np.bool_)
         return arrays, validity
 
+    def read_column_f32(self, col: str):
+        """Dense f32 matrix of VISIBLE rows (tombstones excluded) plus the
+        gid of each matrix row: index builds must not index deleted rows,
+        and search results map back to rows via the gids.  An
+        object-backed segment is read through its host tier."""
+        d = dict(self.meta.schema)[col].dim
+        dead = self._dead_gids(None, None)
+        mats, gids = [], []
+        for seg in self.segments:
+            g = np.arange(seg.base_gid, seg.base_gid + seg.n_rows,
+                          dtype=np.int64)
+            keep = ~np.isin(g, dead) if len(dead) else None
+            m = seg.arrays[col]
+            if keep is not None and not keep.all():
+                m, g = m[keep], g[keep]
+            mats.append(m)
+            gids.append(g)
+        if not mats:
+            return np.zeros((0, d), np.float32), np.zeros(0, np.int64)
+        return (np.concatenate(mats).astype(np.float32, copy=False),
+                np.concatenate(gids))
+
     # -------------------------------------------------- convenience write
     def insert_batch(self, batch) -> int:
         arrays, validity = self.batch_to_arrays(batch)
@@ -830,12 +870,16 @@ class Engine:
 
     def __init__(self, fs: Optional[FileService] = None, wal=None):
         from matrixone_tpu_torch.lockservice import LockService
+        from matrixone_tpu_torch.vectorindex.cache import IndexCache
         self.fs = fs if fs is not None else MemoryFS()
         #: anything with append/truncate/replay: the local CRC log by
         #: default
         self.wal = wal if wal is not None else walmod.WalWriter(self.fs)
         self.hlc = HLC()
         self.tables: Dict[str, MVCCTable] = {}
+        self.indexes: Dict[str, IndexMeta] = {}
+        #: budgeted residency of the built indexes on their devices
+        self.index_cache = IndexCache()
         # reentrant: table helpers called under a commit take it again
         self._commit_lock = threading.RLock()
         #: catalog-shape generation: bumped on every DDL
@@ -894,6 +938,10 @@ class Engine:
                 blockcache.CACHE.drop_path(seg.obj_path)
         del self.tables[name]
         self.ddl_gen += 1
+        for k, v in list(self.indexes.items()):
+            if v.table == name:
+                del self.indexes[k]
+                self.index_cache.drop(k)    # free device residency + budget
         if log:
             self.wal.append({"op": "drop_table", "name": name,
                              "ts": self.hlc.now()})
@@ -927,10 +975,14 @@ class Engine:
             raise ValueError(f"no such table {name}")
         return self.tables[name]
 
-    def indexes_on(self, table: str) -> list:
-        """Secondary indexes of a table: none, until indexes are ported
-        (the plan rewrites of sql/optimize.py ask)."""
-        return []
+    def register_index(self, meta: IndexMeta) -> None:
+        """Catalog an index meta (sessions go through this rather than
+        mutating `indexes` directly)."""
+        self.indexes[meta.name] = meta
+        self.ddl_gen += 1
+
+    def indexes_on(self, table: str) -> List[IndexMeta]:
+        return [ix for ix in self.indexes.values() if ix.table == table]
 
     # --------------------------------------------------- snapshots / PITR
     def create_snapshot(self, name: str) -> int:
@@ -1110,6 +1162,9 @@ class Engine:
                                                  commit_ts):
                         t._pk_bloom_add(seg)
                         affected += seg.n_rows
+            for tname in set(list(inserts) + list(deletes)):
+                for ix in self.indexes_on(tname):
+                    ix.dirty = True
             # max(): the read frontier must never retreat
             self.committed_ts = max(self.committed_ts, commit_ts)
             metrics.txn_commits.inc(outcome="ok")
@@ -1227,6 +1282,8 @@ class Engine:
             t._pk_bloom = None     # rebuilt lazily over the merged rows
             t._pk_vals = {}
             self.committed_ts = max(self.committed_ts, merge_ts)
+            for ix in self.indexes_on(name):
+                ix.dirty = True       # gids changed: indexes must rebuild
             self._pending_merge_records[name] = merge_ts
             # durability: the merged state IS the new truth; checkpoint
             # so a replay never resurrects pre-merge rows (the fence rides
@@ -1539,6 +1596,9 @@ class WalApplier:
                 else:
                     gids = np.frombuffer(b, dtype="<i8").astype(np.int64)
                     t.apply_tombstones(ts, gids)
+            for tname in {h["table"] for _k, h, _b in ordered}:
+                for ix in eng.indexes_on(tname):
+                    ix.dirty = True
             self.pending = []
             return ts
         return None

@@ -11,8 +11,10 @@ what the reference resolves on its TPU (`HK.enabled()`), so float32
 grouped sums take the segment-sum kernel exactly where the reference's
 do.
 
-`Materialized`, `UdfAggregate`, `FulltextTopK` and `VectorTopK` are not
-ported yet (ROADMAP.md): compiling one raises NotImplementedError.
+`VectorTopK` compiles to `vm/vector_scan.VectorTopKOp`, the IVF-Flat /
+IVF-PQ search as a source.  `Materialized`, `UdfAggregate` and
+`FulltextTopK` are not ported yet (ROADMAP.md): compiling one raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -131,6 +133,9 @@ def _compile_node(node: P.PlanNode, ctx: ExecContext) -> ops.Operator:
     if isinstance(node, P.Union):
         return ops.UnionOp(node, [_compile_node(c, ctx)
                                   for c in node.children])
+    if isinstance(node, P.VectorTopK):
+        from matrixone_tpu_torch.vm.vector_scan import VectorTopKOp
+        return VectorTopKOp(node, ctx)
     if isinstance(node, P.Join):
         return JoinOp(node, _compile_node(node.left, ctx),
                       _compile_node(node.right, ctx), ctx=ctx)

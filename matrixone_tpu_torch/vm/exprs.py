@@ -137,8 +137,10 @@ def eval_expr(e: BoundExpr, ex: ExecBatch) -> DeviceColumn:
         if e.value is None:
             return DeviceColumn.const_null(e.dtype, dev)
         if e.dtype.is_vector:
-            data = torch.tensor([e.value], dtype=e.dtype.torch_dtype,
-                                device=dev)
+            # through to_device: a fused step's capture takes no copy
+            # from pageable host memory
+            data = to_device(np.asarray([e.value],
+                                        dtype=e.dtype.np_dtype), dev)
             return DeviceColumn(data, torch.ones((1,), dtype=torch.bool,
                                                  device=dev), e.dtype)
         if _is_varchar(e.dtype):

@@ -1754,3 +1754,138 @@ def test_tree_reuse_on_the_card_equals_a_fresh_compile(
     for g, w in zip(got, want):
         assert _close(g, w), (g[:3], w[:3])
     assert len({str(g) for g in got}) == 3
+
+
+# ------------------------------------------ vector search through SQL
+
+def _vsql_sessions(algo, cuda, n=4000, d=64, op_type="vector_l2_ops"):
+    """A CPU session that built an index over clustered rows, and a card
+    session over the same tables with that index carried across
+    (`convert`), both on their own engines."""
+    from matrixone_tpu_torch import convert
+    from matrixone_tpu_torch.frontend import Session
+    rng = np.random.default_rng(31)
+    centres = rng.standard_normal((16, d)).astype(np.float32)
+    data = (centres[rng.integers(0, 16, n)]
+            + 0.35 * rng.standard_normal((n, d))).astype(np.float32)
+    host = Session(device="cpu")
+    host.execute(f"create table items (id bigint primary key, "
+                 f"emb vecf32({d}))")
+    host.catalog.get_table("items").insert_numpy(
+        {"id": np.arange(n, dtype=np.int64), "emb": data})
+    host.execute(f"create index iv using {algo} on items (emb) lists = 16 "
+                 f"op_type = '{op_type}'")
+    eng = convert.tables_from_numpy(convert.tables_to_numpy(host.catalog))
+    convert.indexes_from_numpy(convert.indexes_to_numpy(host.catalog), eng,
+                               device=cuda)
+    return host, Session(catalog=eng), centres, data
+
+
+def _vsql(q, k=10, fn="l2_distance"):
+    vec = "[" + ",".join(repr(float(x)) for x in q) + "]"
+    return (f"select id, {fn}(emb, '{vec}') d from items order by d "
+            f"limit {k}")
+
+
+def _same_rows(got, want):
+    assert [r[0] for r in got] == [r[0] for r in want], (got, want)
+    np.testing.assert_allclose([r[1] for r in got], [r[1] for r in want],
+                               rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("algo,op_type,fn", [
+    ("ivfflat", "vector_l2_ops", "l2_distance"),
+    ("ivfpq", "vector_l2_ops", "l2_distance"),
+    ("ivfflat", "vector_cosine_ops", "cosine_distance")])
+def test_vector_topk_on_the_card_equals_the_cpu_session(cuda, algo, op_type,
+                                                        fn):
+    """VectorTopK on the card over an index carried from the CPU session
+    gives the CPU session's rows; the plan holds VectorTopK and the card
+    launches the L2 kernel (and for IVF-PQ the ADC list form, never the
+    dense form)."""
+    host, card, centres, _ = _vsql_sessions(algo, cuda, op_type=op_type)
+    assert card.catalog.indexes["iv"].index_obj.device.type == "cuda"
+    l2 = CK.LAUNCHES.get("l2_distance_sq")
+    adc = CK.LAUNCHES.get("adc_score_lists")
+    dense = CK.LAUNCHES.get("adc_score")
+    for q in centres[:6] + 0.1:
+        sql = _vsql(q, fn=fn)
+        assert "VectorTopK" in card.execute("explain " + sql).text
+        _same_rows(card.execute(sql).rows(), host.execute(sql).rows())
+    if op_type == "vector_l2_ops":
+        assert CK.LAUNCHES.get("l2_distance_sq") >= l2 + 6
+    if algo == "ivfpq":
+        assert CK.LAUNCHES.get("adc_score_lists") >= adc + 6
+        assert CK.LAUNCHES.get("adc_score") == dense
+
+
+def test_vector_delta_on_the_card(cuda):
+    """Rows inserted after the build are served from the delta segment,
+    scored by the L2 kernel at (delta rows, 1, d), with the same index
+    object; the CPU session doing the same gives the same rows; a DELETE
+    hides them."""
+    host, card, centres, _ = _vsql_sessions("ivfflat", cuda)
+    ix = card.catalog.indexes["iv"]
+    built = ix.index_obj
+    new = centres[2] + 0.01 * np.arange(1, 31, dtype=np.float32)[:, None]
+    ins = "insert into items values " + ", ".join(
+        f"({10000 + i}, '[{','.join(repr(float(x)) for x in v)}]')"
+        for i, v in enumerate(new))
+    for s in (host, card):
+        s.execute(ins)
+    at = CK.LAUNCHES.shapes("l2_distance_sq").get((30, 1, 64), 0)
+    sql = _vsql(centres[2])
+    got = card.execute(sql).rows()
+    assert {r[0] for r in got} <= set(range(10000, 10030))
+    assert CK.LAUNCHES.shapes("l2_distance_sq")[(30, 1, 64)] == at + 1
+    assert ix.index_obj is built and len(ix.options["_delta_gids"]) == 30
+    _same_rows(got, host.execute(sql).rows())
+    for s in (host, card):
+        s.execute("delete from items where id >= 10000")
+    got = card.execute(sql).rows()
+    assert not {r[0] for r in got} & set(range(10000, 10030))
+    _same_rows(got, host.execute(sql).rows())
+
+
+def test_vector_index_eviction_frees_card_memory(cuda):
+    """An index evicted under a small IndexCache budget releases its card
+    memory, and the next query rebuilds it on the card."""
+    import gc
+    from matrixone_tpu_torch.vectorindex.cache import index_nbytes
+    _host, card, centres, data = _vsql_sessions("ivfflat", cuda, n=20000,
+                                                d=256)
+    eng = card.catalog
+    ix = eng.indexes["iv"]
+    nbytes = index_nbytes(ix.index_obj)
+    want = card.execute(_vsql(centres[0])).rows()
+    gc.collect()
+    mem0 = torch.cuda.memory_allocated()
+    eng.index_cache.budget = 1
+    card.execute("create table small (id bigint, emb vecf32(256))")
+    card.catalog.get_table("small").insert_numpy(
+        {"id": np.arange(100, dtype=np.int64), "emb": data[:100]})
+    card.execute("create index ivs using ivfflat on small (emb) lists = 2")
+    eng.index_cache.budget = 8 << 30
+    gc.collect()
+    assert ix.index_obj is None and ix.dirty
+    assert mem0 - torch.cuda.memory_allocated() >= 0.9 * nbytes
+    got = card.execute(_vsql(centres[0])).rows()
+    assert ix.index_obj is not None and ix.index_obj.device.type == "cuda"
+    assert [r[0] for r in got] == [r[0] for r in want]
+
+
+def test_warm_knn_statement_captures_no_new_graph(fused_everywhere):
+    """With every batch fused, the fragment above VectorTopK (the
+    distance recomputed, then the top-k) captures on the first run; three
+    warm runs of the statement capture nothing and give the same rows."""
+    from matrixone_tpu_torch.utils import metrics as M
+    host, card, centres, _ = _vsql_sessions("ivfflat", fused_everywhere)
+    sql = _vsql(centres[3])
+    before = M.fusion_graphs.get(event="capture")
+    first = card.execute(sql).rows()
+    c0 = M.fusion_graphs.get(event="capture")
+    assert c0 > before
+    for _ in range(3):
+        assert card.execute(sql).rows() == first
+    assert M.fusion_graphs.get(event="capture") == c0
+    _same_rows(first, host.execute(sql).rows())

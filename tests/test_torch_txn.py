@@ -314,9 +314,10 @@ def test_statements_not_ported_raise(sql):
     s = TSession(device="cpu")
     s.execute("create table t (id bigint)")
     if sql in NOW_PORTED:
-        # ported since (SET fault_point, EXPLAIN ANALYZE): the port gives
-        # the reference's outcome (the malformed fault spec raises the
-        # reference's BindError; EXPLAIN ANALYZE returns its text)
+        # ported since (SET fault_point, EXPLAIN ANALYZE, CREATE INDEX):
+        # the port gives the reference's outcome (the malformed fault
+        # spec and an index without USING raise the reference's
+        # BindError; EXPLAIN ANALYZE returns its text)
         j = JSession()
         j.execute("create table t (id bigint)")
         assert _outcome(s, sql) == _outcome(j, sql) == NOW_PORTED[sql]
@@ -328,7 +329,8 @@ def test_statements_not_ported_raise(sql):
 #: statements of the list above that the port runs now, and the outcome
 #: both packages give
 NOW_PORTED = {"set fault_point = 'commit.before:fail'": ("err", "BindError"),
-              "explain analyze select id from t": ("ok", True)}
+              "explain analyze select id from t": ("ok", True),
+              "create index ix on t (id)": ("err", "BindError")}
 
 
 def _outcome(sess, sql):
