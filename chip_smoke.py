@@ -270,6 +270,35 @@ Phases, each of which raises on failure:
     d. the L2 kernel and the ADC kernel's list form against their plain
        versions at every shape 13a-13c launched them with, on the
        paths' own inputs, timed at each.
+14. HNSW, full text and `llm_embed` through SQL, last, each in an engine
+    of its own, with default knobs; every kernel's launches counted in
+    each part (the path launches none of the five):
+    a. `create index ... using hnsw m = 16 ef_construction = 64` over
+       `HNSW_ROWS` rows of 13's recipe (a cut of its 1M: the native
+       build is single-threaded host C++) on the host library's graph
+       (`native.route()` must be "c"); the plan holds VectorTopK and no
+       Scan; 64 statements, each timed: its candidates equal the
+       graph walk's, its 20 rows an f64 re-rank of them (ids and
+       distances); recall@20 against an exact f64 scan >= 0.80; three
+       warm runs capture no graph; build seconds, p50/p99, busy share;
+    b. `create index ... using fulltext` over 100,000 documents of
+       40-120 tokens drawn Zipf(1.1) from a 30,000-word vocabulary made
+       from `--seed` (build seconds by stage: the host read, tokenizing,
+       the CSR arrays, the upload; the postings' bytes on the card); 64
+       `order by match(body) against (...) desc limit 10` statements of
+       1-3 terms of ranks 10-5,000: the plan holds FulltextTopK and no
+       Scan; each statement's rows equal an f64 BM25 oracle's top 10
+       over the index's own arrays (ties to the lower position; rows
+       within rtol 1e-5 of the oracle's score at their rank may swap),
+       scores within rtol 1e-5; p50/p99, busy share;
+    c. 1,000 documents with a term new to the corpus inserted: the next
+       statement rebuilds the index and finds them; deleted, they are
+       gone; the index evicted under a small budget frees >= 90% of its
+       bytes and the next statement rebuilds it to the same rows;
+    d. `select id, llm_embed(txt)` over 100,000 rows holding 512 distinct
+       texts against a loopback endpoint served from a thread of this
+       script: exactly 512 calls, every row the endpoint's vector for
+       its text.
 
 The second-to-last line of output is the kernels' JSON record and the
 last is {"ok": true, "device": {...}}.  Without CUDA, or outside a
@@ -4902,6 +4931,519 @@ def phase_vector_sql(torch, CK, args, dev: str = "cuda") -> tuple:
     return report, l2_rows, adc_rows
 
 
+# ------------------------------------------------------------- phase 14
+
+SEARCH_QUERIES = 64
+#: HNSW rows: phase 13's 1M halved until the single-threaded native
+#: build fits 60 s on the card machine's host (12,500 rows took
+#: 47.8-57.4 s on an H100 machine's host; 25,000 took longer than 60 s)
+HNSW_ROWS = 12_500
+HNSW_M, HNSW_EF_CONSTRUCTION = 16, 64
+FT_DOCS = 100_000
+FT_VOCAB = 30_000
+FT_ZIPF = 1.1
+FT_DOC_TOKENS = (40, 120)
+FT_TERM_RANKS = (10, 5000)
+FT_K = 10
+FT_NEW_DOCS = 1000
+FT_NEW_TERM = "newterm0"       # a digit: the vocabulary has none
+LLM_ROWS = 100_000
+LLM_TEXTS = 512
+LLM_DIM = 32
+#: every kernel counter; phase 14's path launches none of them
+ALL_KERNELS = ("l2_distance_sq", "l2_distance_sq_masked", "adc_score",
+               "adc_score_lists", "sorted_search", "segment_sum")
+
+
+def ms_stats(seconds: list) -> dict:
+    ms = np.asarray(seconds) * 1e3
+    return {"ms_p50": float(np.percentile(ms, 50)),
+            "ms_p99": float(np.percentile(ms, 99)),
+            "ms_mean": float(ms.mean())}
+
+
+def timed_statements(torch, session, sqls) -> tuple:
+    """Each statement run and timed on its own -> (rows, seconds)."""
+    rows, secs = [], []
+    for sql in sqls:
+        t0 = time.perf_counter()
+        rows.append(session.execute(sql).rows())
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    return rows, secs
+
+
+def exact_top_ids(torch, data, q_np: np.ndarray, k: int) -> list:
+    """The exact f64 top k of every query over all rows, on the card."""
+    x = data.double()
+    out = []
+    for q in q_np:
+        d2 = ((x - torch.as_tensor(q, device=x.device).double()) ** 2).sum(1)
+        out.append(torch.topk(d2, k, largest=False).indices.cpu().numpy())
+    return out
+
+
+def phase_hnsw_sql(torch, CK, args, dev: str) -> dict:
+    """14a: an HNSW index through SQL on the host library's graph."""
+    from matrixone_tpu_torch import native
+    from matrixone_tpu_torch.frontend import Session
+    from matrixone_tpu_torch.utils import datagen
+    from matrixone_tpu_torch.vectorindex import hnsw
+
+    if native.route() != "c":
+        raise AssertionError("14a: the host library did not build: the "
+                             "HNSW graph would take the numpy route")
+    n, d, nq = HNSW_ROWS, args.d, SEARCH_QUERIES
+    t_sub = time.perf_counter()
+    data, queries = datagen.make_clustered(n, d, nq, seed=args.seed,
+                                           device=dev)
+    data_np, q_np = data.cpu().numpy(), queries.cpu().numpy()
+    sess = Session(device=dev)
+    load_s = load_items(sess, "hitems", data_np)
+    t0 = time.perf_counter()
+    sess.execute(f"create index hn using hnsw on hitems (emb) m = {HNSW_M} "
+                 f"ef_construction = {HNSW_EF_CONSTRUCTION}")
+    build_s = time.perf_counter() - t0
+    ix = sess.catalog.indexes["hn"]
+    if not isinstance(ix.index_obj, hnsw.NativeHnswIndex):
+        raise AssertionError("14a: the index is not the native graph")
+    plan = sess.execute("explain " + knn_sql("hitems", q_np[0])).text
+    if "VectorTopK" not in plan or "Scan" in plan:
+        raise AssertionError(f"14a: the plan is not an index scan:\n{plan}")
+    sqls = [knn_sql("hitems", q) for q in q_np]
+    CK.LAUNCHES.reset()
+    with VectorTopKSpy(sess) as spy:
+        rows, secs = timed_statements(torch, sess, sqls)
+    launches = kernel_launches(CK, "14a_hnsw_sql", ALL_KERNELS)
+    t0 = time.perf_counter()
+    for i, q in enumerate(q_np):
+        cand = spy.ids[i]
+        k = len(cand)
+        _d, walk = hnsw.search(ix.index_obj, q[None], k=k,
+                               ef=max(64, 2 * k))
+        if not np.array_equal(cand, walk[0][walk[0] >= 0]):
+            raise AssertionError(f"14a query {i}: the VectorTopK "
+                                 f"candidates are not the walk's")
+        rerank_check(f"14a query {i}", rows[i], cand, data_np, q)
+    check_s = time.perf_counter() - t0
+    truth = exact_top_ids(torch, data, q_np, K)
+    recall = float(np.mean([len({r[0] for r in got} & set(t.tolist())) / K
+                            for got, t in zip(rows, truth)]))
+    if recall < 0.80:
+        raise AssertionError(f"14a: recall@20 {recall:.4f} < 0.80")
+    before = fusion_counts()
+    for _ in range(3):
+        sess.execute(sqls[0])
+    warm = counts_since(before)
+    if warm["captures"]:
+        raise AssertionError("14a: a warm statement captured a graph")
+    prof = profile_run(torch, lambda: timed_statements(torch, sess,
+                                                       sqls[:8]),
+                       "14a, 8 statements")
+    out = {"rows": n, "d": d, "M": HNSW_M,
+           "ef_construction": HNSW_EF_CONSTRUCTION, "plan": plan,
+           "load_seconds": load_s, "build_seconds": build_s,
+           "candidates": len(spy.ids[0]), "launches": launches,
+           "recall_at_20_vs_exact_f64": recall, "check_seconds": check_s,
+           "warm_fusion_counts": warm, "profile": prof,
+           "device_busy_share": prof["device_busy_share"],
+           "index_bytes_on_card":
+               sess.catalog.index_cache.stats()["used"],
+           **ms_stats(secs)}
+    out["seconds"] = time.perf_counter() - t_sub
+    log(f"[14a] hnsw over {n}x{d}: create index {build_s:.2f}s (native, "
+        f"M {HNSW_M}, ef_construction {HNSW_EF_CONSTRUCTION}); "
+        f"{nq} statements p50 {out['ms_p50']:.2f} ms p99 "
+        f"{out['ms_p99']:.2f} ms, busy {prof['device_busy_share']:.1%}; "
+        f"candidates the walk's, rows the f64 re-rank; recall@20 "
+        f"{recall:.4f}; 14a {out['seconds']:.1f}s")
+    sess.execute("drop table hitems")
+    return out
+
+
+def ft_corpus(n_docs: int, seed: int) -> tuple:
+    """n_docs documents of FT_DOC_TOKENS tokens drawn Zipf(FT_ZIPF) from
+    a vocabulary of FT_VOCAB lowercase words made from `seed` -> (texts,
+    words by rank)."""
+    rng = np.random.default_rng(seed)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    words = {}
+    while len(words) < FT_VOCAB:
+        w = "".join(rng.choice(letters, int(rng.integers(3, 11))))
+        words.setdefault(w, None)
+    words = list(words)
+    p = 1.0 / np.arange(1, FT_VOCAB + 1) ** FT_ZIPF
+    lens = rng.integers(FT_DOC_TOKENS[0], FT_DOC_TOKENS[1] + 1, n_docs)
+    draws = rng.choice(FT_VOCAB, int(lens.sum()), p=p / p.sum())
+    cuts = np.cumsum(lens)[:-1]
+    vocab = np.asarray(words, dtype=object)
+    texts = [" ".join(chunk) for chunk in np.split(vocab[draws], cuts)]
+    return texts, words
+
+
+def ft_queries(words: list, seed: int) -> list:
+    rng = np.random.default_rng(seed + 14)
+    lo, hi = FT_TERM_RANKS
+    return [" ".join(words[r - 1] for r in
+                     rng.integers(lo, hi + 1, int(rng.integers(1, 4))))
+            for _ in range(SEARCH_QUERIES)]
+
+
+def match_sql(query: str, k: int = FT_K) -> str:
+    return (f"select id, match(body) against ('{query}') sc from docs "
+            f"order by sc desc limit {k}")
+
+
+def bm25_oracle(host: dict, query: str) -> np.ndarray:
+    """f64 BM25 scores of every document over the index's own arrays
+    (host copies), the terms summed in query order."""
+    from matrixone_tpu_torch import fulltext as FT
+    s = np.zeros(host["n_docs"])
+    k1 = host["k1"]
+    for t in FT.tokenize(query):
+        tid = host["vocab"].get(t)
+        if tid is None:
+            continue
+        a, b = host["term_offsets"][tid], host["term_offsets"][tid + 1]
+        docs = host["doc_idx"][a:b]
+        tf = host["tf"][a:b].astype(np.float64)
+        s[docs] += float(host["idf"][tid]) * tf * (k1 + 1.0) / (
+            tf + host["doc_norm"][docs].astype(np.float64))
+    return s
+
+
+def ft_host(index) -> dict:
+    return {"doc_idx": index.doc_idx.cpu().numpy(),
+            "tf": index.tf.cpu().numpy(),
+            "term_offsets": index.term_offsets,
+            "idf": index.idf.cpu().numpy(),
+            "doc_norm": index.doc_norm.cpu().numpy(),
+            "vocab": index.vocab, "n_docs": index.n_docs, "k1": index.k1}
+
+
+def ft_rows_check(label: str, rows, scores: np.ndarray, gid_to_id,
+                  k: int = FT_K, rtol: float = 1e-5) -> int:
+    """A MATCH statement's rows against the oracle's top k (ties to the
+    lower position): the same ids, but where the two rows' oracle scores
+    lie within rtol of the oracle's score at that rank (a near-tie the
+    card's f32 sums may break either way); every score within rtol of
+    the oracle's -> the number of such swaps."""
+    order = np.argsort(-scores, kind="stable")[:k]
+    want_ids = gid_to_id(order)
+    got_ids = np.array([r[0] for r in rows], np.int64)
+    got_sc = np.array([r[1] for r in rows], np.float64)
+    if len(rows) != min(k, len(scores)):
+        raise AssertionError(f"{label}: {len(rows)} rows")
+    by_id = dict(zip(gid_to_id(np.arange(len(scores))).tolist(),
+                     scores.tolist()))
+    swaps = 0
+    for j, (g, w) in enumerate(zip(got_ids.tolist(), want_ids.tolist())):
+        ref = scores[order[j]]
+        if g != w:
+            swaps += 1
+            if not (abs(by_id[g] - ref) <= rtol * abs(ref)
+                    and abs(by_id[w] - ref) <= rtol * abs(ref)):
+                raise AssertionError(
+                    f"{label}: rank {j} holds id {g}, the oracle {w}")
+        if abs(got_sc[j] - by_id[g]) > rtol * abs(by_id[g]):
+            raise AssertionError(f"{label}: id {g} scored {got_sc[j]}, "
+                                 f"the oracle {by_id[g]}")
+    return swaps
+
+
+class StageTimer:
+    """Sums the seconds spent in named module functions while in scope
+    (the full-text build's stages)."""
+
+    def __init__(self, targets):
+        self.targets = targets          # [(owner, attribute name)]
+        self.seconds = {}
+
+    def __enter__(self):
+        self._saved = []
+        for owner, name in self.targets:
+            real = getattr(owner, name)
+            self._saved.append((owner, name, real))
+            setattr(owner, name, self._wrap(name, real))
+        return self
+
+    def _wrap(self, name, real):
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return real(*a, **kw)
+            finally:
+                self.seconds[name] = self.seconds.get(name, 0.0) + \
+                    time.perf_counter() - t0
+        return timed
+
+    def __exit__(self, *exc):
+        for owner, name, real in self._saved:
+            setattr(owner, name, real)
+        return False
+
+
+def create_fulltext(torch, session, sql: str) -> dict:
+    """CREATE INDEX ... USING fulltext, timed by stage: the host read of
+    the texts, tokenizing, the CSR arrays, the upload."""
+    import gc
+
+    from matrixone_tpu_torch import fulltext as FT
+    from matrixone_tpu_torch.storage import engine as E
+    gc.collect()
+    mem0 = torch.cuda.memory_allocated()
+    with StageTimer([(E.MVCCTable, "read_texts"), (FT, "tokenize"),
+                     (FT, "build_arrays"), (FT, "from_arrays")]) as st:
+        t0 = time.perf_counter()
+        session.execute(sql)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    sec = st.seconds
+    return {"build_seconds": total, "read_texts_seconds": sec["read_texts"],
+            "tokenize_seconds": sec["tokenize"],
+            "csr_seconds": sec["build_arrays"] - sec["tokenize"],
+            "upload_seconds": sec["from_arrays"],
+            "device_bytes_allocated": torch.cuda.memory_allocated() - mem0}
+
+
+def phase_fulltext_sql(torch, CK, args, dev: str) -> tuple:
+    """14b and 14c: a FULLTEXT index through SQL, BM25 on the card, and
+    its upkeep -> (14b report, 14c report)."""
+    import gc
+
+    from matrixone_tpu_torch.frontend import Session
+    from matrixone_tpu_torch.vectorindex.cache import index_nbytes
+
+    t_sub = time.perf_counter()
+    n = FT_DOCS
+    t0 = time.perf_counter()
+    texts, words = ft_corpus(n, args.seed)
+    corpus_s = time.perf_counter() - t0
+    sess = Session(device=dev)
+    eng = sess.catalog
+    sess.execute("create table docs (id bigint primary key, body text)")
+    t0 = time.perf_counter()
+    eng.get_table("docs").insert_numpy(
+        {"id": np.arange(n, dtype=np.int64)},
+        strings={"body": (np.arange(n), texts)})
+    load_s = time.perf_counter() - t0
+    build = create_fulltext(torch, sess,
+                            "create index ft using fulltext on docs (body)")
+    ix = eng.indexes["ft"]
+    index = ix.index_obj
+    nbytes = index_nbytes(index)
+    if index.doc_idx.device.type != dev or \
+            not np.array_equal(ix.options["_row_gids"], np.arange(n)):
+        raise AssertionError("14b: the postings are not on the card, or "
+                             "the row ids are not the positions")
+    host = ft_host(index)
+    qs = ft_queries(words, args.seed)
+    plan = sess.execute("explain " + match_sql(qs[0])).text
+    if "FulltextTopK" not in plan or "Scan" in plan:
+        raise AssertionError(f"14b: the plan is not a FulltextTopK:\n{plan}")
+    CK.LAUNCHES.reset()
+    rows, secs = timed_statements(torch, sess, [match_sql(q) for q in qs])
+    launches = kernel_launches(CK, "14b_fulltext_sql", ALL_KERNELS)
+    t0 = time.perf_counter()
+    swaps = sum(ft_rows_check(f"14b query {i}", r, bm25_oracle(host, q),
+                              lambda pos: pos)
+                for i, (q, r) in enumerate(zip(qs, rows)))
+    check_s = time.perf_counter() - t0
+    prof = profile_run(torch, lambda: timed_statements(
+        torch, sess, [match_sql(q) for q in qs[:8]]), "14b, 8 statements")
+    b = {"docs": n, "vocabulary": len(index.vocab),
+         "postings": int(host["term_offsets"][-1]), "plan": plan,
+         "corpus_seconds": corpus_s, "load_seconds": load_s, **build,
+         "index_bytes": nbytes, "launches": launches,
+         "near_tie_swaps": swaps, "check_seconds": check_s,
+         "profile": prof, "device_busy_share": prof["device_busy_share"],
+         "queries": qs[:4], **ms_stats(secs)}
+    b["seconds"] = time.perf_counter() - t_sub
+    log(f"[14b] fulltext over {n} documents ({b['postings']} postings, "
+        f"{b['vocabulary']} terms): create index {build['build_seconds']:.2f}s "
+        f"(read {build['read_texts_seconds']:.2f}s, tokenize "
+        f"{build['tokenize_seconds']:.2f}s, CSR {build['csr_seconds']:.2f}s, "
+        f"upload {build['upload_seconds']:.3f}s), {nbytes / 1e6:.1f} MB on "
+        f"the card; {len(qs)} statements p50 {b['ms_p50']:.2f} ms p99 "
+        f"{b['ms_p99']:.2f} ms, busy {prof['device_busy_share']:.1%}; rows "
+        f"the f64 oracle's ({swaps} near-tie swaps); 14b "
+        f"{b['seconds']:.1f}s")
+
+    # 14c: upkeep
+    t_sub = time.perf_counter()
+    c = {}
+    rng = np.random.default_rng(args.seed + 15)
+    new_texts = []
+    for _ in range(FT_NEW_DOCS):
+        toks = list(rng.choice(words[:2000], int(rng.integers(40, 121))))
+        toks.insert(int(rng.integers(0, len(toks))), FT_NEW_TERM)
+        new_texts.append(" ".join(toks))
+    t0 = time.perf_counter()
+    sess.execute("insert into docs values " + ", ".join(
+        f"({n + i}, '{t}')" for i, t in enumerate(new_texts)))
+    c["insert_seconds"] = time.perf_counter() - t0
+    new_ids = set(range(n, n + FT_NEW_DOCS))
+    CK.LAUNCHES.reset()
+    t0 = time.perf_counter()
+    got = sess.execute(match_sql(FT_NEW_TERM)).rows()
+    torch.cuda.synchronize()
+    c["rebuild_statement_seconds"] = time.perf_counter() - t0
+    c["launches"] = kernel_launches(CK, "14c_fulltext_upkeep", ALL_KERNELS)
+    rebuilt = ix.index_obj
+    if rebuilt is index or not {r[0] for r in got} <= new_ids \
+            or not all(r[1] > 0 for r in got):
+        raise AssertionError("14c: the inserted documents were not found "
+                             "by a rebuilt index")
+    ft_rows_check("14c new term", got,
+                  bm25_oracle(ft_host(rebuilt), FT_NEW_TERM),
+                  lambda pos: np.asarray(ix.options["_row_gids"])[pos])
+    del index, rebuilt
+    sess.execute(f"delete from docs where id >= {n}")
+    t0 = time.perf_counter()
+    got = sess.execute(match_sql(FT_NEW_TERM)).rows()
+    torch.cuda.synchronize()
+    c["after_delete_statement_seconds"] = time.perf_counter() - t0
+    if {r[0] for r in got} & new_ids or any(r[1] != 0 for r in got):
+        raise AssertionError("14c: deleted documents are still found")
+    # eviction under a small budget frees the postings' card memory
+    idx_bytes = index_nbytes(ix.index_obj)
+    gc.collect()
+    mem0 = torch.cuda.memory_allocated()
+    budget = eng.index_cache.budget
+    eng.index_cache.budget = 1
+    sess.execute("create table small (id bigint, body text)")
+    sess.execute("insert into small values (1, 'a b'), (2, 'b c')")
+    sess.execute("create index fs using fulltext on small (body)")
+    eng.index_cache.budget = budget
+    gc.collect()
+    mem1 = torch.cuda.memory_allocated()
+    c.update(index_bytes=idx_bytes, memory_before_eviction=mem0,
+             memory_after_eviction=mem1,
+             evictions=eng.index_cache.stats()["evictions"])
+    if ix.index_obj is not None or not ix.dirty \
+            or mem0 - mem1 < 0.9 * idx_bytes:
+        raise AssertionError(f"14c: eviction freed {mem0 - mem1} B of a "
+                             f"{idx_bytes} B index")
+    t0 = time.perf_counter()
+    got = sess.execute(match_sql(qs[0])).rows()
+    torch.cuda.synchronize()
+    c["rebuild_after_eviction_seconds"] = time.perf_counter() - t0
+    if ix.index_obj is None or [r[0] for r in got] != \
+            [r[0] for r in rows[0]]:
+        raise AssertionError("14c: the evicted index was not rebuilt to "
+                             "the same answer")
+    c["seconds"] = time.perf_counter() - t_sub
+    log(f"[14c] {FT_NEW_DOCS} documents with a new term inserted "
+        f"({c['insert_seconds']:.2f}s) found by the lazy rebuild "
+        f"({c['rebuild_statement_seconds']:.2f}s with the statement); "
+        f"deleted: gone ({c['after_delete_statement_seconds']:.2f}s); "
+        f"eviction freed {(mem0 - mem1) / 1e6:.1f} of {idx_bytes / 1e6:.1f} "
+        f"MB, rebuilt by the next statement "
+        f"({c['rebuild_after_eviction_seconds']:.2f}s); 14c "
+        f"{c['seconds']:.1f}s")
+    sess.execute("drop table small")
+    sess.execute("drop table docs")
+    return b, c
+
+
+def stub_embedding(text: str, dim: int) -> list:
+    """The loopback endpoint's vector for a text: f32 values drawn from
+    the text's CRC."""
+    import zlib
+    rng = np.random.default_rng(zlib.crc32(text.encode()))
+    return rng.standard_normal(dim).astype(np.float32).tolist()
+
+
+def embed_endpoint():
+    """A loopback embedding endpoint served from a thread -> (server,
+    url, calls)."""
+    import http.server
+
+    calls = []
+    lock = threading.Lock()
+
+    class Handler(http.server.BaseHTTPRequestHandler):
+        def log_message(self, *a):     # noqa: N802
+            pass
+
+        def do_POST(self):             # noqa: N802
+            req = json.loads(self.rfile.read(
+                int(self.headers.get("Content-Length", 0))))
+            with lock:
+                calls.append(req["text"])
+            body = json.dumps({"embedding": stub_embedding(
+                req["text"], int(req["dim"]))}).encode()
+            self.send_response(200)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+    srv = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    return srv, f"http://127.0.0.1:{srv.server_address[1]}/embed", calls
+
+
+def phase_llm_embed(torch, CK, args, dev: str) -> dict:
+    """14d: llm_embed over a dictionary column, one call per distinct
+    text, the vectors gathered on the card."""
+    from matrixone_tpu_torch.frontend import Session
+    t_sub = time.perf_counter()
+    srv, url, calls = embed_endpoint()
+    try:
+        texts = [f"embedding text {i:03d} " + "lorem " * (i % 9)
+                 for i in range(LLM_TEXTS)]
+        rng = np.random.default_rng(args.seed + 16)
+        codes = rng.integers(0, LLM_TEXTS, LLM_ROWS)
+        codes[:LLM_TEXTS] = np.arange(LLM_TEXTS)
+        sess = Session(device=dev)
+        sess.execute(f"set llm_endpoint = '{url}'")
+        sess.execute(f"set llm_embed_dim = {LLM_DIM}")
+        sess.execute("create table llm (id bigint primary key, "
+                     "txt varchar(80))")
+        sess.catalog.get_table("llm").insert_numpy(
+            {"id": np.arange(LLM_ROWS, dtype=np.int64)},
+            strings={"txt": (codes, texts)})
+        CK.LAUNCHES.reset()
+        t0 = time.perf_counter()
+        rows = sess.execute("select id, llm_embed(txt) e from llm").rows()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = kernel_launches(CK, "14d_llm_embed", ALL_KERNELS)
+        if len(calls) != LLM_TEXTS or sorted(calls) != sorted(texts):
+            raise AssertionError(f"14d: {len(calls)} endpoint calls for "
+                                 f"{LLM_TEXTS} distinct texts")
+        want = np.asarray([stub_embedding(t, LLM_DIM) for t in texts],
+                          np.float32)
+        ids = np.array([r[0] for r in rows], np.int64)
+        got = np.asarray([r[1] for r in rows], np.float32)
+        if len(rows) != LLM_ROWS or not np.array_equal(got,
+                                                       want[codes[ids]]):
+            raise AssertionError("14d: a row's vector is not the "
+                                 "endpoint's for its text")
+        sess.execute("drop table llm")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    out = {"rows": LLM_ROWS, "distinct_texts": LLM_TEXTS, "dim": LLM_DIM,
+           "endpoint_calls": len(calls), "statement_seconds": secs,
+           "launches": launches, "seconds": time.perf_counter() - t_sub}
+    log(f"[14d] llm_embed over {LLM_ROWS} rows of {LLM_TEXTS} texts: "
+        f"{len(calls)} endpoint calls, every row the endpoint's vector; "
+        f"the statement {secs:.2f}s; 14d {out['seconds']:.1f}s")
+    return out
+
+
+def phase_search_sql(torch, CK, args, dev: str = "cuda") -> dict:
+    """Phase 14: HNSW, full text and llm_embed through SQL."""
+    t_phase = time.perf_counter()
+    report = {"14a": phase_hnsw_sql(torch, CK, args, dev)}
+    report["14b"], report["14c"] = phase_fulltext_sql(torch, CK, args, dev)
+    report["14d"] = phase_llm_embed(torch, CK, args, dev)
+    report["seconds"] = time.perf_counter() - t_phase
+    log(f"[14] phase 14 took {report['seconds']:.1f}s")
+    return report
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=1_000_000)
@@ -4990,6 +5532,7 @@ def main(argv=None) -> int:
     log(f"[11] phase 11 took {report['objects']['seconds']:.1f}s")
     report["vector_sql"], vsql_l2, vsql_adc = phase_vector_sql(torch, CK,
                                                                args)
+    report["search_sql"] = phase_search_sql(torch, CK, args)
     search_rows += (search_path + tpch_search + rf01_search + refresh_search
                     + exec_search + fusion_search + spill_search
                     + obj_search)
@@ -5075,6 +5618,14 @@ def main(argv=None) -> int:
                       "path_launches": r["path_launches"],
                       **{key: r[key] for key in timed}}
                   for k, r in vsql_timed.items()}
+    # phase 14 (HNSW, full text, llm_embed) launches none of the five
+    p14 = {sub: rec["launches"] for sub, rec in report["search_sql"].items()
+           if isinstance(rec, dict) and "launches" in rec}
+
+    def p14_launches(*names):
+        return {sub: sum(launches[nm]["launches"] for nm in names)
+                for sub, launches in p14.items()}
+
     record = {"kernels": [{
         "name": "l2_distance_sq", "route": "cuda",
         "source": "matrixone_tpu_torch/csrc/l2_distance.cu",
@@ -5087,7 +5638,8 @@ def main(argv=None) -> int:
             "truth": report["truth"]["launches"],
             "4_pq_build": pq_build["l2_distance_sq"]["launches"],
             "4_pq_search": pq_search["l2_distance_sq"]["launches"],
-            **{p: v["launches"] for p, v in vsql_l2_launches.items()}},
+            **{p: v["launches"] for p, v in vsql_l2_launches.items()},
+            **p14_launches("l2_distance_sq")},
         "phase13": vsql_timed["l2_distance_sq"],
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         **{key: l2_row[key] for key in timed},
@@ -5104,7 +5656,8 @@ def main(argv=None) -> int:
             "4_pq_build": pq_build["adc_score_lists"]["launches"]
             + pq_build["adc_score"]["launches"],
             "13c_ivfpq_sql":
-                vsql["13c"]["launches"]["adc_score_lists"]["launches"]},
+                vsql["13c"]["launches"]["adc_score_lists"]["launches"],
+            **p14_launches("adc_score_lists", "adc_score")},
         "phase13": vsql_timed["adc_score"],
         "max_abs_err": max(r["max_abs_err"] for r in adc_rows),
         **{key: adc_row[key] for key in timed},
@@ -5116,7 +5669,8 @@ def main(argv=None) -> int:
         "name": "l2_distance_sq_masked", "route": "cuda",
         "source": "matrixone_tpu_torch/csrc/l2_distance.cu",
         "replaces": "matrixone_tpu/ops/pallas_kernels.py:121",
-        "launches": 0, "launches_by_path": {},
+        "launches": 0,
+        "launches_by_path": p14_launches("l2_distance_sq_masked"),
         "on_path": "none: the JAX package wires it to nothing",
         "max_abs_err": max(r["max_abs_err"] for r in masked_rows),
         **{key: masked_row[key] for key in timed},
@@ -5135,7 +5689,8 @@ def main(argv=None) -> int:
             **executor_launches["sorted_search"],
             **fusion_launches, **spill_launches["sorted_search"],
             **object_launches["sorted_search"],
-            **serving_launches["sorted_search"]},
+            **serving_launches["sorted_search"],
+            **p14_launches("sorted_search")},
         "launches_under_fusion": fusion_launches["9a_q3"],
         "max_abs_err": max(r["max_abs_err"] for r in search_rows),
         **{key: search_row[key] for key in timed},
@@ -5153,7 +5708,8 @@ def main(argv=None) -> int:
             **executor_launches["segment_sum"],
             **spill_launches["segment_sum"],
             **object_launches["segment_sum"],
-            **serving_launches["segment_sum"]},
+            **serving_launches["segment_sum"],
+            **p14_launches("segment_sum")},
         "max_abs_err": max(r["max_abs_err"] for r in segsum_rows),
         **{key: segsum_row[key] for key in timed},
         **{key: segsum_row[key] for key in (

@@ -45,16 +45,19 @@ step calls, trace and capture milliseconds and cache outcome), and
 `select mo_ctl(...)` with checkpoint, merge, flush, fault, serving,
 fusion, trace, metrics and keys.
 
-Vector indexes: CREATE INDEX ... USING ivfflat | ivfpq (op_type
-vector_l2_ops, vector_cosine_ops or vector_ip_ops; ivfpq not with ip)
-builds the index on the session's device and registers it in the
-engine's catalog and index cache; SHOW INDEXES lists them; a SELECT of
-the form `ORDER BY <distance>(col, '[...]') LIMIT k` is rewritten to a
-VectorTopK source (`sql/optimize.apply_indices`, `vm/vector_scan.py`)
-outside transactions.
+Secondary indexes: CREATE INDEX ... USING ivfflat | ivfpq | hnsw
+(op_type vector_l2_ops, vector_cosine_ops or vector_ip_ops; neither
+ivfpq nor hnsw with ip) and USING fulltext over one or more text
+columns build the index (on the session's device; an HNSW graph in
+host memory) and register it in the engine's catalog and index cache;
+SHOW INDEXES lists them.  Outside transactions a SELECT of the form
+`ORDER BY <distance>(col, '[...]') LIMIT k` is rewritten to a
+VectorTopK source (`vm/vector_scan.py`) and one of the form
+`ORDER BY MATCH(cols) AGAINST ('...') DESC LIMIT k` to a FulltextTopK
+source (`vm/fulltext_scan.py`), both by `sql/optimize.apply_indices`.
 
 Not ported yet (ROADMAP.md, section A): LOAD DATA and `load_file()`,
-HNSW and FULLTEXT indexes, materialized views, UDFs, accounts, the mo_ctl commands over
+materialized views, UDFs, accounts, the mo_ctl commands over
 modules the port lacks (lint, san, qa, crash, mview, rpc, udf), and
 every other statement, which raises NotImplementedError.  The session
 runs on `device` (CUDA unless the caller names the CPU); every scan
@@ -1151,26 +1154,33 @@ class Session:
         from matrixone_tpu_torch import indexing
         table = self.catalog.get_table(stmt.table)
         algo = (stmt.using or "").lower()
-        if algo in ("hnsw", "fulltext"):
-            raise _not_ported(f"{algo} indexes")
-        if algo not in ("ivfflat", "ivf_flat", "ivfpq", "ivf_pq"):
+        if algo == "fulltext":
+            for col in stmt.columns:
+                if not dict(table.meta.schema)[col].is_varlen:
+                    raise BindError(
+                        f"fulltext index requires text columns ({col})")
+            meta = IndexMeta(stmt.name, stmt.table, stmt.columns,
+                             "fulltext", dict(stmt.options), dirty=True)
+        elif algo in ("ivfflat", "ivf_flat", "ivfpq", "ivf_pq", "hnsw"):
+            col = stmt.columns[0]
+            coltype = dict(table.meta.schema)[col]
+            if not coltype.is_vector:
+                raise BindError(f"{algo} index requires a vecf32 column")
+            op_type = stmt.options.get("op_type", "vector_l2_ops")
+            metric = {"vector_l2_ops": "l2", "vector_cosine_ops": "cosine",
+                      "vector_ip_ops": "ip"}.get(op_type, "l2")
+            algo_name = ("hnsw" if algo == "hnsw"
+                         else "ivfpq" if "pq" in algo else "ivfflat")
+            if algo_name == "ivfpq" and metric == "ip":
+                raise BindError(
+                    "ivfpq does not support vector_ip_ops; use ivfflat")
+            meta = IndexMeta(stmt.name, stmt.table, stmt.columns,
+                             algo_name, dict(stmt.options), dirty=True)
+            meta.options["_metric"] = metric
+        else:
             raise BindError(f"unsupported index algo {stmt.using!r}")
-        col = stmt.columns[0]
-        coltype = dict(table.meta.schema)[col]
-        if not coltype.is_vector:
-            raise BindError(f"{algo} index requires a vecf32 column")
-        op_type = stmt.options.get("op_type", "vector_l2_ops")
-        metric = {"vector_l2_ops": "l2", "vector_cosine_ops": "cosine",
-                  "vector_ip_ops": "ip"}.get(op_type, "l2")
-        algo_name = "ivfpq" if "pq" in algo else "ivfflat"
-        if algo_name == "ivfpq" and metric == "ip":
-            raise BindError(
-                "ivfpq does not support vector_ip_ops; use ivfflat")
-        meta = IndexMeta(stmt.name, stmt.table, stmt.columns, algo_name,
-                         dict(stmt.options), dirty=True)
-        meta.options["_metric"] = metric
         try:
-            indexing.build_ivfflat(self.catalog, meta, self.device)
+            indexing.BUILD_FNS[meta.algo](self.catalog, meta, self.device)
         except ValueError as e:
             raise BindError(str(e))
         self.catalog.register_index(meta)

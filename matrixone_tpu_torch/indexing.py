@@ -1,17 +1,18 @@
 """Index build/refresh shared by DDL and the scan operators.
 
-The port of `matrixone_tpu/indexing.py` for the two index kinds whose
-search runs the card's kernels, IVF-Flat and IVF-PQ (reference analogue:
-the iscp IndexSync consumer + idxcron re-clustering, `pkg/iscp`,
+The port of `matrixone_tpu/indexing.py` (reference analogue: the iscp
+IndexSync consumer + idxcron re-clustering, `pkg/iscp`,
 `pkg/vectorindex/idxcron`).  Commits mark dependent indexes dirty
 (engine.commit_txn) and the next index-accelerated query refreshes
-lazily: rows inserted since the last build go to a delta segment that
-the search scans exactly, and past `RECLUSTER_FRACTION` of the indexed
-rows the index is built again.  An index is built on the device the
-caller names (a session's), and refreshed where it lies.
+lazily.  IVF-Flat and IVF-PQ refresh incrementally: rows inserted since
+the last build go to a delta segment that the search scans exactly, and
+past `RECLUSTER_FRACTION` of the indexed rows the index is built again.
+HNSW (a host graph) and FULLTEXT (BM25 postings on the device) refresh
+by a full rebuild, as in the JAX package.  An index is built on the
+device the caller names (a session's), and refreshed where it lies.
 
-Not ported yet (ROADMAP.md, section A): the HNSW and FULLTEXT builders,
-and `register_recluster_task`, which needs the task service.
+Not ported yet (ROADMAP.md, section A, step 5):
+`register_recluster_task`, which needs the task service.
 """
 
 from __future__ import annotations
@@ -26,15 +27,22 @@ from matrixone_tpu_torch.vectorindex.ivf_pq import pick_subspaces
 RECLUSTER_FRACTION = 0.1
 
 
+def _index_device(ix: IndexMeta, device):
+    """`device`, else where the last build lay (the meta remembers it
+    across an eviction), else CUDA; remembered on the meta."""
+    from matrixone_tpu_torch import resolve_device
+    dev = resolve_device(device if device is not None
+                         else ix.options.get("_device"))
+    ix.options["_device"] = dev
+    return dev
+
+
 def build_ivfflat(engine: Engine, ix: IndexMeta, device=None) -> None:
     """Build an IVF-Flat or IVF-PQ index (`ix.algo`) over the table's
     visible rows, on `device`, else where the last build lay (the meta
     remembers it across an eviction), else CUDA."""
-    from matrixone_tpu_torch import resolve_device
     from matrixone_tpu_torch.vectorindex import ivf_flat, ivf_pq
-    dev = resolve_device(device if device is not None
-                         else ix.options.get("_device"))
-    ix.options["_device"] = dev
+    dev = _index_device(ix, device)
     table = engine.get_table(ix.table)
     data, gids = table.read_column_f32(ix.columns[0])
     if len(data) == 0:
@@ -61,6 +69,58 @@ def build_ivfflat(engine: Engine, ix: IndexMeta, device=None) -> None:
     ix.dirty = False
 
 
+def build_hnsw(engine: Engine, ix: IndexMeta, device=None) -> None:
+    """Build an HNSW graph over the table's visible rows.  The graph is
+    host memory (the walk stays on the host, as in the JAX package), so
+    `device` is not used."""
+    from matrixone_tpu_torch.vectorindex import hnsw
+    table = engine.get_table(ix.table)
+    data, gids = table.read_column_f32(ix.columns[0])
+    if len(data) == 0:
+        ix.index_obj = None
+        ix.options["_row_gids"] = gids
+        ix.dirty = False
+        return
+    m = int(ix.options.get("m", 16))
+    ef_c = int(ix.options.get("ef_construction", 64))
+    metric = ix.options.get("_metric", "l2")
+    ix.index_obj = hnsw.build(np.asarray(data), M=m, ef_construction=ef_c,
+                              metric=metric)
+    ix.options["_row_gids"] = gids
+    ix.options.pop("_delta_vecs", None)
+    ix.options.pop("_delta_gids", None)
+    ix.dirty = False
+
+
+def build_fulltext(engine: Engine, ix: IndexMeta, device=None) -> None:
+    """Build the BM25 index of the table's visible rows on `device`
+    (see `_index_device`).  A multi-column index indexes the columns'
+    texts joined by a space, as the JAX package does."""
+    from matrixone_tpu_torch import fulltext as FT
+    dev = _index_device(ix, device)
+    table = engine.get_table(ix.table)
+    texts = None
+    gids = None
+    for col in ix.columns:
+        col_texts, col_gids = table.read_texts(col)
+        if texts is None:
+            texts, gids = col_texts, col_gids
+        else:
+            texts = [" ".join(t for t in (a, b) if t) or None
+                     for a, b in zip(texts, col_texts)]
+    ix.index_obj = FT.build(texts or [], device=dev)
+    ix.options["_row_gids"] = gids if gids is not None \
+        else np.zeros(0, np.int64)
+    ix.options.pop("_delta_vecs", None)
+    ix.options.pop("_delta_gids", None)
+    ix.dirty = False
+
+
+#: the build function of each index kind
+BUILD_FNS = {"ivfflat": build_ivfflat, "ivfpq": build_ivfflat,
+            "hnsw": build_hnsw, "fulltext": build_fulltext}
+
+
 def refresh_if_dirty(engine: Engine, ix: IndexMeta, device=None) -> None:
     if not ix.dirty:
         return
@@ -69,8 +129,9 @@ def refresh_if_dirty(engine: Engine, ix: IndexMeta, device=None) -> None:
     with engine._commit_lock:
         if not ix.dirty:
             return
-        if not _try_incremental(engine, ix):
-            build_ivfflat(engine, ix, device)
+        if ix.algo not in ("ivfflat", "ivfpq") or \
+                not _try_incremental(engine, ix):
+            BUILD_FNS[ix.algo](engine, ix, device)
         register_in_cache(engine, ix)
 
 
@@ -112,7 +173,7 @@ def fold_delta(engine: Engine, ix: IndexMeta, device=None) -> bool:
         has_delta = len(ix.options.get("_delta_gids", ())) > 0
         if not (ix.dirty or has_delta):
             return False
-        build_ivfflat(engine, ix, device)
+        BUILD_FNS[ix.algo](engine, ix, device)
         register_in_cache(engine, ix)
         return True
 

@@ -16,8 +16,7 @@ Evaluation cost model matches the other string functions: host work is
 per DISTINCT dictionary entry, so `llm_chat(col)` over a million rows
 with 50 distinct values makes 50 calls, and results gather on device.
 
-The port's copy of `matrixone_tpu/llm.py` (pure Python), without
-`embed`: `llm_embed` is not ported yet.
+The port's copy of `matrixone_tpu/llm.py` (pure Python).
 """
 
 from __future__ import annotations
@@ -25,7 +24,7 @@ from __future__ import annotations
 import json
 import os
 import urllib.request
-from typing import Optional
+from typing import List, Optional
 
 
 class LLMError(RuntimeError):
@@ -85,3 +84,19 @@ def chat(prompt: str, variables: Optional[dict] = None) -> str:
             raise LLMError(f"LLM endpoint returned no 'text': {resp}")
         return str(resp["text"])
     return _cached(("chat", ep, prompt), call)
+
+
+def embed(text: str, dim: int,
+          variables: Optional[dict] = None) -> List[float]:
+    ep = endpoint(variables)
+
+    def call():
+        resp = _post(ep, {"op": "embed", "text": text, "dim": dim})
+        vec = resp.get("embedding")
+        if not isinstance(vec, list) or len(vec) != dim:
+            raise LLMError(
+                f"LLM endpoint returned a bad embedding (want {dim} "
+                f"floats, got {type(vec).__name__}"
+                f"{f' of {len(vec)}' if isinstance(vec, list) else ''})")
+        return [float(x) for x in vec]
+    return _cached(("embed", ep, dim, text), call)

@@ -3,8 +3,10 @@
 The port's counterpart of `matrixone_tpu/native/__init__.py`, for the
 parts the port calls: 64-bit hashing (the splitmix64 of ops/hash.py,
 bit for bit), the blocked bloom filter (the primary-key check of
-storage/engine.py), sorted-set membership, and the roaring bitmap (the
-scan's tombstone filter).  The C++ source is the port's own copy
+storage/engine.py), sorted-set membership, the roaring bitmap (the
+scan's tombstone filter) and the HNSW graph (`mo_hnsw_*`, the walk of
+vectorindex/hnsw.py; `mo_has_hnsw` says whether the loaded library
+has it).  The C++ source is the port's own copy
 (`matrixone_tpu_torch/native/mo_native.cpp`), compiled with g++ at first
 use into `build/torch_native/` of the checkout; where no compiler
 works, the same numpy fallbacks as the JAX package's answer instead.
@@ -87,6 +89,22 @@ def get_lib():
         lib.mo_rbm_to_array.restype = ctypes.c_int64
         lib.mo_rbm_to_array.argtypes = [ctypes.c_void_p, i64p,
                                         ctypes.c_int64]
+        try:        # an older cached .so may predate the HNSW symbols
+            f32p = ctypes.POINTER(ctypes.c_float)
+            lib.mo_hnsw_build.restype = ctypes.c_void_p
+            lib.mo_hnsw_build.argtypes = [f32p, ctypes.c_int64,
+                                          ctypes.c_int, ctypes.c_int,
+                                          ctypes.c_int, ctypes.c_int,
+                                          ctypes.c_uint64]
+            lib.mo_hnsw_search.argtypes = [ctypes.c_void_p, f32p,
+                                           ctypes.c_int64, ctypes.c_int,
+                                           ctypes.c_int, i64p, f32p]
+            lib.mo_hnsw_n.restype = ctypes.c_int64
+            lib.mo_hnsw_n.argtypes = [ctypes.c_void_p]
+            lib.mo_hnsw_free.argtypes = [ctypes.c_void_p]
+            lib.mo_has_hnsw = True
+        except AttributeError:
+            lib.mo_has_hnsw = False
         _lib = lib
         return _lib
 

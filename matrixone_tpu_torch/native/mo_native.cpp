@@ -1,10 +1,11 @@
 // Host-side native kernels of the port: the port's own copy of the parts
 // of the JAX package's host library that the port calls (splitmix64
-// hashing, the blocked bloom filter, sorted-set membership and the
-// roaring bitmap), behind the same minimal C ABI over dense arrays,
-// called from Python via ctypes (matrixone_tpu_torch/native/__init__.py).
-// No device ever sees this code: it serves the host side of the storage
-// engine (the primary-key bloom filter, the scan's tombstone filter).
+// hashing, the blocked bloom filter, sorted-set membership, the roaring
+// bitmap and the HNSW graph), behind the same minimal C ABI over dense
+// arrays, called from Python via ctypes
+// (matrixone_tpu_torch/native/__init__.py).  No device ever sees this
+// code: it serves the host side of the storage engine (the primary-key
+// bloom filter, the scan's tombstone filter) and the HNSW index's walk.
 //
 // Build: g++ -O3 -shared -fPIC -std=c++17 mo_native.cpp -o libmo_native.so
 
@@ -336,3 +337,259 @@ int64_t mo_rbm_to_array(void* h, int64_t* out, int64_t cap) {
 
 }  // extern "C"
 
+// ---------------------------------------------------------------- HNSW
+// Graph vector index walker in C++ (reference analogue: cgo/usearchex.c +
+// thirdparties/usearch). The card serves batched IVF scans (the flagship
+// ANN path); HNSW exists for the reference's API surface and low-latency
+// single-query lookups, and a pointer-chasing graph walk belongs on the
+// host in native code — a Python walk is ~100x slower at scale.
+// Standard hnswlib-style construction: exponential level sampling,
+// efConstruction beam per level, closest-M neighbor selection with
+// reverse-link pruning. Metrics: 0 = squared l2, 1 = cosine (vectors
+// stored normalized, distance = 1 - dot).
+
+#include <vector>
+#include <queue>
+#include <cmath>
+#include <random>
+#include <algorithm>
+
+namespace {
+
+struct MoHnsw {
+    int64_t n = 0;
+    int d = 0, M = 16, efc = 64, metric = 0;
+    int max_level = -1;
+    int64_t entry = -1;
+    std::vector<float> data;                 // n * d
+    std::vector<int> level_of;               // n
+    // neighbors[l][i*cap(l) .. ]: -1 padded; cap(0)=2M, cap(l>0)=M
+    std::vector<std::vector<int64_t>> nbr;
+
+    int cap(int level) const { return level == 0 ? 2 * M : M; }
+
+    float dist(const float* a, const float* b) const {
+        float acc = 0.f;
+        if (metric == 1) {
+            for (int j = 0; j < d; j++) acc += a[j] * b[j];
+            return 1.0f - acc;
+        }
+        for (int j = 0; j < d; j++) {
+            float t = a[j] - b[j];
+            acc += t * t;
+        }
+        return acc;
+    }
+
+    const float* vec(int64_t i) const { return data.data() + i * d; }
+
+    // beam search at one level from entry points; returns up to ef
+    // (dist, id) pairs, closest first
+    void search_layer(const float* q, std::vector<int64_t>& eps, int ef,
+                      int level,
+                      std::vector<std::pair<float, int64_t>>& out,
+                      std::vector<uint8_t>& visited,
+                      std::vector<int64_t>& touched) const {
+        // max-heap of current results, min-heap of candidates
+        std::priority_queue<std::pair<float, int64_t>> results;
+        std::priority_queue<std::pair<float, int64_t>,
+                            std::vector<std::pair<float, int64_t>>,
+                            std::greater<>> cand;
+        for (int64_t ep : eps) {
+            if (visited[ep]) continue;
+            visited[ep] = 1;
+            touched.push_back(ep);
+            float dq = dist(q, vec(ep));
+            results.emplace(dq, ep);
+            cand.emplace(dq, ep);
+        }
+        while (!cand.empty()) {
+            auto [dc, c] = cand.top();
+            if (!results.empty() && dc > results.top().first &&
+                (int)results.size() >= ef)
+                break;
+            cand.pop();
+            const int64_t* ns = nbr[level].data() + c * cap(level);
+            for (int j = 0; j < cap(level); j++) {
+                int64_t nb = ns[j];
+                if (nb < 0) break;
+                if (visited[nb]) continue;
+                visited[nb] = 1;
+                touched.push_back(nb);
+                float dn = dist(q, vec(nb));
+                if ((int)results.size() < ef || dn < results.top().first) {
+                    results.emplace(dn, nb);
+                    cand.emplace(dn, nb);
+                    if ((int)results.size() > ef) results.pop();
+                }
+            }
+        }
+        out.clear();
+        while (!results.empty()) {
+            out.push_back(results.top());
+            results.pop();
+        }
+        std::reverse(out.begin(), out.end());
+        for (int64_t t : touched) visited[t] = 0;
+        touched.clear();
+    }
+
+    // hnswlib neighbor-select heuristic: keep a candidate only if it is
+    // closer to the base than to every already-kept neighbor (diversity
+    // beats raw proximity for graph connectivity on clustered data);
+    // backfill with the closest rejects if under-full
+    void select_heuristic(std::vector<std::pair<float, int64_t>>& cand,
+                          int c,
+                          std::vector<int64_t>& out) const {
+        std::sort(cand.begin(), cand.end());
+        out.clear();
+        std::vector<int64_t> rejected;
+        for (auto& [dq, id] : cand) {
+            if ((int)out.size() >= c) break;
+            bool good = true;
+            for (int64_t kept : out) {
+                if (dist(vec(id), vec(kept)) < dq) { good = false; break; }
+            }
+            if (good) out.push_back(id);
+            else rejected.push_back(id);
+        }
+        for (int64_t id : rejected) {
+            if ((int)out.size() >= c) break;
+            out.push_back(id);
+        }
+    }
+
+    void link(int level, int64_t from, int64_t to) {
+        int64_t* ns = nbr[level].data() + from * cap(level);
+        int c = cap(level);
+        for (int j = 0; j < c; j++) {
+            if (ns[j] == to) return;
+            if (ns[j] < 0) { ns[j] = to; return; }
+        }
+        // full: re-select with the diversity heuristic over existing + to
+        std::vector<std::pair<float, int64_t>> all;
+        all.reserve(c + 1);
+        for (int j = 0; j < c; j++)
+            all.emplace_back(dist(vec(from), vec(ns[j])), ns[j]);
+        all.emplace_back(dist(vec(from), vec(to)), to);
+        std::vector<int64_t> keep;
+        select_heuristic(all, c, keep);
+        for (int j = 0; j < c; j++)
+            ns[j] = j < (int)keep.size() ? keep[j] : -1;
+    }
+};
+
+}  // namespace
+
+extern "C" {
+
+void* mo_hnsw_build(const float* data, int64_t n, int d, int M, int efc,
+                    int metric, uint64_t seed) {
+    auto* h = new MoHnsw();
+    h->n = n; h->d = d; h->M = M; h->efc = efc; h->metric = metric;
+    h->data.assign(data, data + n * d);
+    if (metric == 1) {                       // store normalized
+        for (int64_t i = 0; i < n; i++) {
+            float* v = h->data.data() + i * d;
+            float s = 0.f;
+            for (int j = 0; j < d; j++) s += v[j] * v[j];
+            s = std::sqrt(std::max(s, 1e-30f));
+            for (int j = 0; j < d; j++) v[j] /= s;
+        }
+    }
+    h->level_of.assign(n, 0);
+    std::mt19937_64 rng(seed);
+    std::uniform_real_distribution<double> uni(1e-12, 1.0);
+    const double mL = 1.0 / std::log(std::max(2, M));
+    int max_lv = 0;
+    for (int64_t i = 0; i < n; i++) {
+        int lv = (int)(-std::log(uni(rng)) * mL);
+        if (lv > 32) lv = 32;
+        h->level_of[i] = lv;
+        if (lv > max_lv) max_lv = lv;
+    }
+    h->nbr.resize(max_lv + 1);
+    for (int l = 0; l <= max_lv; l++)
+        h->nbr[l].assign(n * h->cap(l), -1);
+
+    std::vector<uint8_t> visited(n, 0);
+    std::vector<int64_t> touched;
+    std::vector<std::pair<float, int64_t>> found;
+    std::vector<int64_t> eps;
+    for (int64_t i = 0; i < n; i++) {
+        int lv = h->level_of[i];
+        if (h->entry < 0) {
+            h->entry = i;
+            h->max_level = lv;
+            continue;
+        }
+        eps.assign(1, h->entry);
+        const float* q = h->vec(i);
+        // greedy descent through levels above lv
+        for (int l = h->max_level; l > lv; l--) {
+            h->search_layer(q, eps, 1, l, found, visited, touched);
+            if (!found.empty()) eps.assign(1, found[0].second);
+        }
+        // beam insert at each level from min(lv, max_level) down to 0
+        std::vector<int64_t> picked;
+        for (int l = std::min(lv, h->max_level); l >= 0; l--) {
+            h->search_layer(q, eps, h->efc, l, found, visited, touched);
+            auto cand = found;         // heuristic-select M of the beam
+            h->select_heuristic(cand, h->M, picked);
+            for (int64_t p : picked) {
+                h->link(l, i, p);
+                h->link(l, p, i);
+            }
+            eps.clear();
+            for (auto& f : found) eps.push_back(f.second);
+        }
+        if (lv > h->max_level) {
+            h->max_level = lv;
+            h->entry = i;
+        }
+    }
+    return h;
+}
+
+void mo_hnsw_search(void* handle, const float* queries, int64_t nq, int k,
+                    int ef, int64_t* out_ids, float* out_d) {
+    auto* h = (MoHnsw*)handle;
+    std::vector<uint8_t> visited(h->n, 0);
+    std::vector<int64_t> touched;
+    std::vector<std::pair<float, int64_t>> found;
+    std::vector<float> qbuf(h->d);
+    for (int64_t qi = 0; qi < nq; qi++) {
+        const float* q0 = queries + qi * h->d;
+        const float* q = q0;
+        if (h->metric == 1) {
+            float s = 0.f;
+            for (int j = 0; j < h->d; j++) s += q0[j] * q0[j];
+            s = std::sqrt(std::max(s, 1e-30f));
+            for (int j = 0; j < h->d; j++) qbuf[j] = q0[j] / s;
+            q = qbuf.data();
+        }
+        std::vector<int64_t> eps;
+        if (h->entry >= 0) eps.push_back(h->entry);
+        for (int l = h->max_level; l > 0; l--) {
+            h->search_layer(q, eps, 1, l, found, visited, touched);
+            if (!found.empty()) eps.assign(1, found[0].second);
+        }
+        h->search_layer(q, eps, std::max(ef, k), 0, found, visited,
+                        touched);
+        for (int t = 0; t < k; t++) {
+            if (t < (int)found.size()) {
+                out_ids[qi * k + t] = found[t].second;
+                out_d[qi * k + t] = found[t].first;
+            } else {
+                out_ids[qi * k + t] = -1;
+                out_d[qi * k + t] = INFINITY;
+            }
+        }
+    }
+}
+
+int64_t mo_hnsw_n(void* handle) { return ((MoHnsw*)handle)->n; }
+
+void mo_hnsw_free(void* handle) { delete (MoHnsw*)handle; }
+
+}  // extern "C"

@@ -714,6 +714,27 @@ class MVCCTable:
                 validity[c] = np.zeros(0, np.bool_)
         return arrays, validity
 
+    def read_texts(self, col: str):
+        """Decoded visible strings (None for NULL) plus the gid of each,
+        of a varchar column (the full-text index build).  An
+        object-backed segment is read through its host tier."""
+        dead = self._dead_gids(None, None)
+        d = self.dicts[col]
+        texts, gids = [], []
+        for seg in self.segments:
+            g = np.arange(seg.base_gid, seg.base_gid + seg.n_rows,
+                          dtype=np.int64)
+            codes = np.asarray(seg.arrays[col])
+            val = np.asarray(seg.validity[col])
+            if len(dead):
+                keep = ~np.isin(g, dead)
+                g, codes, val = g[keep], codes[keep], val[keep]
+            texts.extend(d[c] if v else None
+                         for c, v in zip(codes.tolist(), val.tolist()))
+            gids.append(g)
+        return texts, (np.concatenate(gids) if gids
+                       else np.zeros(0, np.int64))
+
     def read_column_f32(self, col: str):
         """Dense f32 matrix of VISIBLE rows (tombstones excluded) plus the
         gid of each matrix row: index builds must not index deleted rows,

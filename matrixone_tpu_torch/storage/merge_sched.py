@@ -24,9 +24,9 @@ one) without poisoning the engine; every outcome counts in
 mo_merge_tasks_total.
 
 `scheduler_for(engine)` returns the per-engine scheduler (not started);
-`maybe_start(engine)` starts its thread when MO_MERGE_SCHED=1.  The
-taskservice executor and `mo_ctl('merge', ...)` are not ported
-(ROADMAP.md, section A).
+`maybe_start(engine)` starts its thread when MO_MERGE_SCHED=1.
+`mo_ctl('merge', ...)` drives it from SQL (`frontend/session.py`); the
+taskservice executor is not ported (ROADMAP.md, section A, step 5).
 """
 
 from __future__ import annotations

@@ -6,8 +6,8 @@ buffers inserts as uncommitted segments and deletes as row-id sets; reads
 merge the workspace into the snapshot; commit hands everything to the
 engine's single-writer pipeline.
 
-The port's copy of `matrixone_tpu/txn/client.py`, without the commit's
-trace span (tracing is not ported yet).  A handle registers with the
+The port's copy of `matrixone_tpu/txn/client.py`, the commit's
+`txn.commit` trace span included.  A handle registers with the
 engine's count of open transactions (`Engine.txn_opened` and
 `txn_closed`), which defers merges: a workspace holds pre-merge row
 ids.

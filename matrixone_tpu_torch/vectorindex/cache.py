@@ -4,7 +4,8 @@ Reference analogue: `pkg/vectorindex/cache/cache.go:158 VectorIndexCache`
 — the CN keeps built vector indexes in memory under a byte budget and
 evicts least-recently-used ones.  The port of
 `matrixone_tpu/vectorindex/cache.py`: an index is a dataclass of
-tensors on its device (`IvfFlatIndex`, `IvfPqIndex`); eviction drops the
+tensors on its device (`IvfFlatIndex`, `IvfPqIndex`, `FulltextIndex`)
+or an HNSW graph in host memory, counted as 0 bytes; eviction drops the
 meta's reference to it, which frees its device memory once no query
 holds it, and marks the meta dirty so the next query rebuilds it.
 """
@@ -19,7 +20,10 @@ import torch
 
 
 def index_nbytes(index_obj) -> int:
-    """Bytes of every tensor field of an index on its device."""
+    """Bytes of every tensor field of an index on its device: 0 for an
+    HNSW graph, which is host memory."""
+    if not dataclasses.is_dataclass(index_obj):
+        return 0                       # the native graph's handle
     return sum(v.numel() * v.element_size()
                for v in (getattr(index_obj, f.name)
                          for f in dataclasses.fields(index_obj))

@@ -11,10 +11,11 @@ what the reference resolves on its TPU (`HK.enabled()`), so float32
 grouped sums take the segment-sum kernel exactly where the reference's
 do.
 
-`VectorTopK` compiles to `vm/vector_scan.VectorTopKOp`, the IVF-Flat /
-IVF-PQ search as a source.  `Materialized`, `UdfAggregate` and
-`FulltextTopK` are not ported yet (ROADMAP.md): compiling one raises
-NotImplementedError.
+`VectorTopK` compiles to `vm/vector_scan.VectorTopKOp` (the IVF-Flat,
+IVF-PQ or HNSW search as a source) and `FulltextTopK` to
+`vm/fulltext_scan.FulltextTopKOp` (BM25 on the index's device).
+`Materialized` and `UdfAggregate` are not ported yet (ROADMAP.md,
+section A, steps 4 and 3): compiling one raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -133,6 +134,9 @@ def _compile_node(node: P.PlanNode, ctx: ExecContext) -> ops.Operator:
     if isinstance(node, P.Union):
         return ops.UnionOp(node, [_compile_node(c, ctx)
                                   for c in node.children])
+    if isinstance(node, P.FulltextTopK):
+        from matrixone_tpu_torch.vm.fulltext_scan import FulltextTopKOp
+        return FulltextTopKOp(node, ctx)
     if isinstance(node, P.VectorTopK):
         from matrixone_tpu_torch.vm.vector_scan import VectorTopKOp
         return VectorTopKOp(node, ctx)

@@ -7,8 +7,8 @@ comparisons (decimal-exact) and math functions, the date functions
 `timestampadd`/`timestampdiff`, `makedate`, the period functions,
 `time_bucket`, `to_datetime`), the string functions (`vm/strfuncs.py`),
 the numeric-to-string functions (`_NUM2STR_FUNCS`), the row-wise vector
-distances, `bit_count`, `rand` and `uuid`.  `llm_embed` and UDF calls
-raise `EvalError("not yet ported: ...")` (ROADMAP.md, section A).
+distances, `bit_count`, `rand`, `uuid` and `llm_embed`.  UDF calls raise
+`EvalError("not yet ported: ...")` (ROADMAP.md, section A, step 3).
 
 Varchar columns arrive as dictionary codes + a host-side dictionary
 (ExecBatch.dicts): string predicates are evaluated on the *dictionary*
@@ -594,10 +594,37 @@ def _eval_func(e: BoundFunc, ex: ExecBatch) -> DeviceColumn:
                                          device=ex.device),
                             torch.ones((n,), dtype=torch.bool,
                                        device=ex.device), e.dtype)
+    if op == "llm_embed":
+        return _eval_llm_embed(e, ex)
     if op in _SIMPLE:
         args = [eval_expr(a, ex) for a in e.args]
         return _SIMPLE[op](*args)
     raise EvalError(f"not yet ported: function {op}")
+
+
+def _eval_llm_embed(e: BoundFunc, ex: ExecBatch) -> DeviceColumn:
+    """llm_embed(text) -> vecf32: one endpoint call per DISTINCT
+    dictionary entry; the embeddings gather on the device by code."""
+    from matrixone_tpu_torch import llm as _llm
+    from matrixone_tpu_torch.frontend.session import current_session
+    sess = current_session()
+    variables = sess.variables if sess else None
+    dim = e.dtype.dim
+    arg = e.args[0]
+    d = _dict_of(arg, ex)
+    if d is None:
+        if isinstance(arg, BoundLiteral) and isinstance(arg.value, str):
+            vec = _llm.embed(arg.value, dim, variables)
+            return DeviceColumn(
+                to_device(np.asarray([vec], np.float32), ex.device),
+                torch.ones((1,), dtype=torch.bool, device=ex.device),
+                e.dtype)
+        raise EvalError("llm_embed() needs a varchar column or literal")
+    col = eval_expr(arg, ex)
+    mat = np.zeros((max(len(d), 1), dim), np.float32)
+    for i, s in enumerate(d):
+        mat[i] = _llm.embed(s, dim, variables)
+    return DeviceColumn(lut_gather(mat, col.data), col.validity, e.dtype)
 
 
 def _popcount64(x: torch.Tensor) -> torch.Tensor:

@@ -1,12 +1,13 @@
 """Vector-index scan operator (reference: colexec/table_function/
 ivf_search.go + vectorindex/ivfflat/search.go).
 
-The port of `matrixone_tpu/vm/vector_scan.py` for IVF-Flat and IVF-PQ:
-the index is a dataclass of tensors on its device and the search is the
-port's batched `ivf_flat.search` / `ivf_pq.search` (the L2 kernel in the
-probe, the ADC kernel's list form in IVF-PQ's scoring); candidate rows
-are fetched by row id on the host and re-enter the pipeline on the
-context's device.  The operator is a source that syncs with the host
+The port of `matrixone_tpu/vm/vector_scan.py`.  An IVF index is a
+dataclass of tensors on its device and the search is the port's batched
+`ivf_flat.search` / `ivf_pq.search` (the L2 kernel in the probe, the ADC
+kernel's list form in IVF-PQ's scoring); an HNSW index is a host graph
+walked on the host (`vectorindex/hnsw.search`, ef = max(64, 2k)).
+Candidate rows are fetched by row id on the host and re-enter the
+pipeline on the context's device; the exact re-rank is the Project's.  The operator is a source that syncs with the host
 (top-k, the `pos >= 0` mask, row ids to numpy, `fetch_rows`), so no
 fused step contains it: the fragments above it start from its batch.
 
@@ -73,9 +74,30 @@ class VectorTopKOp(Operator):
         self.ctx = ctx
         self.schema = node.schema
 
+    def _ivf_search(self, ix, index, row_gids):
+        """(gids, distances, query tensor) of the IVF-Flat / IVF-PQ
+        search of the node's query on the index's device."""
+        from matrixone_tpu_torch.vectorindex import ivf_flat, ivf_pq
+        if ivf_shards(self.ctx.variables, index) >= 2:
+            raise NotImplementedError(
+                "the sharded VectorTopK is not ported yet (ROADMAP.md, "
+                "section A, step 4)")
+        q = torch.as_tensor(
+            np.asarray([self.node.query_vector], dtype=np.float32),
+            device=index.device)
+        nprobe = min(self.node.nprobe, index.nlist)
+        pool = nprobe * index.max_cluster_size
+        k = min(self.node.k, index.n, pool) or 1
+        search_fn = ivf_pq.search if ix.algo == "ivfpq" else ivf_flat.search
+        dists, pos = search_fn(index, q, k=k, nprobe=nprobe)
+        main_d = dists[0].cpu().numpy()
+        pos = pos[0].cpu().numpy()
+        keep = pos >= 0
+        return row_gids[pos[keep]], main_d[keep], q
+
     def execute(self) -> Iterator[ExecBatch]:
         from matrixone_tpu_torch import indexing
-        from matrixone_tpu_torch.vectorindex import ivf_flat, ivf_pq
+        from matrixone_tpu_torch.vectorindex import hnsw
         catalog = self.ctx.catalog
         ix = catalog.indexes[self.node.index_name]
         # snapshot index + delta under the commit lock: a fold mutates
@@ -108,23 +130,17 @@ class VectorTopKOp(Operator):
                                      self.ctx.device)
             return
 
-        if ivf_shards(self.ctx.variables, index) >= 2:
-            raise NotImplementedError(
-                "the sharded VectorTopK is not ported yet (ROADMAP.md, "
-                "section A, step 4)")
-        q = torch.as_tensor(
-            np.asarray([self.node.query_vector], dtype=np.float32),
-            device=index.device)
-        nprobe = min(self.node.nprobe, index.nlist)
-        pool = nprobe * index.max_cluster_size
-        k = min(self.node.k, index.n, pool) or 1
-        search_fn = ivf_pq.search if ix.algo == "ivfpq" else ivf_flat.search
-        dists, pos = search_fn(index, q, k=k, nprobe=nprobe)
-        main_d = dists[0].cpu().numpy()
-        pos = pos[0].cpu().numpy()
-        keep = pos >= 0
-        pos, main_d = pos[keep], main_d[keep]
-        gids = row_gids[pos]
+        if ix.algo == "hnsw":
+            # the graph walk is host work; HNSW keeps no delta (every
+            # refresh rebuilds it)
+            k = min(self.node.k, index.n) or 1
+            _d, pos2 = hnsw.search(
+                index, np.asarray([self.node.query_vector], np.float32),
+                k=k, ef=max(64, 2 * k))
+            keep = pos2[0] >= 0
+            gids = row_gids[pos2[0][keep]]
+        else:
+            gids, main_d, q = self._ivf_search(ix, index, row_gids)
         # delta segment: rows inserted since the last full build are
         # scanned exactly and merged by distance (indexing._try_incremental)
         if delta_gids is not None:

@@ -50,16 +50,22 @@ def test_uuid_is_a_fresh_v4_uuid_per_row():
     assert not set(again) & set(ids)
 
 
-def test_llm_embed_and_udf_calls_still_raise_not_ported():
+def test_llm_embed_and_udf_calls_still_raise_not_ported(monkeypatch):
+    """llm_embed is ported: without an endpoint both packages raise
+    LLMError naming `llm_endpoint`.  A function the port lacks still
+    raises EvalError "not yet ported"."""
     from matrixone_tpu_torch.vm import exprs as TE
     from matrixone_tpu_torch.container import dtypes as dt
     from matrixone_tpu_torch.sql.expr import BoundFunc, BoundLiteral
-    s = session("port")
-    for st in D_TABLE:
-        s.execute(st)
-    with pytest.raises(Exception, match="not yet ported"):
-        s.execute("select llm_embed(s) from d")
-    e = BoundFunc("llm_embed", [BoundLiteral("x", dt.VARCHAR)],
+    monkeypatch.delenv("MO_LLM_ENDPOINT", raising=False)
+    outs = []
+    for pkg in ("jax", "port"):
+        s = session(pkg)
+        for st in D_TABLE:
+            s.execute(st)
+        outs.append(run_step(s, "select llm_embed(s) from d"))
+    assert outs[0] == outs[1] == ("err", "LLMError")
+    e = BoundFunc("no_such_function", [BoundLiteral("x", dt.VARCHAR)],
                   dt.vecf32(4))
     with pytest.raises(TE.EvalError, match="not yet ported"):
         TE._eval_func(e, None)

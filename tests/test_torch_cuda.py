@@ -1889,3 +1889,166 @@ def test_warm_knn_statement_captures_no_new_graph(fused_everywhere):
         assert card.execute(sql).rows() == first
     assert M.fusion_graphs.get(event="capture") == c0
     _same_rows(first, host.execute(sql).rows())
+
+
+# ------------------------------------------ HNSW, full text, llm_embed
+
+def _ft_corpus(n=3000, seed=41):
+    """Zipf-drawn documents, a tenth of them duplicated (BM25 ties)."""
+    rng = np.random.default_rng(seed)
+    words = [f"t{i}" for i in range(400)]
+    p = 1.0 / np.arange(1, len(words) + 1) ** 1.1
+    p /= p.sum()
+    texts = [" ".join(rng.choice(words, rng.integers(3, 30), p=p))
+             for _ in range(n)]
+    return texts + texts[:n // 10], words
+
+
+def test_fulltext_scores_and_top_k_on_the_card_equal_the_cpu(cuda):
+    """The postings on the card score every document as the plain CPU
+    scoring does (the card's division within rtol 1e-5), and the top k
+    orders ties by position, as the CPU does."""
+    from matrixone_tpu_torch import fulltext as FT
+    texts, words = _ft_corpus()
+    host = FT.build(texts, device="cpu")
+    card = FT.build(texts, device=cuda)
+    assert card.doc_idx.device.type == "cuda"
+    ties = 0
+    for q in ["t0", "t5 t17", "t3 t3 t250", "t399", "nothing here",
+              " ".join(words[40:43])]:
+        s_h = FT.score_all(host, q)
+        s_c = FT.score_all(card, q)
+        np.testing.assert_allclose(s_c, s_h, rtol=1e-5, atol=1e-7)
+        for k in (1, 10, 400):
+            v_h, i_h = FT.search(host, q, k)
+            v_c, i_c = FT.search(card, q, k)
+            # positions equal where the CPU's scores are not within the
+            # card's tolerance of a neighbour's
+            close = np.isclose(v_h[:-1], v_h[1:], rtol=1e-5, atol=0) & \
+                (v_h[:-1] != v_h[1:])
+            if not close.any():
+                np.testing.assert_array_equal(i_c, i_h)
+            ties += int((v_h[:-1] == v_h[1:]).sum())
+    assert ties > 0
+
+
+def _search_sessions(cuda):
+    """A CPU and a card session, each with its own engine, loaded with
+    the same rows and indexes (built in each)."""
+    from matrixone_tpu_torch.frontend import Session
+    rng = np.random.default_rng(43)
+    data = rng.standard_normal((2000, 32)).astype(np.float32)
+    texts, _ = _ft_corpus(800)
+    out = []
+    for dev in ("cpu", cuda):
+        s = Session(device=dev)
+        s.execute("create table hv (id bigint primary key, emb vecf32(32))")
+        s.catalog.get_table("hv").insert_numpy(
+            {"id": np.arange(len(data), dtype=np.int64), "emb": data})
+        s.execute("create index hn using hnsw on hv (emb) m = 12 "
+                  "ef_construction = 48")
+        s.execute("create table docs (id bigint primary key, body text)")
+        s.catalog.get_table("docs").insert_numpy(
+            {"id": np.arange(len(texts), dtype=np.int64)},
+            strings={"body": (np.arange(len(texts)), texts)})
+        s.execute("create index ft using fulltext on docs (body)")
+        out.append(s)
+    return out[0], out[1], data
+
+
+def test_hnsw_and_match_statements_on_the_card_equal_the_cpu(cuda):
+    host, card, data = _search_sessions(cuda)
+    assert card.catalog.indexes["ft"].index_obj.device.type == "cuda"
+    for q in data[:5] + 0.05:
+        sql = _vsql(q).replace("items", "hv")
+        assert "VectorTopK" in card.execute("explain " + sql).text
+        _same_rows(card.execute(sql).rows(), host.execute(sql).rows())
+    for q in ("t1", "t7 t30", "t2 t2 t9", "t350"):
+        sql = (f"select id, match(body) against ('{q}') sc from docs "
+               f"order by sc desc limit 10")
+        assert "FulltextTopK" in card.execute("explain " + sql).text
+        _same_rows(card.execute(sql).rows(), host.execute(sql).rows())
+
+
+def test_fulltext_index_eviction_frees_card_memory(cuda):
+    """The full-text postings evicted under a small budget release their
+    card memory; the next MATCH statement rebuilds them on the card."""
+    import gc
+    from matrixone_tpu_torch.vectorindex.cache import index_nbytes
+    _host, card, _data = _search_sessions(cuda)
+    eng = card.catalog
+    ix = eng.indexes["ft"]
+    nbytes = index_nbytes(ix.index_obj)
+    assert nbytes > 0 and index_nbytes(eng.indexes["hn"].index_obj) == 0
+    sql = ("select id, match(body) against ('t4 t11') sc from docs "
+           "order by sc desc limit 10")
+    want = card.execute(sql).rows()
+    eng.index_cache.touch(eng.indexes["hn"])
+    gc.collect()
+    mem0 = torch.cuda.memory_allocated()
+    eng.index_cache.budget = 1
+    card.execute("create table small (id bigint, body text)")
+    card.execute("insert into small values (1, 'a b'), (2, 'b c')")
+    card.execute("create index fs using fulltext on small (body)")
+    eng.index_cache.budget = 8 << 30
+    gc.collect()
+    assert ix.index_obj is None and ix.dirty
+    assert mem0 - torch.cuda.memory_allocated() >= 0.9 * nbytes
+    got = card.execute(sql).rows()
+    assert ix.index_obj is not None and ix.index_obj.device.type == "cuda"
+    _same_rows(got, want)
+
+
+def test_llm_embed_in_a_fused_step_gathers_on_the_card(fused_everywhere):
+    """llm_embed over a dictionary column inside a captured step: one
+    call per distinct text, every row the endpoint's vector for its
+    text, a warm run captures nothing."""
+    import http.server
+    import json
+    import threading
+    from matrixone_tpu_torch.frontend import Session
+    from matrixone_tpu_torch.utils import metrics as M
+    calls = []
+
+    def vec(text):
+        return [float(len(text) + i * 0.25) for i in range(8)]
+
+    class H(http.server.BaseHTTPRequestHandler):
+        def log_message(self, *a):     # noqa: N802
+            pass
+
+        def do_POST(self):             # noqa: N802
+            req = json.loads(self.rfile.read(
+                int(self.headers.get("Content-Length", 0))))
+            calls.append(req["text"])
+            body = json.dumps({"embedding": vec(req["text"])}).encode()
+            self.send_response(200)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+    srv = http.server.ThreadingHTTPServer(("127.0.0.1", 0), H)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    try:
+        s = Session(device=fused_everywhere)
+        s.execute(f"set llm_endpoint = 'http://127.0.0.1:"
+                  f"{srv.server_address[1]}/card'")
+        s.execute("set llm_embed_dim = 8")
+        texts = [f"text number {i:03d}" + "x" * (i % 7) for i in range(40)]
+        codes = np.random.default_rng(5).integers(0, 40, 5000)
+        s.execute("create table e (id bigint, txt varchar(40))")
+        s.catalog.get_table("e").insert_numpy(
+            {"id": np.arange(5000, dtype=np.int64)},
+            strings={"txt": (codes, texts)})
+        sql = "select id, llm_embed(txt) from e"
+        rows = s.execute(sql).rows()
+        assert sorted(calls) == sorted(texts)
+        for i, v in rows:
+            assert list(v) == vec(texts[codes[i]])
+        c0 = M.fusion_graphs.get(event="capture")
+        assert s.execute(sql).rows() == rows
+        assert M.fusion_graphs.get(event="capture") == c0
+        assert len(calls) == len(texts)
+    finally:
+        srv.shutdown()
+        srv.server_close()

@@ -14,10 +14,6 @@ equal to the sorted dead set's, bit for bit; and the tombstoned scan and
 the primary-key check through the SQL session.
 """
 
-import os
-import shutil
-import time
-
 import numpy as np
 import pytest
 import torch
@@ -27,8 +23,8 @@ from matrixone_tpu_torch import native as tnative
 from matrixone_tpu_torch.ops import hash as H
 from matrixone_tpu_torch.storage import engine as TE
 from matrixone_tpu_torch.utils import metrics as TM
-from torch_compare import (assert_same, reference_env,  # noqa: F401
-                           session)
+from torch_compare import (assert_same, reference_compiled,  # noqa: F401
+                           reference_env, session)
 
 ROUTES = ["c", "numpy"]
 
@@ -47,30 +43,6 @@ def route(request, monkeypatch):
     else:
         assert tnative.get_lib() is not None, "g++ is here: must build"
     return request.param
-
-
-@pytest.fixture()
-def reference_compiled(monkeypatch):
-    """The reference's compiled route, established before a comparison
-    that depends on it.  The reference builds its library through one
-    shared temporary file (`native/build/libmo_native.so.tmp`), so when
-    several test processes build it at once a loser's compile fails, and
-    its `get_lib()` stays None for the rest of that process: its roaring
-    bitmap then reports the numpy route's bytes.  Load the library the
-    winner left behind, once no build is in flight: a retry that finds no
-    library builds it again, and may meet another process's build (the
-    module's state is restored afterwards)."""
-    deadline = time.monotonic() + 180
-    while jnative.get_lib() is None and shutil.which("g++") \
-            and time.monotonic() < deadline:
-        time.sleep(0.5)
-        if os.path.exists(jnative._SO + ".tmp"):
-            continue
-        monkeypatch.setattr(jnative, "_tried", False)
-        monkeypatch.setattr(jnative, "_lib", None)
-    lib = jnative.get_lib()
-    assert lib is not None and lib.mo_has_rbm, \
-        "g++ is here: the reference must load its compiled library"
 
 
 def test_library_builds_into_its_own_directory():

@@ -605,12 +605,16 @@ def test_insert_racing_a_refresh_waits_for_the_commit_lock(pkg, monkeypatch):
 
 @pytest.mark.parametrize("algo", ["hnsw", "fulltext"])
 def test_index_kinds_not_ported_raise(algo):
-    t = TSession(device="cpu")
-    t.execute("create table h (id bigint, e vecf32(4), txt varchar(20))")
+    """HNSW and FULLTEXT indexes, once refused as not ported, now create
+    on an empty table as the reference's do, and are listed."""
     col = "txt" if algo == "fulltext" else "e"
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        t.execute(f"create index hx using {algo} on h ({col})")
-    assert t.catalog.indexes == {}
+    for pkg in PKGS:
+        s = _session(pkg)
+        s.execute("create table h (id bigint, e vecf32(4), txt varchar(20))")
+        s.execute(f"create index hx using {algo} on h ({col})")
+        assert s.catalog.indexes["hx"].algo == algo, pkg
+        assert s.execute("show indexes from h").rows()[0][:3] == \
+            ("hx", algo, col), pkg
 
 
 @pytest.mark.parametrize("sql", [

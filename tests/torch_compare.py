@@ -12,8 +12,13 @@ of the same class, or both return the same column names, the same
 differ by the tolerance the caller states.
 """
 
+import os
+import shutil
+import time
+
 import pytest
 
+from matrixone_tpu import native as jnative
 from matrixone_tpu.frontend import Session as JSession
 from matrixone_tpu_torch.frontend import Session as TSession
 from torch_scripts import run_step, same_outcome
@@ -26,6 +31,30 @@ def reference_env():
     mp.setenv("MO_HAND_KERNELS", "1")
     yield
     mp.undo()
+
+
+@pytest.fixture()
+def reference_compiled(monkeypatch):
+    """The reference's compiled route, established before a comparison
+    that depends on it.  The reference builds its library through one
+    shared temporary file (`native/build/libmo_native.so.tmp`), so when
+    several test processes build it at once a loser's compile fails, and
+    its `get_lib()` stays None for the rest of that process: its roaring
+    bitmap then reports the numpy route's bytes.  Load the library the
+    winner left behind, once no build is in flight: a retry that finds no
+    library builds it again, and may meet another process's build (the
+    module's state is restored afterwards)."""
+    deadline = time.monotonic() + 180
+    while jnative.get_lib() is None and shutil.which("g++") \
+            and time.monotonic() < deadline:
+        time.sleep(0.5)
+        if os.path.exists(jnative._SO + ".tmp"):
+            continue
+        monkeypatch.setattr(jnative, "_tried", False)
+        monkeypatch.setattr(jnative, "_lib", None)
+    lib = jnative.get_lib()
+    assert lib is not None and lib.mo_has_rbm and lib.mo_has_hnsw, \
+        "g++ is here: the reference must load its compiled library"
 
 
 def session(pkg, catalog=None):
