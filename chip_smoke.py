@@ -299,6 +299,32 @@ Phases, each of which raises on failure:
        texts against a loopback endpoint served from a thread of this
        script: exactly 512 calls, every row the endpoint's vector for
        its text.
+15. ingest, last, in a durable `Engine(LocalFS(tmp))` of its own, with
+    default knobs: TPC-H's bulk load of customer (150,000 rows) and
+    orders (1,500,000) at SF1 (phase 10's generator arrays):
+    a. both tables written as CSV files (a header, RFC 4180 quoting,
+       DECIMAL with 2 places, ISO dates) and a note file; their bytes;
+    b. `create stage tpch url = 'file://<dir>'`, the two tables with
+       `tpch_full`'s schemas and keys, and `load data infile
+       'stage://tpch/<t>.csv' into table <t>`: `affected` the row count,
+       every column read back through the engine equal to the
+       generator's array; parse, ingest and commit seconds, MB/s, rows/s;
+    c. the segments' orders and o_totalprice (`INGEST_JOIN_SQL`) on the
+       card, exact to numpy (the sum as the scaled int64); cold, counted
+       (the sorted search must launch; nothing captured) and best of 3
+       warm seconds, the busy share of one trace; every sorted search
+       held bit for bit to its plain version on its own inputs, graph
+       replays included, timed at the most launched shape;
+    d. the same over `create external table orders_x ... location
+       'stage://tpch/orders.csv'`: one parse in all its runs (the
+       decoded-chunk cache serves the rest), an INSERT refused;
+    e. `Engine.open` of the directory: the stage, orders_x, and orders'
+       count and sum as loaded; its seconds;
+    f. `begin`, a LOAD into a copy of customer, `rollback`: 0 rows;
+    g. `load_file` of the note through the stage, the scrape text
+       (`tools/moscrape.render_text`, holding
+       `mo_query_duration_seconds`) and the trace smoke
+       (`tools/motrace.run_smoke` on the card) ok.
 
 The second-to-last line of output is the kernels' JSON record and the
 last is {"ok": true, "device": {...}}.  Without CUDA, or outside a
@@ -3549,11 +3575,12 @@ def check_spill_search(torch, CK, key: str, rec: dict, cap,
     return rows
 
 
-def phase_spill_storage(torch, CK, args, sf1) -> tuple:
+def phase_spill_storage(torch, CK, args, sf1, keep=None) -> tuple:
     """Phase 10: the Grace spills of the join (10a, TPC-H Q21 at SF1) and
     of the grouped aggregate (10b), and a partitioned table (10c), on
     an engine of their own (freed after), read-only; the host library
-    must be the compiled one."""
+    must be the compiled one.  `keep`, if given, receives the
+    generator's customer and orders arrays for phase 15."""
     import gc
     from matrixone_tpu_torch import native
     from matrixone_tpu_torch.frontend import Session
@@ -3571,6 +3598,8 @@ def phase_spill_storage(torch, CK, args, sf1) -> tuple:
     tables = tpch_full.load_tpch(eng, sf=1.0, seed=args.seed)
     report["load_seconds"] = time.perf_counter() - t0
     report["rows"] = {t: eng.get_table(t).n_rows for t in eng.tables}
+    if keep is not None:
+        keep.update({t: tables[t] for t in INGEST_TABLES})
     log(f"[10] loaded TPC-H at SF1 {report['rows']} in "
         f"{report['load_seconds']:.1f}s; host library: "
         f"{report['host_library']}")
@@ -5444,6 +5473,344 @@ def phase_search_sql(torch, CK, args, dev: str = "cuda") -> dict:
     return report
 
 
+# ------------------------------------------------ phase 15: ingest
+
+#: the join phase 15 runs over the loaded tables, and over the external
+#: orders table in place of the loaded one
+INGEST_JOIN_SQL = ("select c_mktsegment, count(*), sum(o_totalprice) "
+                   "from customer, {orders} where c_custkey = o_custkey "
+                   "group by c_mktsegment order by c_mktsegment")
+INGEST_TABLES = ("customer", "orders")
+INGEST_NOTE = "note.txt"
+INGEST_NOTE_TEXT = "phase 15: a stage, LOAD DATA and an external table\n"
+
+
+def _csv_fields(values, dtype) -> list:
+    """One column's CSV fields: DECIMAL with its scale's places, DATE in
+    ISO form, text quoted (RFC 4180) where it holds a comma or a quote."""
+    from matrixone_tpu_torch.container.dtypes import TypeOid
+    if dtype.is_varlen:
+        return [('"' + v.replace('"', '""') + '"')
+                if ("," in v or '"' in v) else v
+                for v in map(str, values.tolist())]
+    v = np.asarray(values).astype(np.int64)
+    if dtype.oid == TypeOid.DECIMAL64:
+        q = 10 ** dtype.scale
+        a = np.abs(v)
+        whole = np.char.add(np.where(v < 0, "-", ""), (a // q).astype(str))
+        frac = np.char.zfill((a % q).astype(str), dtype.scale)
+        return np.char.add(np.char.add(whole, "."), frac).tolist()
+    if dtype.oid == TypeOid.DATE:
+        return np.datetime_as_string(v.astype("datetime64[D]")).tolist()
+    return v.astype(str).tolist()
+
+
+def write_tpch_csv(path: str, name: str, arrays) -> int:
+    """One table of `tpch_full`'s generator as a CSV file with a header,
+    in its schema's column order; -> the file's bytes."""
+    from matrixone_tpu_torch.utils import tpch_full
+    schema = tpch_full._SCHEMAS[name]
+    cols = [_csv_fields(arrays[c], d) for c, d in schema]
+    text = ",".join(c for c, _ in schema) + "\n" + "\n".join(
+        map(",".join, zip(*cols))) + "\n"
+    blob = text.encode()
+    with open(path, "wb") as f:
+        f.write(blob)
+    return len(blob)
+
+
+def _table_ddl(name: str, table: str) -> str:
+    from matrixone_tpu_torch.utils import tpch_full
+    cols = ", ".join(f"{c} {d}" for c, d in tpch_full._SCHEMAS[name])
+    return (f"create table {table} ({cols}, primary key "
+            f"({', '.join(tpch_full._PKS[name])}))")
+
+
+def ingest_ddl(dirpath: str) -> list:
+    """Phase 15's statements over CSV files in `dirpath`: the stage, the
+    two tables, a LOAD DATA of each, and the external orders table."""
+    from matrixone_tpu_torch.utils import tpch_full
+    out = [f"create stage tpch url = 'file://{dirpath}'"]
+    out += [_table_ddl(t, t) for t in INGEST_TABLES]
+    out += [f"load data infile 'stage://tpch/{t}.csv' into table {t}"
+            for t in INGEST_TABLES]
+    cols = ", ".join(f"{c} {d}" for c, d in tpch_full._SCHEMAS["orders"])
+    out.append(f"create external table orders_x ({cols}) location "
+               f"'stage://tpch/orders.csv'")
+    return out
+
+
+def ingest_oracle(customer, orders) -> list:
+    """INGEST_JOIN_SQL's rows from the generator's arrays: (segment,
+    orders, o_totalprice in cents), by segment; custkeys are 1..n."""
+    seg = np.asarray(customer["c_mktsegment"], dtype=object)[
+        np.asarray(orders["o_custkey"], np.int64) - 1]
+    names, inv = np.unique(seg.astype(str), return_inverse=True)
+    counts = np.bincount(inv, minlength=len(names))
+    cents = np.zeros(len(names), np.int64)
+    np.add.at(cents, inv, np.asarray(orders["o_totalprice"], np.int64))
+    return [(str(n), int(c), int(s)) for n, c, s in
+            zip(names, counts, cents)]
+
+
+def ingest_rows_check(want, label: str):
+    """The join's rows exact to `ingest_oracle`: the sum as the result's
+    scaled int64."""
+    def check(rows, batch):
+        cols = list(batch.columns)
+        sums = np.asarray(batch.columns[cols[2]].data, np.int64)
+        got = [(r[0], int(r[1]), int(s)) for r, s in zip(rows, sums)]
+        if got != want:
+            raise AssertionError(f"{label}: {got} != the oracle's {want}")
+    return check
+
+
+def readback_check(table, arrays, label: str) -> None:
+    """Every column of `table`, read back through the engine's scan,
+    equal to the generator's arrays: int64, DECIMAL's scaled int64, DATE
+    days and strings."""
+    names = [c for c, _ in table.meta.schema]
+    got = {c: [] for c in names}
+    for chunk, validity, dicts, _n in table.iter_chunks(names, 1 << 22):
+        for c in names:
+            if not validity[c].all():
+                raise AssertionError(f"{label}: NULLs in {c}")
+            a = np.asarray(chunk[c])
+            got[c].append(np.asarray(dicts[c], dtype=object)[a]
+                          if c in dicts else a)
+    for c, d in table.meta.schema:
+        g = np.concatenate(got[c])
+        w = np.asarray(arrays[c])
+        same = (np.array_equal(g.astype(str), w.astype(str))
+                if d.is_varlen else
+                np.array_equal(g.astype(np.int64), w.astype(np.int64)))
+        if not same:
+            raise AssertionError(f"{label}: column {c} differs from the "
+                                 f"generator's array")
+
+
+def ingest_query(torch, CK, TK, label: str, session, sql: str, check,
+                 warm_runs: int = 3) -> tuple:
+    """A query's cold run (graphs captured under the spy), a counted warm
+    run (sorted-search launches by shape, inputs captured; it captures
+    no graph), the best of `warm_runs` warm runs and one profiled run,
+    every run checked.  -> (record, captured inputs, graph spy)."""
+    with GraphSearchSpy(torch, TK) as spy:
+        rows, batch, cold_s = run_sql(torch, session, sql)
+        check(rows, batch)
+        CK.LAUNCHES.reset()
+        f0 = fusion_counts()
+        with PathInputs(torch, TK) as cap:
+            rows, batch, counted_s = run_sql(torch, session, sql)
+        warm = counts_since(f0)
+        launches = kernel_launches(CK, label, ALL_KERNELS,
+                                   required=("sorted_search",))
+        check(rows, batch)
+        if warm["captures"]:
+            raise AssertionError(f"{label}: the warm run captured graphs: "
+                                 f"{warm}")
+        warm_s = []
+        for _ in range(warm_runs):
+            r, b, w = run_sql(torch, session, sql)
+            check(r, b)
+            warm_s.append(w)
+    prof = profile_run(torch, lambda: session.execute(sql), label)
+    out = {"cold_seconds": cold_s, "counted_seconds": counted_s,
+           "warm_seconds": warm_s, "warm_best_seconds": min(warm_s),
+           "warm_fusion": warm, "launches": launches,
+           "device_busy_share": prof["device_busy_share"], "profile": prof}
+    log(f"[{label}] cold {cold_s:.3f}s warm {['%.4f' % w for w in warm_s]}"
+        f"; warm run {warm['replays']:.0f} replays, {warm['captures']:.0f} "
+        f"captures; busy {prof['device_busy_share']:.1%}")
+    return out, cap, spy
+
+
+def phase_ingest(torch, CK, args, tables=None, dev: str = "cuda") -> tuple:
+    """Phase 15: TPC-H's bulk load procedure for customer and orders at
+    SF1 (`tables`: phase 10's arrays, else generated here) through CSV
+    files, a stage and LOAD DATA into a durable LocalFS engine; the join
+    on the card over the loaded and the external table; a reopen; a
+    rolled-back load; `load_file`, the scrape text and the trace smoke.
+    -> (report, sorted-search rows)."""
+    import gc
+    import shutil
+    import tempfile
+
+    from matrixone_tpu_torch.frontend import Session
+    from matrixone_tpu_torch.ops import kernels as TK
+    from matrixone_tpu_torch.storage import csvread
+    from matrixone_tpu_torch.storage.engine import Engine
+    from matrixone_tpu_torch.storage.external import ExternalError
+    from matrixone_tpu_torch.storage.fileservice import LocalFS
+    from matrixone_tpu_torch.tools import moscrape, motrace as trace_smoke
+    from matrixone_tpu_torch.txn.client import TxnHandle
+    from matrixone_tpu_torch.utils import metrics as M
+    from matrixone_tpu_torch.utils import tpch_full
+
+    t_phase = time.perf_counter()
+    if tables is None:
+        gen = tpch_full.gen_tpch(sf=1.0, seed=args.seed)
+        tables = {t: gen[t] for t in INGEST_TABLES}
+        del gen
+    root = tempfile.mkdtemp(prefix="mo_ingest_")
+    files, data_dir = os.path.join(root, "files"), os.path.join(root, "data")
+    os.makedirs(files)
+    report = {}
+    try:
+        # 15a: the flat files
+        t0 = time.perf_counter()
+        nbytes = {t: write_tpch_csv(os.path.join(files, f"{t}.csv"), t,
+                                    tables[t]) for t in INGEST_TABLES}
+        with open(os.path.join(files, INGEST_NOTE), "w") as f:
+            f.write(INGEST_NOTE_TEXT)
+        n_rows = {t: len(tables[t][tpch_full._SCHEMAS[t][0][0]])
+                  for t in INGEST_TABLES}
+        report["15a_files"] = {"bytes": nbytes, "rows": n_rows,
+                               "seconds": time.perf_counter() - t0}
+        log(f"[15a] wrote {nbytes} B of CSV ({n_rows} rows) in "
+            f"{report['15a_files']['seconds']:.1f}s")
+
+        # 15b: the stage, the tables and a LOAD DATA of each
+        eng = Engine(fs=LocalFS(data_dir))
+        sess = Session(catalog=eng, device=dev)
+        ddl = ingest_ddl(files)
+        for st in ddl[:1 + len(INGEST_TABLES)]:
+            sess.execute(st)
+        loads = {}
+        for t, sql in zip(INGEST_TABLES, ddl[1 + len(INGEST_TABLES):]):
+            with StageTimer([(csvread, "read_csv"),
+                             (TxnHandle, "commit")]) as st:
+                t0 = time.perf_counter()
+                res = sess.execute(sql)
+                total = time.perf_counter() - t0
+            if res.affected != n_rows[t]:
+                raise AssertionError(f"15b {t}: LOAD DATA affected "
+                                     f"{res.affected}, not {n_rows[t]}")
+            readback_check(eng.get_table(t), tables[t], f"15b {t}")
+            sec = st.seconds
+            mb = nbytes[t] / 1e6
+            loads[t] = {"seconds": total, "parse_seconds": sec["read_csv"],
+                        "commit_seconds": sec["commit"],
+                        "ingest_seconds": total - sec["read_csv"]
+                        - sec["commit"],
+                        "mb_per_s": mb / total,
+                        "parse_mb_per_s": mb / sec["read_csv"],
+                        "rows_per_s": n_rows[t] / total}
+            log(f"[15b] load data {t}: {n_rows[t]} rows, {mb:.1f} MB in "
+                f"{total:.2f}s (parse {sec['read_csv']:.2f}s, ingest "
+                f"{loads[t]['ingest_seconds']:.2f}s, commit "
+                f"{sec['commit']:.2f}s): {loads[t]['mb_per_s']:.1f} MB/s, "
+                f"{loads[t]['rows_per_s']:.0f} rows/s; every column equal "
+                f"to the generator's")
+        report["15b_load"] = loads
+
+        # 15c: the join on the card over the loaded tables
+        want = ingest_oracle(tables["customer"], tables["orders"])
+        sql = INGEST_JOIN_SQL.format(orders="orders")
+        rec, cap, spy = ingest_query(
+            torch, CK, TK, "15c join loaded", sess, sql,
+            ingest_rows_check(want, "15c"))
+        search_rows = check_spill_search(torch, CK, "15c_join_loaded", rec,
+                                         cap, spy.seen)
+        report["15c_join_loaded"] = rec
+
+        # 15d: the same join over the external orders table
+        sess.execute(ddl[-1])
+        p0 = M.external_parses.get(table="orders_x")
+        rec, cap, spy = ingest_query(
+            torch, CK, TK, "15d join external", sess,
+            INGEST_JOIN_SQL.format(orders="orders_x"),
+            ingest_rows_check(want, "15d"))
+        rec["parses"] = M.external_parses.get(table="orders_x") - p0
+        p1 = M.external_parses.get(table="orders_x")
+        warm2 = run_sql(torch, sess, INGEST_JOIN_SQL.format(
+            orders="orders_x"))[2]
+        if M.external_parses.get(table="orders_x") != p1 \
+                or rec["parses"] != 1:
+            raise AssertionError(f"15d: the external file was parsed "
+                                 f"{rec['parses']} times over the cold and "
+                                 f"warm runs, and again after them: the "
+                                 f"decoded-chunk cache did not serve them")
+        rec["cached_run_seconds"] = warm2
+        try:
+            sess.execute("insert into orders_x values (0, 1, 'O', 1.00, "
+                         "'1995-01-01', '1-URGENT', 'Clerk#1', 0, 'x')")
+            raise AssertionError("15d: an INSERT into the external table "
+                                 "was accepted")
+        except ExternalError:
+            pass
+        search_rows += check_spill_search(torch, CK, "15d_join_external",
+                                          rec, cap, spy.seen)
+        report["15d_join_external"] = rec
+        log(f"[15d] external orders: cold {rec['cold_seconds']:.3f}s (one "
+            f"parse), warm best {rec['warm_best_seconds']:.4f}s from the "
+            f"decoded-chunk cache; the INSERT refused")
+
+        # 15e: a reopen of the data directory
+        total_cents = int(np.asarray(tables["orders"]["o_totalprice"],
+                                     np.int64).sum())
+        sess.close()
+        del sess, eng
+        gc.collect()
+        t0 = time.perf_counter()
+        eng = Engine.open(LocalFS(data_dir))
+        reopen_s = time.perf_counter() - t0
+        sess = Session(catalog=eng, device=dev)
+        stages = sess.execute("show stages").rows()
+        if stages != [("tpch", f"file://{files}")]:
+            raise AssertionError(f"15e: show stages gave {stages}")
+        res = sess.execute("select count(*), sum(o_totalprice) from orders")
+        got = (res.rows()[0][0], int(np.asarray(
+            res.batch.columns[list(res.batch.columns)[1]].data)[0]))
+        if got != (n_rows["orders"], total_cents):
+            raise AssertionError(f"15e: orders after the reopen {got} != "
+                                 f"{(n_rows['orders'], total_cents)}")
+        x = sess.execute("select count(*) from orders_x").rows()
+        if x != [(n_rows["orders"],)]:
+            raise AssertionError(f"15e: orders_x after the reopen: {x}")
+        report["15e_reopen"] = {"seconds": reopen_s,
+                                "recovery": eng.recovery_summary}
+        log(f"[15e] Engine.open in {reopen_s:.2f}s "
+            f"({eng.recovery_summary}): the stage, orders_x and orders' "
+            f"count and sum as loaded")
+
+        # 15f: a rolled-back LOAD
+        sess.execute(_table_ddl("customer", "customer_copy"))
+        sess.execute("begin")
+        n = sess.execute("load data infile 'stage://tpch/customer.csv' "
+                         "into table customer_copy").affected
+        sess.execute("rollback")
+        left = sess.execute("select count(*) from customer_copy").rows()
+        if n != n_rows["customer"] or left != [(0,)]:
+            raise AssertionError(f"15f: the rolled-back load left {left}")
+        report["15f_rollback"] = {"loaded": n, "after_rollback": 0}
+
+        # 15g: load_file, the scrape text and the trace smoke
+        txt = sess.execute(f"select load_file('stage://tpch/{INGEST_NOTE}')"
+                           ).rows()
+        if txt != [(INGEST_NOTE_TEXT,)]:
+            raise AssertionError(f"15g: load_file gave {txt}")
+        scrape = moscrape.render_text()
+        if "mo_query_duration_seconds" not in scrape:
+            raise AssertionError("15g: the scrape text lacks "
+                                 "mo_query_duration_seconds")
+        smoke = trace_smoke.run_smoke(device=dev)
+        if not smoke["ok"]:
+            raise AssertionError(f"15g: the trace smoke failed: "
+                                 f"{smoke['errors']}")
+        report["15g_ops"] = {"scrape_bytes": len(scrape),
+                             "trace_smoke": smoke}
+        sess.close()
+        del sess, eng
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["seconds"] = time.perf_counter() - t_phase
+    log(f"[15] phase 15 took {report['seconds']:.1f}s")
+    return report, search_rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=1_000_000)
@@ -5511,8 +5878,9 @@ def main(argv=None) -> int:
     report["fusion"]["seconds"] = time.perf_counter() - t0
     log(f"[9] phase 9 took {report['fusion']['seconds']:.1f}s")
     t0 = time.perf_counter()
+    ingest_tables = {}
     report["spill"], spill_search, spill_segsum = phase_spill_storage(
-        torch, CK, args, sf1)
+        torch, CK, args, sf1, keep=ingest_tables)
     report["spill"]["seconds"] = time.perf_counter() - t0
     log(f"[10] phase 10 took {report['spill']['seconds']:.1f}s")
     t0 = time.perf_counter()
@@ -5533,9 +5901,12 @@ def main(argv=None) -> int:
     report["vector_sql"], vsql_l2, vsql_adc = phase_vector_sql(torch, CK,
                                                                args)
     report["search_sql"] = phase_search_sql(torch, CK, args)
+    report["ingest"], ingest_search = phase_ingest(torch, CK, args,
+                                                   ingest_tables)
+    del ingest_tables
     search_rows += (search_path + tpch_search + rf01_search + refresh_search
                     + exec_search + fusion_search + spill_search
-                    + obj_search)
+                    + obj_search + ingest_search)
     segsum_rows += (segsum_path + rf01_segsum + refresh_segsum + exec_segsum
                     + spill_segsum + obj_segsum)
     rows += path_rows + pq_rows + vsql_l2
@@ -5618,13 +5989,25 @@ def main(argv=None) -> int:
                       "path_launches": r["path_launches"],
                       **{key: r[key] for key in timed}}
                   for k, r in vsql_timed.items()}
-    # phase 14 (HNSW, full text, llm_embed) launches none of the five
-    p14 = {sub: rec["launches"] for sub, rec in report["search_sql"].items()
-           if isinstance(rec, dict) and "launches" in rec}
+    # phases 14 (HNSW, full text, llm_embed: none of the five) and 15
+    # (ingest: the sorted search) count every kernel
+    counted = {sub: rec["launches"]
+               for sub, rec in report["search_sql"].items()
+               if isinstance(rec, dict) and "launches" in rec}
+    counted.update({sub: report["ingest"][sub]["launches"]
+                    for sub in ("15c_join_loaded", "15d_join_external")})
 
-    def p14_launches(*names):
+    def counted_launches(*names):
         return {sub: sum(launches[nm]["launches"] for nm in names)
-                for sub, launches in p14.items()}
+                for sub, launches in counted.items()}
+
+    # phase 15: the sorted search in the join over the loaded and the
+    # external orders, timed at its most launched shape there
+    ingest_row = max((r for r in ingest_search if "ms" in r),
+                     key=lambda r: r["path_launches"])
+    ingest_timed = {"shape": ingest_row["shape"], "path": ingest_row["path"],
+                    "path_launches": ingest_row["path_launches"],
+                    **{key: ingest_row[key] for key in timed}}
 
     record = {"kernels": [{
         "name": "l2_distance_sq", "route": "cuda",
@@ -5639,7 +6022,7 @@ def main(argv=None) -> int:
             "4_pq_build": pq_build["l2_distance_sq"]["launches"],
             "4_pq_search": pq_search["l2_distance_sq"]["launches"],
             **{p: v["launches"] for p, v in vsql_l2_launches.items()},
-            **p14_launches("l2_distance_sq")},
+            **counted_launches("l2_distance_sq")},
         "phase13": vsql_timed["l2_distance_sq"],
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         **{key: l2_row[key] for key in timed},
@@ -5657,7 +6040,7 @@ def main(argv=None) -> int:
             + pq_build["adc_score"]["launches"],
             "13c_ivfpq_sql":
                 vsql["13c"]["launches"]["adc_score_lists"]["launches"],
-            **p14_launches("adc_score_lists", "adc_score")},
+            **counted_launches("adc_score_lists", "adc_score")},
         "phase13": vsql_timed["adc_score"],
         "max_abs_err": max(r["max_abs_err"] for r in adc_rows),
         **{key: adc_row[key] for key in timed},
@@ -5670,7 +6053,7 @@ def main(argv=None) -> int:
         "source": "matrixone_tpu_torch/csrc/l2_distance.cu",
         "replaces": "matrixone_tpu/ops/pallas_kernels.py:121",
         "launches": 0,
-        "launches_by_path": p14_launches("l2_distance_sq_masked"),
+        "launches_by_path": counted_launches("l2_distance_sq_masked"),
         "on_path": "none: the JAX package wires it to nothing",
         "max_abs_err": max(r["max_abs_err"] for r in masked_rows),
         **{key: masked_row[key] for key in timed},
@@ -5690,8 +6073,9 @@ def main(argv=None) -> int:
             **fusion_launches, **spill_launches["sorted_search"],
             **object_launches["sorted_search"],
             **serving_launches["sorted_search"],
-            **p14_launches("sorted_search")},
+            **counted_launches("sorted_search")},
         "launches_under_fusion": fusion_launches["9a_q3"],
+        "phase15": ingest_timed,
         "max_abs_err": max(r["max_abs_err"] for r in search_rows),
         **{key: search_row[key] for key in timed},
         "library_call": "torch.searchsorted on pre-flipped int64",
@@ -5709,7 +6093,7 @@ def main(argv=None) -> int:
             **spill_launches["segment_sum"],
             **object_launches["segment_sum"],
             **serving_launches["segment_sum"],
-            **p14_launches("segment_sum")},
+            **counted_launches("segment_sum")},
         "max_abs_err": max(r["max_abs_err"] for r in segsum_rows),
         **{key: segsum_row[key] for key in timed},
         **{key: segsum_row[key] for key in (

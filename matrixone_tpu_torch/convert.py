@@ -109,9 +109,12 @@ def tables_to_numpy(engine) -> dict:
     (commit_ts, gids), each merge fence (the table before a merge) as
     its `merge_ts` with its segments and tombstones in the same form,
     each varchar column's dictionary, and the engine's frontier and
-    named snapshots."""
+    named snapshots.  External tables hold no rows (their files are
+    read in place) and are not carried."""
     out = {}
     for name, t in engine.tables.items():
+        if getattr(t, "is_external", False):
+            continue
         out[name] = {
             "schema": schema_to_json(t.meta.schema),
             "primary_key": list(t.meta.primary_key),

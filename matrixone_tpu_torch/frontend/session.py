@@ -56,8 +56,15 @@ VectorTopK source (`vm/vector_scan.py`) and one of the form
 `ORDER BY MATCH(cols) AGAINST ('...') DESC LIMIT k` to a FulltextTopK
 source (`vm/fulltext_scan.py`), both by `sql/optimize.apply_indices`.
 
-Not ported yet (ROADMAP.md, section A): LOAD DATA and `load_file()`,
-materialized views, UDFs, accounts, the mo_ctl commands over
+Ingest: LOAD DATA INFILE (a local path, file://, fs:// or stage://)
+and `load_csv` read CSV through the port's own reader
+(`storage/csvread.py`; the port never imports pyarrow), each load one
+transaction; CREATE/DROP/SHOW STAGE name locations; CREATE EXTERNAL
+TABLE over a CSV file scans it in place (`storage/external.py`); and
+`load_file()` reads a datalink's text at bind time.
+
+Not ported yet (ROADMAP.md, section A): parquet and iceberg (they need
+pyarrow), materialized views, UDFs, accounts, the mo_ctl commands over
 modules the port lacks (lint, san, qa, crash, mview, rpc, udf), and
 every other statement, which raises NotImplementedError.  The session
 runs on `device` (CUDA unless the caller names the CPU); every scan
@@ -424,8 +431,35 @@ class Session:
                                             query_only=stmt.query_only):
                 raise BindError(f"no connection {stmt.conn_id}")
             return Result()
+        if isinstance(stmt, ast.LoadData):
+            return self._load_data(stmt)
+        if isinstance(stmt, ast.CreateStage):
+            self.catalog.create_stage(stmt.name, stmt.url)
+            return Result()
+        if isinstance(stmt, ast.DropStage):
+            self.catalog.drop_stage(stmt.name)
+            return Result()
+        if isinstance(stmt, ast.ShowStages):
+            names = sorted(self.catalog.stages)
+            return _show({"Stage": names,
+                          "URL": [self.catalog.stages[n] for n in names]})
+        if isinstance(stmt, ast.CreateExternalTable):
+            schema = [(c.name, type_from_name(c.type_name, c.type_args))
+                      for c in stmt.columns]
+            fmt = _resolve_format(stmt.fmt, stmt.location)
+            if stmt.snapshot is not None and fmt != "iceberg":
+                raise BindError("SNAPSHOT applies to FORMAT iceberg only")
+            self.catalog.create_external(
+                TableMeta(stmt.name, schema, []), stmt.location, fmt,
+                snapshot=stmt.snapshot)
+            return Result()
         if isinstance(stmt, ast.AnalyzeTable):
             from matrixone_tpu_torch.sql.stats import provider_for
+            if getattr(self.catalog.get_table(stmt.name), "is_external",
+                       False):
+                raise BindError(
+                    f"{stmt.name!r} is an external table; it has no "
+                    f"segment statistics to analyze")
             st = provider_for(self.catalog).refresh(stmt.name)
             return _show({"table": [stmt.name], "rows": [st.row_count],
                           "columns": [len(st.cols)]},
@@ -985,8 +1019,10 @@ class Session:
             for table, as_of in sorted(scans,
                                        key=lambda x: (x[0], x[1] or -1)):
                 t = self.catalog.tables.get(table)
-                if t is None:
-                    return None, None      # raced drop: bypass
+                if t is None or getattr(t, "is_external", False):
+                    # raced drop, or a file that changes outside any
+                    # commit: bypass
+                    return None, None
                 if as_of is not None and as_of <= ts0:
                     # strictly in the committed past: immutable (every
                     # later commit gets a ts past committed_ts >= as_of);
@@ -1228,6 +1264,94 @@ class Session:
                       "expr": [spec.column] * spec.n_parts,
                       "bound": bounds, "rows": rows},
                      {"rows": dt.INT64})
+
+    # --------------------------------------------------------------- etl
+    #: rows a LOAD casts and writes at a time (the reference's
+    #: `to_batches(max_chunksize=1 << 20)`)
+    LOAD_CHUNK_ROWS = 1 << 20
+
+    def load_csv(self, table: str, path: str, **read_kwargs) -> int:
+        """Bulk CSV load into the table's schema through the port's
+        reader (`storage/csvread.py`, pyarrow's default CSV options)."""
+        if read_kwargs:
+            raise TypeError(
+                f"load_csv() takes no reader options (got "
+                f"{sorted(read_kwargs)}): the port's CSV reader has "
+                f"pyarrow's defaults only")
+        from matrixone_tpu_torch.storage import csvread
+        return self._ingest(table, csvread.read_csv(path))
+
+    def load_parquet(self, table: str, path: str) -> int:
+        raise NotImplementedError(
+            "parquet loads need pyarrow, which the port does not use "
+            "(ROADMAP.md, section A: not queued)")
+
+    def _load_data(self, stmt: ast.LoadData) -> Result:
+        """LOAD DATA INFILE: the path may be local, file://, fs:// or
+        stage://, resolved through the stage registry and the file
+        service."""
+        from matrixone_tpu_torch.storage import csvread
+        from matrixone_tpu_torch.storage.external import open_location
+        fmt = _resolve_format(stmt.fmt, stmt.path)
+        if fmt == "iceberg":
+            raise BindError(
+                "LOAD DATA does not support FORMAT iceberg; create an "
+                "external table over it and INSERT ... SELECT instead")
+        src = open_location(self.catalog, stmt.path)
+        if fmt == "parquet":
+            return Result(affected=self.load_parquet(stmt.table, stmt.path))
+        return Result(affected=self._ingest(stmt.table,
+                                            csvread.read_csv(src)))
+
+    def _ingest(self, table: str, tbl) -> int:
+        """A read file (`csvread.CsvTable`) into `table`: one
+        transaction, the session's own or one scoped to the statement,
+        rolled back whole on any error or KILL."""
+        t = self.catalog.get_table(table)
+        auto_col = t.meta.auto_increment
+        required = [c for c, _ in t.meta.schema if c != auto_col]
+        missing = [c for c in required if c not in tbl.columns]
+        if missing:
+            raise BindError(
+                f"load into {table!r}: file is missing columns {missing}; "
+                f"file has {tbl.names}")
+        # extra CSV columns are ignored; the auto_increment column may be
+        # absent (values are allocated) or present (the counter advances
+        # past its values)
+        total = 0
+        txn = self.txn or self.txn_client.begin()
+        try:
+            for start in range(0, tbl.n_rows, self.LOAD_CHUNK_ROWS):
+                # KILL cancels a long LOAD DATA between chunks
+                self._procs.check_killed(self.conn_id)
+                stop = min(start + self.LOAD_CHUNK_ROWS, tbl.n_rows)
+                arrays, validity = {}, {}
+                for c, d in t.meta.schema:
+                    if c not in tbl.columns:
+                        # the absent auto_increment column: allocated
+                        arrays[c] = np.asarray(t.allocate_auto(stop - start),
+                                               d.np_dtype)
+                        validity[c] = np.ones(stop - start, np.bool_)
+                    elif d.is_varlen:
+                        # strings into the table's dictionary, each
+                        # distinct one once (`batch_to_arrays`' codes)
+                        arrays[c], validity[c] = tbl.columns[c].dict_codes(
+                            lambda s, c=c: t.encode_strings_list(c, s),
+                            start, stop)
+                    else:
+                        vec = tbl.columns[c].to_vector(d, start, stop)
+                        arrays[c] = np.asarray(vec.data, d.np_dtype)
+                        validity[c] = vec.valid_mask().copy()
+                if auto_col is not None and auto_col in tbl.columns:
+                    t.observe_auto(arrays[auto_col].astype(np.int64))
+                total += txn.write_batch(table, arrays, validity)
+            if self.txn is None:
+                txn.commit()
+        except BaseException:  # noqa: BLE001 — rollback, then re-raised
+            if self.txn is None:
+                txn.rollback()
+            raise
+        return total
 
     # --------------------------------------------------------------- dml
     def _pessimistic(self, txn) -> bool:
@@ -1553,6 +1677,16 @@ def _show(data: dict, dtypes: Optional[dict] = None) -> Result:
     dtypes = dtypes or {}
     return Result(batch=Batch.from_pydict(
         data, {c: dtypes.get(c, dt.VARCHAR) for c in data}))
+
+
+def _resolve_format(fmt: str, location: str) -> str:
+    """LOAD and EXTERNAL format defaulting and validation (one place
+    so the two paths cannot drift; always a BindError on bad input)."""
+    if not fmt:
+        fmt = "parquet" if location.endswith(".parquet") else "csv"
+    if fmt not in ("csv", "parquet", "iceberg"):
+        raise BindError(f"unsupported external format {fmt!r}")
+    return fmt
 
 
 def _param_literal(v) -> ast.Node:

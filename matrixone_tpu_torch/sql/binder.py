@@ -977,9 +977,9 @@ class Binder:
             if len(args) != 1 or not (isinstance(args[0], BoundLiteral)
                                       and isinstance(args[0].value, str)):
                 raise BindError("load_file() requires a literal URL")
-            raise NotImplementedError(
-                "load_file() needs the stage registry and file service, "
-                "which are not ported yet (ROADMAP.md, section A)")
+            from matrixone_tpu_torch.storage.external import read_datalink
+            return BoundLiteral(read_datalink(self.catalog, args[0].value),
+                                dt.TEXT)
         return bind_scalar_function(e.name, args)
 
     # --------------------------------------------------------- pushdown

@@ -50,9 +50,14 @@ indexes and frees their `index_cache` entries (vectorindex/cache.py),
 and, as in the reference, indexes are not persisted (no WAL record, no
 manifest entry): `indexing.py` builds them again on demand.
 
-Not ported yet (ROADMAP.md, section A): the CN bootstrap (`open_checkpoint`), external tables, publications, stages,
-sources and dynamic tables, the logtail subscribers (CDC) and the
-co-partitioned shard read.
+Stages (named external locations) and external tables
+(`storage/external.py`: CSV read in place) ride the catalog, the WAL and
+the manifest as the reference's do.
+
+Not ported yet (ROADMAP.md, section A): the CN bootstrap
+(`open_checkpoint`), external parquet and iceberg tables,
+publications, sources and dynamic tables, the logtail subscribers (CDC)
+and the co-partitioned shard read.
 """
 
 from __future__ import annotations
@@ -907,6 +912,8 @@ class Engine:
         self.ddl_gen = 0
         self._ckpt_ts = 0
         self.snapshots: Dict[str, int] = {}      # named points in time
+        #: named external locations (pkg/stage): name -> URL
+        self.stages: Dict[str, str] = {}
         #: last FULLY applied commit: readers snapshot here so a commit
         #: mid-apply (tombstones in, segments not yet) can never tear a read
         self.committed_ts = self.hlc.now()
@@ -954,6 +961,9 @@ class Engine:
         # objects too: a table re-created under this name writes the
         # same object paths again
         t = self.tables[name]
+        release = getattr(t, "release_cache", None)
+        if release is not None:       # external tables free their cache
+            release()
         for seg in t.segments + [s for f in t.fences for s in f.segments]:
             if seg.obj_path is not None:
                 blockcache.CACHE.drop_path(seg.obj_path)
@@ -965,6 +975,45 @@ class Engine:
                 self.index_cache.drop(k)    # free device residency + budget
         if log:
             self.wal.append({"op": "drop_table", "name": name,
+                             "ts": self.hlc.now()})
+
+    def create_external(self, meta: TableMeta, location: str, fmt: str,
+                        log: bool = True, if_not_exists: bool = False,
+                        snapshot=None):
+        """Register an external (scan-in-place, read-only) table:
+        storage/external.py."""
+        from matrixone_tpu_torch.storage.external import ExternalTable
+        if meta.name in self.tables:
+            if if_not_exists:
+                return
+            raise ValueError(f"table {meta.name} already exists")
+        t = ExternalTable(meta, location, fmt, engine=self,
+                          snapshot=snapshot)
+        self.tables[meta.name] = t
+        self.ddl_gen += 1
+        if log:
+            self.wal.append({"op": "create_external", "name": meta.name,
+                             "ts": self.hlc.now(), "snapshot": snapshot,
+                             "location": location, "fmt": fmt,
+                             "schema": schema_to_json(meta.schema)})
+
+    def create_stage(self, name: str, url: str, log: bool = True) -> None:
+        """Durable named external location (pkg/stage analogue)."""
+        self.stages[name] = url
+        # stage URLs are resolved at bind time: a cached plan built
+        # against the old mapping would scan the wrong location
+        self.ddl_gen += 1
+        if log:
+            self.wal.append({"op": "create_stage", "name": name,
+                             "url": url, "ts": self.hlc.now()})
+
+    def drop_stage(self, name: str, log: bool = True) -> None:
+        if name not in self.stages:
+            raise ValueError(f"no such stage {name}")
+        del self.stages[name]
+        self.ddl_gen += 1
+        if log:
+            self.wal.append({"op": "drop_stage", "name": name,
                              "ts": self.hlc.now()})
 
     def alter_partition_drop(self, table: str, part: str,
@@ -1403,8 +1452,15 @@ class Engine:
         if demote is None:
             demote = os.environ.get("MO_LAZY_SEGMENTS") == "1"
         manifest = {"ckpt_ts": self.hlc.now(), "tables": {},
-                    "snapshots": dict(self.snapshots)}
+                    "snapshots": dict(self.snapshots),
+                    "stages": dict(self.stages), "externals": {}}
         for name, t in self.tables.items():
+            if getattr(t, "is_external", False):
+                manifest["externals"][name] = {
+                    "location": t.location, "fmt": t.fmt,
+                    "snapshot": t.snapshot,
+                    "schema": schema_to_json(t.meta.schema)}
+                continue
             cols = [c for c, _ in t.meta.schema]
             objs = []
             for seg in t.segments:
@@ -1499,7 +1555,13 @@ class Engine:
         manifest = json.loads(self.fs.read("meta/manifest.json").decode())
         self._ckpt_ts = manifest.get("ckpt_ts", 0)
         self.snapshots = dict(manifest.get("snapshots", {}))
+        self.stages = dict(manifest.get("stages", {}))
         self.hlc.update(self._ckpt_ts)
+        for name, ex in manifest.get("externals", {}).items():
+            self.create_external(
+                TableMeta(name, schema_from_json(ex["schema"]), []),
+                ex["location"], ex["fmt"], log=False,
+                snapshot=ex.get("snapshot"))
         for name, tm in manifest["tables"].items():
             self._load_manifest_table(name, tm)
 
@@ -1585,6 +1647,17 @@ class WalApplier:
         elif op == "alter_partition_drop":
             eng.alter_partition_drop(header["table"], header["part"],
                                      log=False)
+        elif op == "create_external":
+            eng.create_external(
+                TableMeta(header["name"], schema_from_json(header["schema"]),
+                          []),
+                header["location"], header["fmt"], log=False,
+                if_not_exists=True, snapshot=header.get("snapshot"))
+        elif op == "create_stage":
+            eng.create_stage(header["name"], header["url"], log=False)
+        elif op == "drop_stage":
+            if header["name"] in eng.stages:     # replay-idempotent
+                eng.drop_stage(header["name"], log=False)
         elif op == "create_snapshot":
             # direct: create_snapshot() mints a fresh ts and logs
             eng.snapshots[header["name"]] = header["ts"]

@@ -441,3 +441,9 @@ recovery_torn_bytes = REGISTRY.counter(
 recovery_orphans = REGISTRY.counter(
     "mo_recovery_orphans_total",
     "orphaned *.tmp files deleted by Engine.open")
+
+# ---- ingest (storage/csvread.py, storage/external.py)
+external_parses = REGISTRY.counter(
+    "mo_external_parses_total",
+    "CSV files an external table read and parsed, by table (a scan "
+    "served from the decoded-chunk cache parses nothing)")

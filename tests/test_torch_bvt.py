@@ -37,22 +37,14 @@ _ACCOUNTS2 = ("drop_user_role", "revoke_priv", "show_grants",
               "sys_only_accounts")
 _PARQUET = "no step: not queued, parquet needs pyarrow, which the card lacks"
 #: case -> why the port does not give its golden yet: the ROADMAP.md
-#: section A step, and the first differing line with the statement the
-#: port does not have there
+#: section A step, and the first differing line with the statement or
+#: reader the port does not have there
 XFAIL = {
     "ddl/materialized_view": "step 3; line 8: CreateMaterializedView",
-    "errors/drop_nonexistent": "step 2; line 11: DropStage",
-    "errors/external_readonly": "step 5; line 2: CreateExternalTable",
-    "errors2/iceberg_errors": "step 5; line 2: CreateExternalTable",
-    "load/csv_basic": "step 2; line 5: LoadData",
-    "load/csv_nulls": "step 2; line 5: LoadData",
-    "load/external_csv": "step 5; line 2: CreateExternalTable",
-    "load/external_parquet": f"{_PARQUET}; line 2: CreateExternalTable",
-    "load/load_missing_file": "step 2; line 5: LoadData",
-    "load/parquet_basic": f"{_PARQUET}; line 5: LoadData",
+    "errors2/iceberg_errors": "step 5; line 5: the iceberg reader",
+    "load/external_parquet": f"{_PARQUET}; line 5: the parquet reader",
+    "load/parquet_basic": f"{_PARQUET}; line 5: the parquet reader",
     "pubstage/publication_lifecycle": "step 5; line 8: ShowPublications",
-    "pubstage/stage_external": "step 2; line 2: CreateStage",
-    "pubstage/stage_lifecycle": "step 2; line 2: CreateStage",
     "stream2/dynamic_table_refresh": "step 5; line 8: CreateDynamicTable",
     "stream2/source_table_ddl": "step 5; line 2: CreateSource",
     **{f"tenant/{c}": "step 5; line 2: CreateAccount" for c in _ACCOUNTS},

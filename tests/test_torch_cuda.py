@@ -2052,3 +2052,136 @@ def test_llm_embed_in_a_fused_step_gathers_on_the_card(fused_everywhere):
     finally:
         srv.shutdown()
         srv.server_close()
+
+
+# ------------------------------------------------------------- ingest
+
+def _ingest_sessions():
+    from matrixone_tpu_torch.frontend import Session
+    return Session(device="cuda"), Session(device="cpu")
+
+
+def test_load_data_of_a_3_row_csv_on_the_card(cuda, tmp_path):
+    """LOAD DATA through a stage on a CUDA session: the rows a CPU
+    session loads from the same file, scanned on the card."""
+    (tmp_path / "people.csv").write_text(
+        'id,name,age,price\n1,ann,30,12.50\n2,"b,o",25,3.01\n3,cy,,100.99\n')
+    rows = []
+    for s in _ingest_sessions():
+        s.execute(f"create stage st url = 'file://{tmp_path}'")
+        s.execute("create table people (id bigint primary key, "
+                  "name varchar(16), age bigint, price decimal(15,2))")
+        r = s.execute("load data infile 'stage://st/people.csv' into "
+                      "table people")
+        assert r.affected == 3
+        rows.append(s.execute("select id, name, age, price from people "
+                              "where age is null or age > 26 order by id"
+                              ).rows())
+        s.close()
+    assert rows[0] == rows[1] == [(1, "ann", 30, 12.5),
+                                  (3, "cy", None, 100.99)]
+
+
+def _ingest_csvs(tmp_path, n_cust=3000, seed=3):
+    """customer and orders of `tpch_full`'s generator at a small scale,
+    written as CSV the way chip_smoke.py's phase 15 writes them."""
+    import chip_smoke
+    from matrixone_tpu_torch.utils import tpch_full
+    tables = tpch_full.gen_tpch(sf=n_cust / 150_000, seed=seed)
+    for name in ("customer", "orders"):
+        chip_smoke.write_tpch_csv(str(tmp_path / f"{name}.csv"), name,
+                                  tables[name])
+    return tables
+
+
+def test_ingest_join_on_the_card_and_its_sorted_search(fused_everywhere,
+                                                        tmp_path):
+    """chip_smoke.py's phase-15 join at a small size: loaded customer and
+    orders and an external orders table give the CPU session's rows on
+    the card; every sorted search the runs made (graph replays
+    included) equals its plain version on its own inputs."""
+    import chip_smoke
+    _ingest_csvs(tmp_path)
+    outs = []
+    for s in _ingest_sessions():
+        for st in chip_smoke.ingest_ddl(str(tmp_path)):
+            s.execute(st)
+        outs.append(s)
+    seen = []
+    real = TK.sorted_lookup
+
+    def lookup(srt, q):
+        out = real(srt, q)
+        if srt.is_cuda:
+            seen.append((srt, q, out))
+        return out
+    TK.sorted_lookup = lookup
+    try:
+        CK.LAUNCHES.reset()
+        cuda_rows = [outs[0].execute(chip_smoke.INGEST_JOIN_SQL.format(
+            orders=t)).rows() for t in ("orders", "orders", "orders_x")]
+        torch.cuda.synchronize()
+    finally:
+        TK.sorted_lookup = real
+    cpu_rows = outs[1].execute(chip_smoke.INGEST_JOIN_SQL.format(
+        orders="orders")).rows()
+    assert cuda_rows[0] == cuda_rows[1] == cuda_rows[2] == cpu_rows
+    assert CK.LAUNCHES.get("sorted_search") > 0 and seen
+    for srt, q, out in seen:
+        assert torch.equal(out, CK.sorted_search_plain(srt, q))
+    for s in outs:
+        s.close()
+
+
+def test_external_csv_table_scanned_on_the_card(cuda, tmp_path):
+    """An external CSV table on a CUDA session: the scan uploads its
+    chunks to the card and gives the CPU session's rows, cold and from
+    the decoded-chunk cache."""
+    lines = ["id,grp,v,name"] + [
+        f"{i},{'' if i % 11 == 0 else i % 5},{i * 0.25},n{i % 3}"
+        for i in range(5000)]
+    (tmp_path / "e.csv").write_text("\n".join(lines) + "\n")
+    sql = ("select grp, name, count(*), sum(v), sum(id) from e "
+           "where id >= 100 group by grp, name order by grp, name")
+    rows = []
+    for s in _ingest_sessions():
+        s.variables["batch_rows"] = 1024
+        s.execute(f"create external table e (id bigint, grp int, v double, "
+                  f"name varchar(4)) location '{tmp_path}/e.csv'")
+        rows.append([s.execute(sql).rows() for _ in range(2)])
+        s.close()
+    assert rows[0][0] == rows[0][1] == rows[1][0]
+
+
+def test_topk_smallest_captures_in_a_graph(cuda):
+    """`ops/topk.topk_smallest` makes no host sync: it captures in a CUDA
+    graph, and each replay keeps the lowest tied positions, as on the
+    CPU, with NaN of either sign (ranked after +inf) and +-0.0 among
+    the scores."""
+    from matrixone_tpu_torch.ops.topk import topk_smallest
+    nan = float("nan")
+    table = torch.tensor([0.0, 1.0, 2.0, nan, -0.0], device=cuda)
+    table = torch.cat([table, -table[3:4]])          # a NaN, sign set
+
+    def draw(seed):
+        g = torch.Generator(device=cuda).manual_seed(seed)
+        return table[torch.randint(0, 6, (64, 100), device=cuda,
+                                   generator=g)]
+
+    x = draw(99)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        topk_smallest(x, 10)                       # warm-up
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        v, i = topk_smallest(x, 10)
+    for seed in range(3):
+        x.copy_(draw(seed))
+        graph.replay()
+        torch.cuda.synchronize()
+        cv, ci = topk_smallest(x.cpu(), 10)
+        assert torch.equal(i.cpu(), ci)
+        assert torch.equal(v.cpu().nan_to_num(7.0), cv.nan_to_num(7.0))
+    assert int(i.max()) < 100

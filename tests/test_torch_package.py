@@ -3,7 +3,8 @@
   * neither imports `jax` or anything of `matrixone_tpu` (an AST scan,
     so a lazy import inside a function counts too), nor a package the
     card machine lacks (`pyarrow`, `lz4`, `zstandard`, `pandas`,
-    `grpc`);
+    `grpc`), and ingest (LOAD DATA, external CSV tables, `load_file()`)
+    runs in an interpreter where `import pyarrow` fails;
   * entry points taking host data default to CUDA and raise a clear
     RuntimeError without it, unless the caller names the CPU;
   * importing the package builds no kernel and does not initialise CUDA.
@@ -113,11 +114,45 @@ def test_import_builds_nothing():
            "assert not torch.cuda.is_initialized()",
            "assert not torch.ops.loaded_libraries",
            "assert 'jax' not in sys.modules",
+           "assert 'pyarrow' not in sys.modules",
            "print('ok', len(sys.modules))"])
     env = dict(os.environ, PYTHONPATH=REPO)
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0 and r.stdout.startswith("ok"), r.stderr[-2000:]
+
+
+def test_ingest_runs_where_pyarrow_cannot_import(tmp_path):
+    """LOAD DATA from a stage, an external CSV table and `load_file()`
+    in a fresh interpreter whose `import pyarrow` raises, as on the
+    card machine, which has no pyarrow."""
+    (tmp_path / "p.csv").write_text('id,name,price\n1,"a,b",12.50\n'
+                                    '2,c,3.01\n')
+    code = "\n".join([
+        "import sys",
+        "sys.modules['pyarrow'] = None",
+        "from matrixone_tpu_torch.frontend import Session",
+        "s = Session(device='cpu')",
+        f"s.execute(\"create stage st url = 'file://{tmp_path}'\")",
+        "s.execute('create table t (id bigint primary key, "
+        "name varchar(8), price decimal(15,2))')",
+        "n = s.execute(\"load data infile 'stage://st/p.csv' into table "
+        "t\").affected",
+        "s.execute(\"create external table x (id bigint, name varchar(8)) "
+        "location 'stage://st/p.csv'\")",
+        "rows = s.execute('select t.name, price from t, x "
+        "where t.id = x.id order by t.id').rows()",
+        "txt = s.execute(\"select load_file('stage://st/p.csv')\")"
+        ".rows()[0][0]",
+        "assert 'pyarrow' not in sys.modules or "
+        "sys.modules['pyarrow'] is None",
+        "print(n, rows, len(txt))"])
+    env = dict(os.environ, PYTHONPATH=REPO)
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert r.stdout.split()[:1] == ["2"]
+    assert "[('a,b', 12.5), ('c', 3.01)]" in r.stdout
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):

@@ -241,6 +241,68 @@ def test_metrics_and_algos_equal_the_reference(algo, op_type, fn):
         assert rows[0][0] == 7 and rows[0][1] < 1e-6
 
 
+@pytest.mark.parametrize("algo", ["ivfflat", "ivfpq"])
+@pytest.mark.parametrize("lit", [
+    "[nan,0,0,0,0,0,0,0]", "[nan,nan,nan,nan,nan,nan,nan,nan]",
+    "[1e39,0,0,0,0,0,0,0]", "[1e39,-1e39,0,0,0,0,0,1]"])
+def test_knn_with_a_non_finite_query_vector(algo, lit):
+    """A vector literal holding nan, or a component past f32's range
+    (1e39 is inf in f32, and inf - inf is NaN in the L2 expansion),
+    scores every probe and candidate NaN or inf, so the k-th score of
+    each top k is NaN or inf.  The indexed statement answers, as the
+    reference's does: k rows of the table, each distance the reference's
+    `l2_distance` of the same row (NaN or inf).  Where the literal holds
+    nan, both packages keep the same candidates: every list's lanes past
+    its end (+inf) before its NaN rows, so the row at a list's first
+    position repeats.  Where it holds 1e39 the candidates are not
+    compared: they rank the NaNs that inf - inf makes, whose sign bit
+    x86 sets and CUDA clears, and XLA ranks a NaN with its sign set
+    first where the port ranks every NaN last (ROADMAP.md section C)."""
+    rng = np.random.default_rng(3)
+    vals = rng.standard_normal((200, 8))
+    j = JSession()
+    _fill(j, "docs", vals, 8)
+    j.execute(f"create index cv using {algo} on docs (emb) "
+              f"lists = 4 op_type = 'vector_l2_ops'")
+    t = _carry(j)
+    sql = (f"select id, l2_distance(emb, '{lit}') d from docs "
+           f"order by d limit 3")
+    assert "VectorTopK" in _node_types(_plan(t, sql))
+    rows = t.execute(sql).rows()
+    ids = [r[0] for r in rows]
+    assert len(rows) == 3 and set(ids) <= set(range(200))
+    want = dict(j.execute(
+        f"select id, l2_distance(emb, '{lit}') d from docs "
+        f"where id in ({', '.join(map(str, set(ids)))})").rows())
+    np.testing.assert_array_equal([r[1] for r in rows],
+                                  [want[i] for i in ids])
+    assert all(np.isnan(d) or d == np.inf for d in want.values())
+    if "nan" in lit:
+        assert _candidates(t, sql) == _candidates(j, sql)
+
+
+def test_index_over_a_stored_nan_embedding():
+    """A stored embedding that holds nan scores NaN against every
+    centroid in each package's own kmeans at CREATE INDEX, and its
+    list's centroid turns NaN; every other row must still rank that
+    centroid last, so the index answers a KNN statement with the
+    reference's rows, the exact nearest ones."""
+    rng = np.random.default_rng(4)
+    vals = rng.standard_normal((200, 8))
+    vals[17, 2] = np.nan
+    outs = []
+    for pkg in PKGS:
+        s = _session(pkg)
+        _fill(s, "docs", vals, 8)
+        s.execute("create index cv using ivfflat on docs (emb) "
+                  "lists = 4 op_type = 'vector_l2_ops'")
+        s.variables["ivf_nprobe"] = 4      # every list: an exact answer
+        outs.append(s.execute(_knn_sql(vals[3], "docs", k=5)).rows())
+        assert s.execute("select count(*) from docs").rows() == [(200,)]
+    _assert_rows_equal(outs[1], outs[0])
+    assert outs[1][0][0] == 3
+
+
 def test_each_package_builds_an_index_of_equal_recall():
     """Build parity: each session builds its own IVF-Flat and IVF-PQ
     index over the same rows; recall@10 against the exact rows is at the
