@@ -326,6 +326,46 @@ Phases, each of which raises on failure:
        `mo_query_duration_seconds`) and the trace smoke
        (`tools/motrace.run_smoke` on the card) ok.
 
+16. materialized views, UDFs and the padding canary, last, in an
+    in-memory engine of its own with default knobs, over phase 5's SF1
+    generator arrays (lineitem 6M, orders 1.5M, customer 150K, v 6M and
+    a copy of v without a view): a dashboard over a fact table kept
+    current by TPC-H's refresh functions.
+    a. `create materialized view mv_q1 as` Q1 (the dense tier) and mv_v
+       (`MV_V_SQL`: count, sum, min and max of v's f32 xn by its integer
+       grp; the general tier): mv_q1 exact to `q1_oracle`'s scaled
+       int64, mv_v within 5c's tolerance of an f64 numpy oracle with
+       counts, min and max exact; the segment sum launched in mv_v's
+       first computation; the init seconds;
+    b. RF1 then RF2 (`tpch_full.rf1`/`rf2` at SF1), the UPDATE and the
+       DELETE on v (MIN/MAX recompute: the segment sum launches again),
+       200 single-row commits into v and 200 into v_copy: after RF1, RF2,
+       the UPDATE, the DELETE and every 50th single-row commit each view
+       equals its defining SELECT run fresh in the same engine (mv_q1
+       also `q1_oracle` of the refreshed arrays); one dense step and ONE
+       graph replay per lineitem delta (`mo_mview_apply{tier=dense}` =
+       the lineitem deltas, a capture only for a new padded shape), no
+       eager dispatch; each tier's apply seconds, commit p50/p99 with the
+       view and without;
+    c. UDFs over v: a `jnp.exp`/`jnp.where` body in the jit tier over
+       every row (within rtol 1e-9 of numpy's f64), a Python `if` body in
+       the row tier over `id < 20000` (equal), an aggregate percentile
+       over every row (numpy's within 1e-12); EXPLAIN's tiers; rows/s
+       per tier and the jit body's achieved GB/s at 1M rows
+       (`utils/roofline`);
+    d. the padding canary armed (`utils/qa`): Q1, Q3 and 5c's GROUP BY
+       fused, rows bit-identical to the unarmed run's and no finding;
+    every segment sum and sorted search of 16a, 16b's recompute and 16d's
+    armed runs held to its plain version on its own inputs, as many held
+    as launched (graph replays included: a copy of the graph's own
+    tensors after each replay; `PathInputs` in `every`): the sorted
+    search bit for bit, the segment sum as `segment_sum_agrees` holds it
+    (bit for bit where its values are integer-valued and every group's
+    sum of |v| stays below 2^24, else within rtol 1e-4 / atol 1e-3 of the
+    f64 plain sum: the plain version's `index_add_` adds in no fixed
+    order on the card; NaN and infinities in the same groups), the same
+    bits on a second launch; each timed at its most launched shape.
+
 The second-to-last line of output is the kernels' JSON record and the
 last is {"ok": true, "device": {...}}.  Without CUDA, or outside a
 checkout of the repository, it exits non-zero and prints no result.
@@ -344,11 +384,13 @@ import time
 
 import numpy as np
 
-# published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet)
-H100_F32_FLOPS = 67e12          # f32 outside the tensor cores
-H100_TF32_FLOPS = 495e12        # TF32 on the tensor cores, dense
-H100_HBM_BYTES_S = 3.35e12
-H100_L2_BYTES = 50 * 2 ** 20
+# published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet):
+# utils/roofline.py holds them
+try:
+    from matrixone_tpu_torch.utils.roofline import (  # noqa: F401
+        H100_F32_FLOPS, H100_HBM_BYTES_S, H100_L2_BYTES, H100_TF32_FLOPS)
+except ImportError:     # outside a checkout: main() says so and exits
+    pass
 
 K = 20
 NPROBE = 8
@@ -1454,15 +1496,40 @@ def sorted_search_tree_edges(torch, CK, g) -> list:
     return rows
 
 
+def segment_sum_agrees(torch, CK, values, gids, mask, g: int,
+                       got) -> tuple:
+    """`got`, a segment sum of `values` by `gids` under `mask` into g
+    groups, against the plain version in f64: the same shape and dtype,
+    NaN in the same groups, the same infinities, and elsewhere exact when
+    the values are integer-valued and every group's sum of |v| stays
+    below 2^24, else |err| <= 1e-4 |want| + 1e-3 (the reference's
+    tolerance) -> (agrees, exact, max |err|)."""
+    want = CK.segment_sum_plain(values.double(), gids, mask, g)
+    nan = torch.isnan(want)
+    finite = ~nan & torch.isfinite(want)
+    err = (got.double() - want).abs()[finite]
+    max_err = float(err.max()) if err.numel() else 0.0
+    live = mask & torch.isfinite(values)
+    exact = bool(torch.equal(values[live], values[live].round())) \
+        and float(CK.segment_sum_plain(
+            values.double().abs().nan_to_num(), gids, mask,
+            g).max()) < (1 << 24)
+    inf = torch.isinf(want)
+    same = torch.equal(got[~nan].double(), want[~nan]) if exact else bool(
+        (err <= 1e-4 * want[finite].abs() + 1e-3).all()) and torch.equal(
+        got[inf].double(), want[inf])
+    ok = tuple(got.shape) == (g,) and got.dtype == torch.float32 \
+        and same and torch.equal(torch.isnan(got), nan)
+    return ok, exact, max_err
+
+
 def check_segment_sum(torch, CK, name: str, values, gids, mask,
                       g: int) -> dict:
-    """The segment-sum kernel against its plain version in f64: NaN in
-    the same groups, and elsewhere exact when the values are integer-
-    valued and every group's sum of |v| stays below 2^24, else |err| <=
-    1e-4 |want| + 1e-3 (the reference's tolerance); a second launch on
-    the same inputs must give the same bits.  Timed beside the plain
-    version in f32 and `index_add_` into G + 1 slots (the slot of masked
-    and out-of-range rows precomputed)."""
+    """The segment-sum kernel against its plain version
+    (`segment_sum_agrees`); a second launch on the same inputs must give
+    the same bits.  Timed beside the plain version in f32 and
+    `index_add_` into G + 1 slots (the slot of masked and out-of-range
+    rows precomputed)."""
     n = values.shape[0]
     walks = CK.LAUNCHES.shapes("segment_sum_walk")
     got = CK.segment_sum(values, gids, mask, g)
@@ -1470,21 +1537,9 @@ def check_segment_sum(torch, CK, name: str, values, gids, mask,
              if c != walks.get((h,), 0)]
     again = CK.segment_sum(values, gids, mask, g)
     torch.cuda.synchronize()
-    want = CK.segment_sum_plain(values.double(), gids, mask, g)
-    nan = torch.isnan(want)
-    err = (got.double() - want).abs()[~nan & torch.isfinite(want)]
-    max_err = float(err.max()) if err.numel() else 0.0
-    live = mask & torch.isfinite(values)
-    exact = bool(torch.equal(values[live], values[live].round())) \
-        and float(CK.segment_sum_plain(
-            values.double().abs().nan_to_num(), gids, mask,
-            g).max()) < (1 << 24)
-    same = torch.equal(got[~nan].double(), want[~nan]) if exact else bool(
-        (err <= 1e-4 * want[~nan & torch.isfinite(want)].abs()
-         + 1e-3).all()) and torch.equal(got[torch.isinf(want)].double(),
-                                        want[torch.isinf(want)])
-    ok = same and torch.equal(torch.isnan(got), nan)
-    if got.shape != (g,) or got.dtype != torch.float32 or not ok:
+    ok, exact, max_err = segment_sum_agrees(torch, CK, values, gids, mask,
+                                            g, got)
+    if not ok:
         raise AssertionError(f"segment_sum {name} n={n} G={g}: max err "
                              f"{max_err} ({'exact' if exact else 'tol'})")
     if not torch.equal(again.view(torch.int32), got.view(torch.int32)):
@@ -1651,44 +1706,188 @@ def phase_relational_edges(torch, CK, seed: int):
 
 
 class PathInputs:
-    """Records, for one run of a path, the inputs the path hands the
-    sorted-search and segment-sum kernels: one capture per launch shape,
-    keyed as `LAUNCHES` keys them.  It wraps the two seam functions and
-    calls the real ones, so the path's launches are unchanged."""
+    """Records what one run of a path hands the sorted-search and
+    segment-sum kernels, in one of three modes:
 
-    def __init__(self, torch, TK):
-        self.torch, self.TK = torch, TK
+      shapes  the first inputs of each launch shape, keyed as `LAUNCHES`
+              keys them (`search`, `segsum`);
+      graphs  the tensors each call of the sorted-search seam reads and
+              writes inside a graph capture (`seen`: sorted hashes, probe
+              hashes, positions); after any replay they hold that
+              replay's values, so the kernel inside the graph can be held
+              against its plain version on its own inputs;
+      every   every launch on the card with its output (`search_all`,
+              `segsum_all`): a launch outside a graph capture as copies
+              taken at the launch, a launch inside a captured graph once
+              per replay of that graph, as copies of the graph's own
+              tensors taken just after the replay (`vm/graphs.StepGraph`).
+
+    It wraps the two seam functions (and in `every` a graph's capture and
+    replay count) and calls the real ones, so the path's launches are
+    unchanged."""
+
+    def __init__(self, torch, TK, mode: str = "shapes"):
+        self.torch, self.TK, self.mode = torch, TK, mode
         self.search, self.segsum = {}, {}
+        self.search_all, self.segsum_all = [], []
+        #: the graph being captured (None where captures are not tracked)
+        self._capturing, self._in_graph = [None], {}
+
+    @property
+    def seen(self) -> list:
+        """The sorted-search calls made inside graph captures."""
+        return [t for recs in self._in_graph.values()
+                for kind, t, _ in recs if kind == "search"]
+
+    def drop_held(self) -> None:
+        """Forget the launches held so far; the graphs captured in scope
+        stay known, so their later replays are held."""
+        self.search_all, self.segsum_all = [], []
+
+    def _keep(self, kind: str, tensors: tuple, extra: tuple) -> None:
+        if self.torch.cuda.is_current_stream_capturing():
+            self._in_graph.setdefault(self._capturing[-1], []).append(
+                (kind, tensors, extra))
+        elif self.mode == "every":
+            held = self.search_all if kind == "search" else self.segsum_all
+            held.append(tuple(t.clone() for t in tensors) + extra + (False,))
 
     def __enter__(self):
-        torch, TK = self.torch, self.TK
+        torch, TK, mode = self.torch, self.TK, self.mode
         self._real = (TK.sorted_lookup, TK.grouped_scatter_add)
         real_lookup, real_scatter = self._real
 
         def lookup(sorted_hash, queries):
             key = (sorted_hash.shape[0], queries.shape[0])
-            if key not in self.search:
+            if mode == "shapes" and key not in self.search:
                 self.search[key] = (sorted_hash.contiguous().clone(),
                                     queries.contiguous().clone())
-            return real_lookup(sorted_hash, queries)
+            out = real_lookup(sorted_hash, queries)
+            if mode != "shapes" and queries.is_cuda \
+                    and (queries.shape[0] or mode == "graphs"):
+                self._keep("search", (sorted_hash.contiguous(),
+                                      queries.contiguous(), out), ())
+            return out
 
         def scatter(values, gids, mask, max_groups, use_pallas=False):
             key = (values.shape[0], max_groups)
-            if use_pallas and values.dtype == torch.float32 \
-                    and max_groups <= 4096 and values.shape[0] \
-                    and key not in self.segsum:
+            kernel = use_pallas and values.dtype == torch.float32 \
+                and max_groups <= 4096 and values.shape[0]
+            if mode == "shapes" and kernel and key not in self.segsum:
                 self.segsum[key] = (values.contiguous().clone(),
                                     gids.to(torch.int32).contiguous(),
                                     mask.contiguous().clone())
-            return real_scatter(values, gids, mask, max_groups,
-                                use_pallas=use_pallas)
+            out = real_scatter(values, gids, mask, max_groups,
+                               use_pallas=use_pallas)
+            if mode == "every" and kernel and values.is_cuda:
+                self._keep("segsum", (values.contiguous(),
+                                      gids.to(torch.int32).contiguous(),
+                                      mask.contiguous(), out),
+                           (max_groups,))
+            return out
 
         TK.sorted_lookup, TK.grouped_scatter_add = lookup, scatter
+        if mode == "every":
+            from matrixone_tpu_torch.vm.graphs import StepGraph
+            self._real_graph = (StepGraph._capture, StepGraph._count_replay)
+            real_capture, real_count = self._real_graph
+            spy = self
+
+            def capture(graph, flat, spec):
+                spy._capturing.append(graph)
+                try:
+                    return real_capture(graph, flat, spec)
+                finally:
+                    spy._capturing.pop()
+
+            def count_replay(graph):
+                real_count(graph)
+                for kind, tensors, extra in spy._in_graph.get(graph, ()):
+                    held = (spy.search_all if kind == "search"
+                            else spy.segsum_all)
+                    held.append(tuple(t.clone() for t in tensors) + extra
+                                + (True,))
+
+            StepGraph._capture, StepGraph._count_replay = (capture,
+                                                           count_replay)
         return self
 
     def __exit__(self, *exc):
         self.TK.sorted_lookup, self.TK.grouped_scatter_add = self._real
+        if self.mode == "every":
+            from matrixone_tpu_torch.vm.graphs import StepGraph
+            StepGraph._capture, StepGraph._count_replay = self._real_graph
         return False
+
+
+def hold_launches(torch, CK, cap, label: str, launches: dict,
+                  timed: bool = True) -> tuple:
+    """Every launch `cap` (a `PathInputs` in `every`) held, each
+    against its plain version on its own inputs: the sorted search bit
+    for bit (as `check_sorted_search`), the segment sum as
+    `segment_sum_agrees` and with the same bits again on a second launch.
+    The launches held must be all of them: as many as `launches`
+    (`kernel_launches` of the same run) counts.  The most launched shape
+    of each kernel is also timed.  -> (search rows, segment-sum rows,
+    held counts)."""
+    for kernel, held in (("sorted_search", cap.search_all),
+                         ("segment_sum", cap.segsum_all)):
+        if len(held) != launches[kernel]["launches"]:
+            raise AssertionError(
+                f"{label}: {len(held)} {kernel} launches held of "
+                f"{launches[kernel]['launches']} launched")
+    exact = 0
+    for values, gids, mask, out, g, _graph in cap.segsum_all:
+        ok, is_exact, max_err = segment_sum_agrees(torch, CK, values, gids,
+                                                   mask, g, out)
+        if not ok:
+            raise AssertionError(
+                f"{label}: a segment sum at {(values.shape[0], g)} differs "
+                f"from its plain version (max err {max_err}, "
+                f"{'exact' if is_exact else 'tol'})")
+        again = CK.segment_sum(values, gids, mask, g)
+        if not torch.equal(again.view(torch.int32), out.view(torch.int32)):
+            raise AssertionError(f"{label}: a segment-sum launch at "
+                                 f"{(values.shape[0], g)} gave other "
+                                 f"bits on a second launch")
+        exact += is_exact
+    bad = [i for i, (s, q, out, _g) in enumerate(cap.search_all)
+           if not torch.equal(out, CK.sorted_search_plain(s, q))]
+    if bad:
+        raise AssertionError(f"{label}: {len(bad)} sorted searches "
+                             f"differ from their plain version")
+    search_rows, segsum_rows = [], []
+    by_shape = {}
+    for s, q, _out, graph in cap.search_all:
+        by_shape.setdefault((s.shape[0], q.shape[0]), []).append(
+            (s, q, graph))
+    for (n, m), recs in sorted(by_shape.items()):
+        s, q, graph = recs[-1]
+        top = timed and len(recs) == max(len(r) for r in by_shape.values())
+        search_rows.append(dict(check_sorted_search(
+            torch, CK, f"{label}_n{n}_m{m}", s, q, timed=top), path=label,
+            path_launches=len(recs), in_graph=graph))
+    seg_shapes = {}
+    for values, gids, mask, _out, g, _graph in cap.segsum_all:
+        seg_shapes.setdefault((values.shape[0], g), []).append(
+            (values, gids, mask))
+    if seg_shapes and timed:
+        (n, g), recs = max(seg_shapes.items(), key=lambda kv: len(kv[1]))
+        segsum_rows.append(dict(check_segment_sum(
+            torch, CK, f"{label}_n{n}_G{g}", *recs[-1], g),
+            path=label, path_launches=len(recs)))
+    held = {"sorted_search": len(cap.search_all),
+            "segment_sum": len(cap.segsum_all),
+            "segment_sum_bit_for_bit": exact,
+            "segment_sum_within_tolerance": len(cap.segsum_all) - exact,
+            "in_graph_replays": sum(1 for r in cap.search_all if r[-1])
+            + sum(1 for r in cap.segsum_all if r[-1])}
+    log(f"[{label}] held all {held['sorted_search']} sorted searches bit "
+        f"for bit and all {held['segment_sum']} segment sums ({exact} "
+        f"exact, {held['segment_sum_within_tolerance']} within rtol 1e-4 / "
+        f"atol 1e-3), {held['in_graph_replays']} of them in graph "
+        f"replays; each segment sum launched again for the same bits")
+    return search_rows, segsum_rows, held
 
 
 def table_host_bytes(table) -> int:
@@ -3119,34 +3318,6 @@ def rows_agree(got, want, rtol=1e-4, atol=1e-3) -> bool:
     return True
 
 
-class GraphSearchSpy:
-    """Keeps, for each call of the sorted-search seam made while a CUDA
-    graph is captured, the tensors the graph reads and writes there: the
-    sorted hashes, the probe hashes and the positions.  After any replay
-    they hold that replay's values, so the kernel inside the graph can be
-    held against its plain version on its own inputs."""
-
-    def __init__(self, torch, TK):
-        self.torch, self.TK = torch, TK
-        self.seen = []
-
-    def __enter__(self):
-        real = self._real = self.TK.sorted_lookup
-
-        def lookup(sorted_hash, queries):
-            out = real(sorted_hash, queries)
-            if self.torch.cuda.is_current_stream_capturing():
-                self.seen.append((sorted_hash, queries, out))
-            return out
-
-        self.TK.sorted_lookup = lookup
-        return self
-
-    def __exit__(self, *exc):
-        self.TK.sorted_lookup = self._real
-        return False
-
-
 #: 9c: the 22's queries with a decorrelated subquery (EXISTS, NOT EXISTS
 #: or a correlated scalar aggregate); their warm runs capture nothing
 DECORRELATED_22 = (2, 4, 17, 20, 21, 22)
@@ -3254,7 +3425,7 @@ def phase_fusion(torch, CK, args, sf1, sf01, earlier) -> tuple:
     for key, name, sql, n_rows, check in paths:
         want = perop_session.execute(sql).rows()
         if name == "q3":
-            with GraphSearchSpy(torch, TK) as spy:
+            with PathInputs(torch, TK, "graphs") as spy:
                 report[key] = fused_path(torch, CK, key, fsess, sql, n_rows,
                                          check, want)
         else:
@@ -3431,6 +3602,9 @@ def phase_fusion(torch, CK, args, sf1, sf01, earlier) -> tuple:
 
 #: 10a: a join build budget past Q21's largest build at SF1 (no spill)
 NO_SPILL_BUDGET = 1 << 24
+#: warm runs of each phase-10 query after its counted run: cut from 3 to
+#: 1 to keep the whole script well inside its limit (PERF.md section 4)
+SPILL_WARM_RUNS = 1
 #: 10b: 5c's float GROUP BY at G = 4096: v's values under 4096 groups
 SPILL_GROUP_BY_SQL = ("select grp, sum(xi), sum(xn) from vg group by grp "
                       "order by grp")
@@ -3496,8 +3670,9 @@ def spill_path(torch, CK, TK, label: str, session, sql: str, check,
     """One query that must (spill = "join_spills" / "agg_spills") or must
     not (spill = "") spill: the cold run, the counted warm run (its
     spill counters, kernel launches by shape with their inputs captured,
-    peak device memory), then the best of 3 warm runs; every run's rows
-    checked.  -> (record, the captured kernel inputs, the rows)."""
+    peak device memory), then the best of `SPILL_WARM_RUNS` warm runs;
+    every run's rows checked.  -> (record, the captured kernel inputs,
+    the rows)."""
     def spilled(c):
         return {k: v for k, v in c.items() if v} if spill else {}
 
@@ -3524,7 +3699,7 @@ def spill_path(torch, CK, TK, label: str, session, sql: str, check,
         if not spill and n:
             raise AssertionError(f"{label}: the {name} run spilled: {c}")
     warm = []
-    for _ in range(3):
+    for _ in range(SPILL_WARM_RUNS):
         rows, _batch, w = run_sql(torch, session, sql)
         check(rows)
         warm.append(w)
@@ -3543,9 +3718,9 @@ def check_spill_search(torch, CK, key: str, rec: dict, cap,
     """The sorted search at every shape `rec`'s counted run launched it
     with, bit for bit: on the inputs the seam captured, and, for the
     launches a fused step's replays make without calling the seam, on
-    the tensors the graphs read and wrote (`GraphSearchSpy`: the values
-    of their last replay); timed at the most launched shape.  A shape
-    the run launched that neither covers raises."""
+    the tensors the graphs read and wrote (`PathInputs` in `graphs`:
+    the values of their last replay); timed at the most launched shape.
+    A shape the run launched that neither covers raises."""
     counts = {tuple(r[:-1]): r[-1] for r in
               rec["launches"]["sorted_search"]["by_shape"]}
     top = max(counts, key=counts.get) if counts else None
@@ -3613,7 +3788,7 @@ def phase_spill_storage(torch, CK, args, sf1, keep=None) -> tuple:
     fusion.CACHE.clear()
     # 10a: Q21 spilled (the default budget) and not (a budget past its
     # largest build), fused and per-operator: the same rows
-    with GraphSearchSpy(torch, TK) as spy:
+    with PathInputs(torch, TK, "graphs") as spy:
         sql = tpch_full.QUERIES[21]
         fsess.variables["join_build_budget"] = NO_SPILL_BUDGET
         want = fsess.execute(sql).rows()
@@ -3914,7 +4089,7 @@ def phase_objects(torch, CK, args) -> tuple:
         caps = {}
         from matrixone_tpu_torch.vm import fusion
         fusion.CACHE.clear()
-        with GraphSearchSpy(torch, TK) as spy:
+        with PathInputs(torch, TK, "graphs") as spy:
             report["11a_q3_fused"], caps["11a_q3_fused"], q3_rows = \
                 object_path(torch, CK, TK, "11a Q3 fused", fsess,
                             tpch.Q3_SQL, n, check_q3, "sorted_search",
@@ -4226,7 +4401,7 @@ def tree_reuse_path(torch, CK, TK, label: str, session, sql: str, warm,
     from matrixone_tpu_torch.utils import metrics as M
     sv = serving_for(session.catalog)
     sv.plan_cache.clear()
-    spy = GraphSearchSpy(torch, TK) if fused else None
+    spy = PathInputs(torch, TK, "graphs") if fused else None
     if spy is not None:
         spy.__enter__()
     try:
@@ -5595,7 +5770,7 @@ def ingest_query(torch, CK, TK, label: str, session, sql: str, check,
     run (sorted-search launches by shape, inputs captured; it captures
     no graph), the best of `warm_runs` warm runs and one profiled run,
     every run checked.  -> (record, captured inputs, graph spy)."""
-    with GraphSearchSpy(torch, TK) as spy:
+    with PathInputs(torch, TK, "graphs") as spy:
         rows, batch, cold_s = run_sql(torch, session, sql)
         check(rows, batch)
         CK.LAUNCHES.reset()
@@ -5811,6 +5986,478 @@ def phase_ingest(torch, CK, args, tables=None, dev: str = "cuda") -> tuple:
     return report, search_rows
 
 
+# ----------------------------------- phase 16: views, UDFs and the canary
+
+MV_V_SQL = ("select grp, count(*) n, sum(xn) sx, min(xn) lo, max(xn) hi "
+            "from v group by grp")
+V_FRESH_SQL = ("select grp, count(*), sum(xn), min(xn), max(xn) from v "
+               "group by grp order by grp")
+MV_UPDATE_SQL = "update v set xn = xn + 1 where grp = 7"
+MV_DELETE_SQL = "delete from v where grp = 9"
+#: 16b: single-row commits into v (with the view) and into v_copy
+#: (without one); every MV_CHECK_EVERY-th is followed by a view check
+MV_SINGLE_COMMITS = 200
+MV_CHECK_EVERY = 50
+UDF_JIT_BODY = ("jnp.where(x > 0, 1.0 / (1.0 + jnp.exp(-x)), "
+                "jnp.exp(x) / (1.0 + jnp.exp(x)))")
+UDF_ROW_BODY = "if x > 0.0:\n    return x * 2.0\nreturn -x"
+UDF_ROW_LIMIT = 20000
+
+
+def udf_jit_oracle(x: np.ndarray) -> np.ndarray:
+    """UDF_JIT_BODY run by numpy in f64 on the host."""
+    x = x.astype(np.float64)
+    with np.errstate(over="ignore"):
+        return np.where(x > 0, 1.0 / (1.0 + np.exp(-x)),
+                        np.exp(x) / (1.0 + np.exp(x)))
+
+
+def load_phase16_tables(eng, lineitem, q3data, v) -> dict:
+    """Phase 5's generator arrays into `eng`: lineitem, customer and
+    orders with `utils/tpch`'s schemas, v with 5c's, and v_copy (the
+    same rows, no view) -> seconds per table."""
+    from matrixone_tpu_torch.container import dtypes as dt
+    from matrixone_tpu_torch.storage.engine import TableMeta
+    from matrixone_tpu_torch.utils import tpch
+    out = {}
+    t0 = time.perf_counter()
+    eng.create_table(TableMeta("lineitem", tpch.LINEITEM_SCHEMA,
+                               ["l_orderkey", "l_linenumber"]))
+    eng.get_table("lineitem").insert_numpy(
+        lineitem, strings={
+            "l_returnflag": (lineitem["l_returnflag"], tpch.FLAG_CATS),
+            "l_linestatus": (lineitem["l_linestatus"], tpch.STATUS_CATS)})
+    out["lineitem"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    seg = q3data["seg_codes"]
+    eng.create_table(TableMeta("customer", tpch.CUSTOMER_SCHEMA,
+                               ["c_custkey"]))
+    eng.get_table("customer").insert_numpy(
+        {"c_custkey": np.arange(1, len(seg) + 1, dtype=np.int64)},
+        strings={"c_mktsegment": (seg, tpch.SEGMENTS)})
+    eng.create_table(TableMeta("orders", tpch.ORDERS_SCHEMA, ["o_orderkey"]))
+    eng.get_table("orders").insert_numpy(q3data["orders"])
+    out["customer_orders"] = time.perf_counter() - t0
+    schema = [("id", dt.INT64), ("grp", dt.INT64), ("xi", dt.FLOAT32),
+              ("xn", dt.FLOAT32)]
+    for name in ("v", "v_copy"):
+        t0 = time.perf_counter()
+        eng.create_table(TableMeta(name, schema, ["id"]))
+        eng.get_table(name).insert_numpy(v)
+        out[name] = time.perf_counter() - t0
+    return out
+
+
+def q1_oracle_int64(a) -> dict:
+    """`tpch.q1_oracle` computed in int64 arrays instead of Python ints
+    (the same dict): at SF1 a row's charge is below 1.2e11 and a group's
+    sum below 7e17, inside int64."""
+    from matrixone_tpu_torch.utils import tpch
+    sel = a["l_shipdate"] <= tpch._days(1998, 12, 1) - 90
+    key = a["l_returnflag"][sel].astype(np.int64) * 2 \
+        + a["l_linestatus"][sel]
+    q, p, d, t = (a[c][sel].astype(np.int64) for c in (
+        "l_quantity", "l_extendedprice", "l_discount", "l_tax"))
+    disc_price = p * (100 - d)
+    charge = disc_price * (100 + t)
+    out = {}
+    for k in np.unique(key):
+        m = key == k
+        n = int(m.sum())
+        sq, sp, sd = int(q[m].sum()), int(p[m].sum()), int(d[m].sum())
+        out[(tpch.FLAG_CATS[k // 2], tpch.STATUS_CATS[k % 2])] = {
+            "sum_qty": sq, "sum_base_price": sp,
+            "sum_disc_price": int(disc_price[m].sum()),
+            "sum_charge": int(charge[m].sum()),
+            "avg_qty": sq / n / 100, "avg_price": sp / n / 100,
+            "avg_disc": sd / n / 100, "count_order": n}
+    return out
+
+
+def mv_v_oracle_check(session, xn_by_id, by_grp, label: str) -> dict:
+    """mv_v against an f64 numpy oracle of v as it now stands (`xn_by_id`
+    NaN for a deleted id; `by_grp`: the ids sorted by group and each
+    group's first position): counts, min and max exact, the sums within
+    rtol 1e-4 / atol 1e-3."""
+    order, starts, grp_sorted = by_grp
+    res = session.execute("select grp, n, sx, lo, hi from mv_v order by grp")
+    c = [np.asarray(res.batch.columns[k].data) for k in res.batch.columns]
+    x = xn_by_id[order]
+    live = ~np.isnan(x)
+    cnt_all = np.bincount(grp_sorted[live], minlength=len(starts))
+    keys = np.nonzero(cnt_all)[0]
+    cnt = cnt_all[keys]
+    s64 = np.bincount(grp_sorted[live], weights=x[live].astype(np.float64),
+                      minlength=len(starts))[keys]
+    lo = np.fmin.reduceat(x, starts)[keys]       # NaN (deleted) ignored
+    hi = np.fmax.reduceat(x, starts)[keys]
+    err = np.abs(c[2] - s64) if len(c[2]) == len(s64) else np.inf
+    ok = (np.array_equal(c[0], keys) and np.array_equal(c[1], cnt)
+          and np.array_equal(c[3], lo.astype(c[3].dtype))
+          and np.array_equal(c[4], hi.astype(c[4].dtype))
+          and bool((err <= 1e-4 * np.abs(s64) + 1e-3).all()))
+    if not ok:
+        raise AssertionError(f"{label}: mv_v differs from the f64 numpy "
+                             f"oracle of v")
+    return {"groups": int(len(keys)), "sum_max_abs_err": float(np.max(err))}
+
+
+def views_equal_fresh(session, li_oracle, label: str) -> None:
+    """Every view equal to its defining SELECT run fresh in the same
+    engine: mv_q1's sums and counts exactly (and to `q1_oracle`'s scaled
+    int64, averages within q1_exact's bounds), mv_v's counts, min and max
+    exactly and its sums within 5c's rtol 1e-4 / atol 1e-3."""
+    from matrixone_tpu_torch.utils import tpch
+    view = session.execute("select * from mv_q1 order by l_returnflag, "
+                           "l_linestatus")
+    bad = q1_exact(view.batch, li_oracle)
+    fresh = session.execute(tpch.Q1_SQL)
+    bad += q1_exact(fresh.batch, li_oracle)
+    if bad or [r[:6] + r[9:] for r in view.rows()] != \
+            [r[:6] + r[9:] for r in fresh.rows()]:
+        raise AssertionError(f"{label}: mv_q1 differs from Q1 run fresh "
+                             f"or from q1_oracle: {bad[:4]}")
+    got = session.execute("select grp, n, sx, lo, hi from mv_v order by "
+                          "grp").rows()
+    want = session.execute(V_FRESH_SQL).rows()
+    if [(r[0], r[1], r[3], r[4]) for r in got] != \
+            [(r[0], r[1], r[3], r[4]) for r in want] \
+            or not rows_agree([(r[2],) for r in got],
+                              [(r[2],) for r in want]):
+        raise AssertionError(f"{label}: mv_v differs from its SELECT run "
+                             f"fresh")
+
+
+def phase_views_udfs(torch, CK, args, arrays) -> tuple:
+    """Phase 16: materialized views over TPC-H's refresh functions, UDFs
+    over v, and the padding canary, in an in-memory engine of its own
+    over phase 5's SF1 generator arrays, with default knobs.
+    -> (report, sorted-search rows, segment-sum rows)."""
+    import gc
+
+    from matrixone_tpu_torch import mview as MV
+    from matrixone_tpu_torch.frontend import Session
+    from matrixone_tpu_torch.ops import kernels as TK
+    from matrixone_tpu_torch.storage.engine import Engine
+    from matrixone_tpu_torch.udf import jnp as ujnp
+    from matrixone_tpu_torch.udf.sandbox import compile_body
+    from matrixone_tpu_torch.utils import metrics as M, qa, roofline
+    from matrixone_tpu_torch.utils import tpch, tpch_full
+
+    lineitem, q3data, v = arrays
+    t_phase = time.perf_counter()
+    report = {}
+    parts = {}
+
+    def part(name, t0):
+        parts[name] = time.perf_counter() - t0
+        return time.perf_counter()
+    eng = Engine()
+    report["16_load_seconds"] = load_phase16_tables(eng, lineitem, q3data, v)
+    sess = Session(catalog=eng, device="cuda")
+    search_rows, segsum_rows = [], []
+    eager0 = M.fusion_dispatch.get(kind="eager")
+    tp = part("load", t_phase)
+
+    def apply_s(kind):
+        return M.mview_apply_seconds.get(kind=kind)
+
+    # 16a: the views' first computation
+    li_oracle = q1_oracle_int64(lineitem)
+    t0 = time.perf_counter()
+    sess.execute("create materialized view mv_q1 as " + tpch.Q1_SQL)
+    q1_init = time.perf_counter() - t0
+    CK.LAUNCHES.reset()
+    with PathInputs(torch, TK, "every") as cap16a:
+        t0 = time.perf_counter()
+        sess.execute("create materialized view mv_v as " + MV_V_SQL)
+        torch.cuda.synchronize()
+        v_init = time.perf_counter() - t0
+    launches = kernel_launches(CK, "16a mv_v init", ALL_KERNELS,
+                               required=("segment_sum",))
+    modes = {r[0]: r[1] for r in
+             sess.execute("show materialized views").rows()}
+    if modes != {"mv_q1": "incremental", "mv_v": "incremental"}:
+        raise AssertionError(f"16a: the views' modes {modes}")
+    n_v = len(v["id"])
+    xn_by_id = np.concatenate([v["xn"], np.full(MV_SINGLE_COMMITS, np.nan,
+                                                 np.float32)])
+    grp_by_id = np.concatenate([v["grp"],
+                                (n_v + np.arange(MV_SINGLE_COMMITS)) % 1000])
+    order = np.argsort(grp_by_id, kind="stable")
+    grp_sorted = grp_by_id[order]
+    by_grp = (order, np.searchsorted(grp_sorted, np.arange(1000)),
+              grp_sorted)
+    views_equal_fresh(sess, li_oracle, "16a")
+    v_err = mv_v_oracle_check(sess, xn_by_id, by_grp, "16a")
+    rows, seg, held = hold_launches(torch, CK, cap16a, "16a_mv_v_init",
+                                    launches)
+    del cap16a
+    search_rows += rows
+    segsum_rows += seg
+    tp = part("16a", tp)
+    report["16a_init"] = {"mv_q1_seconds": q1_init,
+                          "mv_v_seconds": v_init, "launches": launches,
+                          "held": held, "mv_v_vs_f64": v_err}
+    log(f"[16a] mv_q1 (dense tier) initialized in {q1_init:.3f}s, exact "
+        f"to q1_oracle; mv_v (general tier) in {v_init:.3f}s, "
+        f"{held['segment_sum']} segment-sum launches; mv_v within 5c's "
+        f"tolerance of f64 (max err {v_err['sum_max_abs_err']:.3e})")
+
+    # 16b: RF1 and RF2, then the MIN/MAX recompute, then single rows
+    li_events = {"n": 0}
+
+    def count_lineitem(_ts, table, _kind, _payload):
+        if table == "lineitem":
+            li_events["n"] += 1
+    eng.subscribe(count_lineitem)
+    svc = eng._mview_service
+    tables = {"lineitem": lineitem, "orders": q3data["orders"]}
+    dense0, d0 = M.mview_apply.get(tier="dense"), dict(svc.dense)
+    s0 = apply_s("delta")
+    rf1 = tpch_full.rf1(tables, 1.0, seed=args.seed + 16, q3data=q3data)
+    rf1_s, _, _ = run_statements(torch, sess, rf1.statements)
+    tables = tpch_full.apply_refresh(tables, rf1)
+    views_equal_fresh(sess, q1_oracle_int64(tables["lineitem"]), "16b RF1")
+    rf2 = tpch_full.rf2(tables, 1.0, seed=args.seed + 17)
+    rf2_s, _, _ = run_statements(torch, sess, rf2.statements)
+    tables = tpch_full.apply_refresh(tables, rf2)
+    li_oracle = q1_oracle_int64(tables["lineitem"])
+    views_equal_fresh(sess, li_oracle, "16b RF2")
+    dense_n = M.mview_apply.get(tier="dense") - dense0
+    steps = {k: svc.dense[k] - d0[k] for k in d0}
+    if dense_n != li_events["n"] or dense_n == 0:
+        raise AssertionError(f"16b: mo_mview_apply{{tier=dense}} counted "
+                             f"{dense_n}, the lineitem deltas "
+                             f"{li_events['n']}")
+    if steps["steps"] != dense_n or steps["graph_replays"] != dense_n \
+            or steps["graph_captures"] > dense_n:
+        raise AssertionError(f"16b: the dense deltas {dense_n} made the "
+                             f"steps and graph use {steps}: not one replay "
+                             f"a delta")
+    dense_s = apply_s("delta") - s0
+    log(f"[16b] RF1 {rf1_s:.3f}s, RF2 {rf2_s:.3f}s: {dense_n} lineitem "
+        f"deltas, each one dense step and ONE graph replay "
+        f"({steps['graph_captures']} captures, one a new padded shape); "
+        f"dense apply {dense_s:.3f}s; both views equal their SELECTs")
+    tp = part("16b_refresh", tp)
+    rec0, s0 = M.mview_apply.get(tier="recompute"), apply_s("delta")
+    CK.LAUNCHES.reset()
+    with PathInputs(torch, TK, "every") as cap16b:
+        t0 = time.perf_counter()
+        sess.execute(MV_UPDATE_SQL)
+        upd_s = time.perf_counter() - t0
+        m7 = (grp_by_id == 7) & ~np.isnan(xn_by_id)
+        xn_by_id[m7] = xn_by_id[m7] + np.float32(1)
+        views_equal_fresh(sess, li_oracle, "16b UPDATE")
+        t0 = time.perf_counter()
+        sess.execute(MV_DELETE_SQL)
+        del_s = time.perf_counter() - t0
+        xn_by_id[grp_by_id == 9] = np.nan
+        views_equal_fresh(sess, li_oracle, "16b DELETE")
+    recompute_launches = kernel_launches(CK, "16b recompute", ALL_KERNELS,
+                                         required=("segment_sum",))
+    recomputes = M.mview_apply.get(tier="recompute") - rec0
+    if recomputes != 2:
+        raise AssertionError(f"16b: {recomputes} MIN/MAX recomputes, not 2")
+    recompute_s = apply_s("delta") - s0
+    v_err = mv_v_oracle_check(sess, xn_by_id, by_grp, "16b")
+    tp = part("16b_update_delete", tp)
+    rows, seg, held_b = hold_launches(torch, CK, cap16b, "16b_recompute",
+                                      recompute_launches)
+    del cap16b
+    search_rows += rows
+    segsum_rows += seg
+    single = {}
+    for table in ("v", "v_copy"):
+        s0, g0 = apply_s("delta"), M.mview_apply.get(tier="general")
+        secs = []
+        for i in range(MV_SINGLE_COMMITS):
+            rid = n_v + i
+            x = np.float32((i % 50) * 0.25 - 6.0)
+            t0 = time.perf_counter()
+            sess.execute(f"insert into {table} values ({rid}, {rid % 1000}, "
+                         f"{float(i % 16)}, {float(x)})")
+            secs.append(time.perf_counter() - t0)
+            if table == "v":
+                xn_by_id[rid] = x
+                if (i + 1) % MV_CHECK_EVERY == 0:
+                    views_equal_fresh(sess, li_oracle,
+                                      f"16b commit {i + 1}")
+        single[table] = {**ms_stats(secs),
+                         "general_apply_seconds": apply_s("delta") - s0,
+                         "general_deltas":
+                             M.mview_apply.get(tier="general") - g0}
+    if single["v"]["general_deltas"] != MV_SINGLE_COMMITS \
+            or single["v_copy"]["general_deltas"]:
+        raise AssertionError(f"16b: general-tier deltas {single}")
+    v_err_end = mv_v_oracle_check(sess, xn_by_id, by_grp, "16b end")
+    tp = part("16b_single_rows", tp)
+    eager = M.fusion_dispatch.get(kind="eager") - eager0
+    if eager:
+        raise AssertionError(f"16b: {eager} eager dispatches")
+    report["16b_maintenance"] = {
+        "rf1_seconds": rf1_s, "rf2_seconds": rf2_s,
+        "dense_deltas": dense_n, "dense_graph": steps,
+        "dense_apply_seconds": dense_s,
+        "update_seconds": upd_s, "delete_seconds": del_s,
+        "recompute_apply_seconds": recompute_s,
+        "recompute_launches": recompute_launches, "held": held_b,
+        "mv_v_vs_f64": v_err, "mv_v_vs_f64_end": v_err_end,
+        "single_row_commits": single, "eager_dispatches": eager,
+        "status": MV.stats(eng)}
+    log(f"[16b] UPDATE {upd_s:.3f}s and DELETE {del_s:.3f}s (MIN/MAX "
+        f"recompute, apply {recompute_s:.3f}s, "
+        f"{held_b['segment_sum']} segment sums); single-row commit p50/p99 "
+        f"with the view {single['v']['ms_p50']:.2f}/"
+        f"{single['v']['ms_p99']:.2f} ms, without "
+        f"{single['v_copy']['ms_p50']:.2f}/{single['v_copy']['ms_p99']:.2f}"
+        f" ms; general apply {single['v']['general_apply_seconds']:.3f}s")
+
+    # 16c: UDFs over v
+    live = ~np.isnan(xn_by_id)
+    sess.execute("create function vsig(x DOUBLE) returns DOUBLE language "
+                 f"python as $$ {UDF_JIT_BODY} $$")
+    sess.execute("create function vstep(x DOUBLE) returns DOUBLE language "
+                 f"python as $$ {UDF_ROW_BODY} $$")
+    sess.execute("create aggregate function p90(x DOUBLE) returns DOUBLE "
+                 "language python as $$ jnp.percentile(x, 90.0) $$")
+    udf = {}
+    t16c = time.perf_counter()
+    for name, sql, tier in (
+            ("jit", "select id, vsig(xn) from v", "[jit]"),
+            ("row", f"select id, vstep(xn) from v where id < "
+                    f"{UDF_ROW_LIMIT}", "[row]")):
+        fn = "vsig" if name == "jit" else "vstep"
+        secs = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            res = sess.execute(sql)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        cols = [np.asarray(res.batch.columns[k].data)
+                for k in res.batch.columns]
+        ids, got = cols[0], cols[1]
+        want_ids = np.nonzero(live)[0]
+        if name == "row":
+            want_ids = want_ids[want_ids < UDF_ROW_LIMIT]
+        x = xn_by_id[ids]
+        want = (udf_jit_oracle(x) if name == "jit" else
+                np.where(x > 0, x.astype(np.float64) * 2.0,
+                         -x.astype(np.float64)))
+        rtol = 1e-9 if name == "jit" else 0.0
+        if not np.array_equal(np.sort(ids), want_ids) \
+                or not np.allclose(got, want, rtol=rtol, atol=0.0):
+            raise AssertionError(f"16c: the {name} tier's rows differ from "
+                                 f"numpy's f64")
+        text = sess.execute("explain " + sql).text
+        if f"UdfCall {fn} {tier}" not in text:
+            raise AssertionError(f"16c: EXPLAIN does not show UdfCall {fn} "
+                                 f"{tier}:\n{text}")
+        log(f"[16c] {name} tier checked, {time.perf_counter() - t16c:.2f}s "
+            f"into 16c")
+        udf[name] = {"rows": int(len(ids)), "seconds": secs,
+                     "rows_per_s": len(ids) / min(secs),
+                     "max_rel_err": float(np.max(np.abs(got - want)
+                                                 / np.maximum(np.abs(want),
+                                                              1e-300)))}
+    t0 = time.perf_counter()
+    (p90,), = sess.execute("select p90(xn) from v").rows()
+    agg_s = time.perf_counter() - t0
+    want = float(np.percentile(xn_by_id[live].astype(np.float64), 90.0))
+    if abs(p90 - want) > 1e-12 * abs(want):
+        raise AssertionError(f"16c: p90 {p90} != numpy's {want}")
+    udf["aggregate"] = {"rows": int(live.sum()), "seconds": agg_s,
+                        "rows_per_s": int(live.sum()) / agg_s,
+                        "value": p90, "numpy": want}
+    log(f"[16c] the percentile checked, {time.perf_counter() - t16c:.2f}s "
+        f"into 16c")
+    # the jit tier's body alone on one 1M-row batch: achieved GB/s
+    body = compile_body("vsig", UDF_JIT_BODY, ["x"])
+    xb = torch.from_numpy(v["xn"][:1 << 20].astype(np.float64)).cuda()
+
+    def call(t):
+        with ujnp.on_device("cuda"):
+            return body(ujnp.Array(t, traced=True))._t
+    body_ms = cuda_time_ms(lambda: call(xb))
+    cost = roofline.cost_of(call, xb)
+    udf["jit_body_1m"] = {"ms": body_ms, **cost,
+                          **roofline.mfu(cost["flops"], cost["bytes"], 1,
+                                         body_ms / 1e3, device="cuda")}
+    report["16c_udf"] = udf
+    tp = part("16c", tp)
+    log(f"[16c] UDFs: jit {udf['jit']['rows_per_s']:.0f} rows/s over "
+        f"{udf['jit']['rows']} rows (max rel err "
+        f"{udf['jit']['max_rel_err']:.2e} of numpy f64), row "
+        f"{udf['row']['rows_per_s']:.0f} rows/s, percentile "
+        f"{udf['aggregate']['rows_per_s']:.0f} rows/s equal to numpy's; "
+        f"the jit body at 1M rows {body_ms:.4f} ms, "
+        f"{udf['jit_body_1m'].get('achieved_gbps')} GB/s "
+        f"(HBM {udf['jit_body_1m'].get('hbm_util')})")
+
+    # 16d: the padding canary on Q1, Q3 and 5c's GROUP BY, fused
+    q3want = tpch.q3_oracle(tables["lineitem"],
+                            dict(q3data, orders=tables["orders"]))
+    checks = {"q1": lambda rows, b: q1_exact(b, li_oracle),
+              "q3": lambda rows, b: [] if [
+                  (r[0], round(r[1] * 10000),
+                   (r[2] - __import__("datetime").date(1970, 1, 1)).days)
+                  for r in rows] == q3want else ["q3"],
+              "group_by": lambda rows, b: []}
+    canary = {}
+    for name, sql in (("q1", tpch.Q1_SQL), ("q3", tpch.Q3_SQL),
+                      ("group_by", GROUP_BY_SQL)):
+        with PathInputs(torch, TK, "every") as cap:
+            res = sess.execute(sql)
+            want = res.rows()
+            bad = checks[name](want, res.batch)
+            if bad:
+                raise AssertionError(f"16d {name}: unarmed rows wrong "
+                                     f"{bad[:3]}")
+            CK.LAUNCHES.reset()
+            # the armed run's launches alone are held: each graph that
+            # the unarmed run captured is held at each armed replay, on
+            # that replay's (poisoned) inputs
+            cap.drop_held()
+            with qa.armed_scope(), qa.capture() as probe:
+                got = sess.execute(sql).rows()
+                torch.cuda.synchronize()
+            launches = kernel_launches(CK, f"16d {name}", ALL_KERNELS)
+        if repr(got) != repr(want) or probe.findings():
+            raise AssertionError(f"16d {name}: armed rows differ or the "
+                                 f"canary found {[f.format() for f in probe.findings()]}")
+        rows, seg, held_d = hold_launches(torch, CK, cap, f"16d_{name}",
+                                          launches)
+        del cap
+        search_rows += rows
+        segsum_rows += seg
+        canary[name] = {"launches": launches, "held": held_d,
+                        "findings": 0}
+    if not canary["q3"]["launches"]["sorted_search"]["launches"] \
+            or not canary["group_by"]["launches"]["segment_sum"]["launches"]:
+        raise AssertionError("16d: Q3 launched no sorted search or the "
+                             "GROUP BY no segment sum")
+    report["16d_canary"] = canary
+    tp = part("16d", tp)
+    log(f"[16d] canary armed: Q1, Q3, 5c's GROUP BY fused, rows "
+        f"bit-identical to unarmed, no finding; "
+        f"{canary['q3']['held']['sorted_search']} sorted searches "
+        f"({canary['q3']['held']['in_graph_replays']} in graph replays) "
+        f"and "
+        f"{canary['group_by']['held']['segment_sum']} segment sums held on "
+        f"their poisoned inputs")
+    sess.close()
+    eng.unsubscribe(count_lineitem)
+    del sess, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["seconds"] = time.perf_counter() - t_phase
+    report["part_seconds"] = parts
+    log(f"[16] phase 16 took {report['seconds']:.1f}s "
+        f"({ {k: round(v, 1) for k, v in parts.items()} })")
+    return report, search_rows, segsum_rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=1_000_000)
@@ -5892,6 +6539,7 @@ def main(argv=None) -> int:
         phase_refresh_sf1(torch, CK, args, sf1)
     report["refresh"]["seconds"] = time.perf_counter() - t0
     log(f"[7] phase 7 took {report['refresh']['seconds']:.1f}s")
+    sf1_arrays = sf1[1:]           # phase 16 loads them into its own engine
     del sf1
     t0 = time.perf_counter()
     report["objects"], obj_search, obj_segsum = phase_objects(torch, CK,
@@ -5904,11 +6552,14 @@ def main(argv=None) -> int:
     report["ingest"], ingest_search = phase_ingest(torch, CK, args,
                                                    ingest_tables)
     del ingest_tables
+    report["views_udfs"], mv_search, mv_segsum = phase_views_udfs(
+        torch, CK, args, sf1_arrays)
+    del sf1_arrays
     search_rows += (search_path + tpch_search + rf01_search + refresh_search
                     + exec_search + fusion_search + spill_search
-                    + obj_search + ingest_search)
+                    + obj_search + ingest_search + mv_search)
     segsum_rows += (segsum_path + rf01_segsum + refresh_segsum + exec_segsum
-                    + spill_segsum + obj_segsum)
+                    + spill_segsum + obj_segsum + mv_segsum)
     rows += path_rows + pq_rows + vsql_l2
     adc_rows += pq_adc_rows + vsql_adc
     pq_build = report["ivf_pq"]["build_launches"]
@@ -6008,6 +6659,25 @@ def main(argv=None) -> int:
     ingest_timed = {"shape": ingest_row["shape"], "path": ingest_row["path"],
                     "path_launches": ingest_row["path_launches"],
                     **{key: ingest_row[key] for key in timed}}
+    # phase 16: views, UDFs and the canary; each kernel timed at its most
+    # launched phase-16 shape
+    mv = report["views_udfs"]
+    mv_launches = {kernel: {
+        "16a_mv_v_init": mv["16a_init"]["launches"][kernel]["launches"],
+        "16b_recompute":
+            mv["16b_maintenance"]["recompute_launches"][kernel]["launches"],
+        **{f"16d_canary_{q}": mv["16d_canary"][q]["launches"][kernel][
+            "launches"] for q in ("q1", "q3", "group_by")}}
+        for kernel in ("sorted_search", "segment_sum")}
+    mv_timed = {}
+    for kernel, rows_ in (("sorted_search", mv_search),
+                          ("segment_sum", mv_segsum)):
+        best = max((r for r in rows_ if "ms" in r),
+                   key=lambda r: r["path_launches"], default=None)
+        mv_timed[kernel] = None if best is None else {
+            "shape": best["shape"], "path": best["path"],
+            "path_launches": best["path_launches"],
+            **{key: best[key] for key in timed}}
 
     record = {"kernels": [{
         "name": "l2_distance_sq", "route": "cuda",
@@ -6073,9 +6743,11 @@ def main(argv=None) -> int:
             **fusion_launches, **spill_launches["sorted_search"],
             **object_launches["sorted_search"],
             **serving_launches["sorted_search"],
-            **counted_launches("sorted_search")},
+            **counted_launches("sorted_search"),
+            **mv_launches["sorted_search"]},
         "launches_under_fusion": fusion_launches["9a_q3"],
         "phase15": ingest_timed,
+        "phase16": mv_timed["sorted_search"],
         "max_abs_err": max(r["max_abs_err"] for r in search_rows),
         **{key: search_row[key] for key in timed},
         "library_call": "torch.searchsorted on pre-flipped int64",
@@ -6093,7 +6765,9 @@ def main(argv=None) -> int:
             **spill_launches["segment_sum"],
             **object_launches["segment_sum"],
             **serving_launches["segment_sum"],
-            **counted_launches("segment_sum")},
+            **counted_launches("segment_sum"),
+            **mv_launches["segment_sum"]},
+        "phase16": mv_timed["segment_sum"],
         "max_abs_err": max(r["max_abs_err"] for r in segsum_rows),
         **{key: segsum_row[key] for key in timed},
         **{key: segsum_row[key] for key in (

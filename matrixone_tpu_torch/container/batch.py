@@ -1,10 +1,10 @@
 """Host-side Batch: named Vectors + row count, and the host<->device bridge.
 
 The port's copy of `matrixone_tpu/container/batch.py` without Arrow
-interop and without the padding-canary audit (`utils/qa`).
-`from_device` brings a DeviceBatch back to the host, trimming padding
-and decoding dictionary-coded varlena columns through their host-side
-dictionaries (`HostDicts`).
+interop.  `from_device` brings a DeviceBatch back to the host, trimming
+padding and decoding dictionary-coded varlena columns through their
+host-side dictionaries (`HostDicts`); under the padding canary
+(`utils/qa`) it audits every valid cell for the canary.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ import numpy as np
 from matrixone_tpu_torch.container import device as dev
 from matrixone_tpu_torch.container.dtypes import DType, varchar
 from matrixone_tpu_torch.container.vector import Vector
+from matrixone_tpu_torch.utils import qa
 
 #: host-side dictionaries for device dictionary-encoded varlena columns
 HostDicts = Dict[str, List[str]]
@@ -63,11 +64,25 @@ def from_device(dbatch: dev.DeviceBatch, dicts: Optional[HostDicts] = None,
                     f"varchar column {name!r} reached the host without a "
                     f"dictionary — an operator dropped dict propagation")
             lut = dicts.get(name, [])
+            if qa.armed() and len(data) and val.any():
+                # a valid visible cell whose code is outside the
+                # dictionary can only be a leaked poisoned pad row
+                oob = val & ((data < 0) | (data >= len(lut)))
+                n_oob = int(np.count_nonzero(oob))
+                if n_oob:
+                    qa.record_finding(
+                        "canary-in-result", f"column {name!r}",
+                        f"{n_oob} valid cell(s) carry a dictionary code "
+                        f"outside the LUT — a poisoned pad row leaked")
+                    data = np.where(oob, 0, data)
+                    val = val & ~oob
             strings = [lut[c] if v else None for c, v in zip(data, val)]
             cols[name] = Vector(dtype=dtype if dtype.is_varlen else varchar(),
                                 strings=strings,
                                 validity=None if val.all() else val)
         else:
+            if qa.armed():
+                qa.audit_host_column(name, data, val)
             cols[name] = Vector(dtype=dtype, data=data,
                                 validity=None if val.all() else val)
     return Batch(cols)

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from matrixone_tpu_torch.container.dtypes import DType, torch_dtype_of
+from matrixone_tpu_torch.utils import qa
 
 #: batch length buckets — powers of two from 1Ki to 1Mi (the JAX
 #: package's, which it needs to bound its jit cache; the port keeps them
@@ -208,6 +209,16 @@ def _rows_on(arr, n_rows: int, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(arr[:n_rows])).to(device)
 
 
+#: numpy dtype of each torch dtype an upload may carry (the canary's)
+_NP_OF = {torch.bool: np.dtype(np.bool_), torch.int8: np.dtype(np.int8),
+          torch.int16: np.dtype(np.int16), torch.int32: np.dtype(np.int32),
+          torch.int64: np.dtype(np.int64),
+          torch.uint8: np.dtype(np.uint8),
+          torch.float32: np.dtype(np.float32),
+          torch.float64: np.dtype(np.float64),
+          torch.float16: np.dtype(np.float16)}
+
+
 def from_numpy(arrays: Dict[str, np.ndarray],
                dtypes: Dict[str, DType],
                validity: Optional[Dict[str, np.ndarray]] = None,
@@ -215,7 +226,8 @@ def from_numpy(arrays: Dict[str, np.ndarray],
                pad_to: Optional[int] = None,
                device=None) -> DeviceBatch:
     """Build a padded DeviceBatch on `device` from host numpy arrays
-    (zero rows allowed); padding rows hold zeros and are invalid.
+    (zero rows allowed); padding rows hold zeros (the padding canary's
+    poison when `utils/qa` is armed) and are invalid.
 
     Device fast path (the block cache's device tier): a column or a
     validity given as a tensor already on `device`, at the declared (or
@@ -242,6 +254,13 @@ def from_numpy(arrays: Dict[str, np.ndarray],
             tdt = torch_dtype_of(arr.dtype)
         data = torch.zeros((padded,) + tuple(arr.shape[1:]), dtype=tdt,
                            device=device)
+        if qa._ARMED and padded > n_rows:
+            # the padded tail, canary-poisoned under the padding audit
+            # (utils/qa.py): the tail is dead by contract, so its fill
+            # must never be observable
+            poison = qa.canary_value(_NP_OF[tdt])
+            if poison is not None:
+                data[n_rows:] = poison.item()
         valid = torch.zeros((padded,), dtype=torch.bool, device=device)
         if n_rows:
             data[:n_rows] = _rows_on(arr, n_rows, device)

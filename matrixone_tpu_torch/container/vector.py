@@ -61,6 +61,31 @@ class Vector:
         return cls(dtype=dtype, data=data,
                    validity=None if val.all() else val)
 
+    @classmethod
+    def concat(cls, vectors: List["Vector"], dtype: DType) -> "Vector":
+        """Vectors of one column, end to end, as `from_values` over their
+        `to_pylist()`s would give them.  Strings and the types whose
+        round trip through Python values is the identity (ints, floats,
+        bools) concatenate as arrays; decimals, dates, datetimes and
+        vectors take the round trip itself."""
+        if dtype.is_varlen:
+            strings = [v for vec in vectors for v in vec.to_pylist()]
+            return cls.from_values(strings, dtype)
+        if dtype.is_vector or dtype.oid in (
+                TypeOid.DECIMAL64, TypeOid.DATE, TypeOid.DATETIME,
+                TypeOid.TIMESTAMP):
+            return cls.from_values(
+                [v for vec in vectors for v in vec.to_pylist()], dtype)
+        val = np.concatenate([vec.valid_mask() for vec in vectors]) \
+            if vectors else np.zeros(0, np.bool_)
+        data = np.concatenate([np.asarray(vec.data, dtype.np_dtype)
+                               for vec in vectors]) if vectors \
+            else np.zeros(0, dtype.np_dtype)
+        # a NULL's slot holds 0, as from_values fills it
+        data = np.where(val, data, np.zeros((), data.dtype))
+        return cls(dtype=dtype, data=data,
+                   validity=None if val.all() else val)
+
     def valid_mask(self) -> np.ndarray:
         if self.validity is not None:
             return self.validity

@@ -63,10 +63,19 @@ transaction; CREATE/DROP/SHOW STAGE name locations; CREATE EXTERNAL
 TABLE over a CSV file scans it in place (`storage/external.py`); and
 `load_file()` reads a datalink's text at bind time.
 
+Materialized views (`mview/`): CREATE / DROP / SHOW / REFRESH
+MATERIALIZED VIEW, a view's backing table refused to INSERT, UPDATE,
+DELETE, LOAD and DROP TABLE, EXPLAIN marking its scan `mview=
+incremental|full`, and `mo_ctl('mview', 'status'|'refresh:<v>')`.
+User-defined functions (`udf/`): CREATE [OR REPLACE] [AGGREGATE]
+FUNCTION ... LANGUAGE PYTHON, DROP FUNCTION, SHOW FUNCTIONS, EXPLAIN's
+`UdfCall f [jit|row|aggregate]` and `mo_ctl('udf', 'status'|'clear')`;
+nondeterministic UDFs bypass both serving caches.
+
 Not ported yet (ROADMAP.md, section A): parquet and iceberg (they need
-pyarrow), materialized views, UDFs, accounts, the mo_ctl commands over
-modules the port lacks (lint, san, qa, crash, mview, rpc, udf), and
-every other statement, which raises NotImplementedError.  The session
+pyarrow), dynamic tables, accounts, the mo_ctl commands over modules
+the port lacks (lint, san, qa, crash, rpc), and every other statement,
+which raises NotImplementedError.  The session
 runs on `device` (CUDA unless the caller names the CPU); every scan
 uploads its chunks there.
 """
@@ -230,6 +239,9 @@ class Session:
         state = serving_for(self.catalog)
         if not (state.plan_cache.enabled or state.result_cache.enabled):
             return None
+        # nondeterministic UDFs bypass both caches as now() and rand() do
+        from matrixone_tpu_torch.udf.catalog import sync_serving
+        sync_serving(self.catalog, state)
         norm = state.plan_cache.normalized(sql)
         if norm is None or norm.n_stmts != 1 or norm.nondet:
             return None
@@ -343,10 +355,29 @@ class Session:
         if isinstance(stmt, ast.CreateTable):
             return self._create_table(stmt)
         if isinstance(stmt, ast.DropTable):
+            from matrixone_tpu_torch.mview import catalog as vcat
+            if vcat.lookup(self.catalog, stmt.name) is not None:
+                raise BindError(
+                    f"{stmt.name!r} is a materialized view; use DROP "
+                    f"MATERIALIZED VIEW")
             self.catalog.drop_table(stmt.name, stmt.if_exists)
             return Result()
         if isinstance(stmt, ast.CreateIndex):
             return self._create_index(stmt)
+        if isinstance(stmt, ast.CreateFunction):
+            return self._create_function(stmt)
+        if isinstance(stmt, ast.DropFunction):
+            return self._drop_function(stmt)
+        if isinstance(stmt, ast.ShowFunctions):
+            return self._show_functions()
+        if isinstance(stmt, ast.CreateMaterializedView):
+            return self._create_materialized_view(stmt)
+        if isinstance(stmt, ast.DropMaterializedView):
+            return self._drop_materialized_view(stmt)
+        if isinstance(stmt, ast.ShowMaterializedViews):
+            return self._show_materialized_views()
+        if isinstance(stmt, ast.RefreshMaterializedView):
+            return Result(affected=self._refresh_mview(stmt.name))
         if isinstance(stmt, ast.Insert):
             return self._insert(stmt)
         if isinstance(stmt, ast.Delete):
@@ -359,8 +390,11 @@ class Session:
             node = self.plan_select(stmt.stmt)
             if stmt.analyze:
                 return Result(text=self._explain_analyze(node))
-            return Result(text=P.explain(
-                node, annotate=self._fragment_annotator(node)))
+            anns = [a for a in (self._fragment_annotator(node),
+                                self._mview_annotator()) if a is not None]
+            annotate = (None if not anns else
+                        (lambda pn: "".join(a(pn) for a in anns)))
+            return Result(text=P.explain(node, annotate=annotate))
         if isinstance(stmt, ast.ShowTables):
             return _show({"Tables": sorted(self.catalog.tables)})
         if isinstance(stmt, ast.ShowCreateTable):
@@ -708,6 +742,31 @@ class Session:
             else:
                 raise BindError(f"unknown metrics subcommand {arg!r}; "
                                 "use dump | snapshot")
+        elif cmd == "udf":
+            from matrixone_tpu_torch import udf as U
+            from matrixone_tpu_torch.udf import catalog as ucat
+            if arg in ("", "status"):
+                st = U.stats()
+                st["functions"] = len(ucat.registry_for(self.catalog))
+                out = json.dumps(st, sort_keys=True)
+            elif arg == "clear":
+                U.COMPILE_CACHE.clear()
+                out = "udf compile cache cleared"
+            else:
+                raise BindError(f"unknown udf subcommand {arg!r}; "
+                                "use status | clear")
+        elif cmd == "mview":
+            from matrixone_tpu_torch import mview as MV
+            if arg in ("", "status"):
+                out = json.dumps(MV.stats(self.catalog), sort_keys=True,
+                                 default=str)
+            elif arg.startswith("refresh:"):
+                name = arg.split(":", 1)[1]
+                n = self._refresh_mview(name)
+                out = f"refreshed {name}: {n} rows"
+            else:
+                raise BindError(f"unknown mview subcommand {arg!r}; "
+                                "use status | refresh:<view>")
         elif cmd in _MO_CTL_NOT_PORTED:
             raise BindError(f"mo_ctl('{cmd}') is not ported yet: it needs "
                             f"{_MO_CTL_NOT_PORTED[cmd]} (ROADMAP.md, "
@@ -958,13 +1017,9 @@ class Session:
             result = Result(batch=out_batches[0])
         else:
             # concatenate host batches
-            cols = {}
-            for n, d in node.schema:
-                vals = []
-                for b in out_batches:
-                    vals.extend(b.columns[n].to_pylist())
-                cols[n] = Vector.from_values(vals, d)
-            result = Result(batch=Batch(cols))
+            result = Result(batch=Batch({
+                n: Vector.concat([b.columns[n] for b in out_batches], d)
+                for n, d in node.schema}))
         if versions is not None and result.batch is not None:
             # a host batch (`_to_host` copies every column off the card),
             # never a view of a graph's output buffers
@@ -1096,7 +1151,9 @@ class Session:
 
         def render(o, indent=0):
             st = stats[id(o)]
-            out = ["  " * indent + f"{st['op']}  rows={st['rows']} "
+            node = getattr(o, "node", None)
+            notes = P._udf_call_notes(node) if node is not None else ""
+            out = ["  " * indent + f"{st['op']}{notes}  rows={st['rows']} "
                    f"batches={st['batches']} "
                    f"time={st['seconds'] * 1000:.1f}ms"]
             if isinstance(o, FusedFragmentOp):
@@ -1109,6 +1166,12 @@ class Session:
                       f"mode={fs['mode']} dispatches={fs['dispatches']} "
                       f"trace_ms={fs['trace_ms']:.1f} "
                       f"compile_cache={fs['cache']}" + build)
+            if notes:
+                # a UDF call rides its operator's pull loop: its rows and
+                # batches are the operator's
+                out.append("  " * (indent + 1)
+                           + f"{notes.strip()}  rows={st['rows']} "
+                             f"batches={st['batches']}")
             for attr in ("child", "left", "right"):
                 c = getattr(o, attr, None)
                 if c is not None:
@@ -1223,6 +1286,286 @@ class Session:
         indexing.register_in_cache(self.catalog, meta)
         return Result()
 
+    # ------------------------------------------------- materialized views
+    def _derived_table_schema(self, sel) -> list:
+        """Bind a stored SELECT and derive its backing table's schema
+        (qualifiers stripped, names checked)."""
+        self._prepare_select(sel)
+        node = Binder(self.catalog).bind_statement(sel)
+        schema = [(n.split(".")[-1], d) for n, d in node.schema]
+        if len({c for c, _ in schema}) != len(schema):
+            raise BindError("materialized view SELECT has duplicate "
+                            "output names")
+        for c, _ in schema:
+            if not re.match(r"^[A-Za-z_][A-Za-z0-9_]*$", c):
+                raise BindError(
+                    f"materialized view output {c!r} is not a valid "
+                    f"column name; alias the expression (AS name)")
+        return schema
+
+    def _create_materialized_view(self, stmt: ast.CreateMaterializedView
+                                  ) -> Result:
+        """CREATE MATERIALIZED VIEW: a backing table and one system_mview
+        row.  A maintainable shape runs incremental: the catalog row's
+        own post-commit hook initializes the state and the first
+        materialization.  Every other shape materializes once here and
+        refreshes in full on demand."""
+        from matrixone_tpu_torch import mview as MV
+        from matrixone_tpu_torch.mview import catalog as vcat
+        if self.txn is not None:
+            raise BindError(
+                "CREATE MATERIALIZED VIEW inside an explicit transaction "
+                "is not supported (view DDL is autocommit)")
+        # maintainability first, on a pristine copy (a genuinely broken
+        # SELECT raises from the schema bind below)
+        try:
+            spec, _why = MV.analyze(copy.deepcopy(stmt.select),
+                                    self.catalog)
+        except BindError:
+            spec = None
+        schema = self._derived_table_schema(stmt.select)
+        if vcat.lookup(self.catalog, stmt.name) is not None:
+            raise BindError(
+                f"materialized view {stmt.name!r} already exists")
+        self.catalog.create_table(TableMeta(stmt.name, schema, []))
+        vcat.ensure_table(self.catalog)
+        d = vcat.MViewDef(
+            name=stmt.name.lower(), sql=stmt.sql_text,
+            mode="incremental" if spec is not None else "full",
+            source=spec.source if spec is not None else "")
+        t = self.catalog.get_table(vcat.MVIEW_TABLE)
+        arrays, validity = t.batch_to_arrays(
+            vcat.row_batch(d, time.time_ns() // 1000))
+        txn = self.txn_client.begin()
+        try:
+            txn.write_batch(vcat.MVIEW_TABLE, arrays, validity)
+            # the commit's post-commit hook initializes the incremental
+            # state and the first materialization before this returns
+            txn.commit()
+        except BaseException:
+            txn.rollback()
+            self.catalog.drop_table(stmt.name, if_exists=True)
+            raise
+        if spec is None:
+            try:
+                n = self._rematerialize(stmt.name, stmt.sql_text)
+            except Exception:
+                # a failed CREATE leaves nothing behind
+                self._drop_mview_row(stmt.name)
+                self.catalog.drop_table(stmt.name, if_exists=True)
+                raise
+            return Result(affected=n)
+        # the post-commit hook never raises (it must not fail another
+        # writer's commit), but this statement's own init failure must
+        svc = self.catalog._mview_service
+        rt = svc.runtime(d.name) if svc is not None else None
+        if rt is None or rt.watermark is None:
+            self._drop_mview_row(stmt.name)
+            self.catalog.drop_table(stmt.name, if_exists=True)
+            raise BindError(
+                f"materialized view {stmt.name!r} failed to initialize "
+                f"(see mo_ctl('mview','status'))")
+        return Result(affected=self.catalog.get_table(stmt.name).n_rows)
+
+    def _rematerialize(self, name: str, sql: str) -> int:
+        """Full rematerialization of a stored SELECT into its backing
+        table: one transaction deletes the old rows and inserts the new
+        ones."""
+        b = self.execute(sql).batch
+        cols = list(b.columns)
+        pylists = {c: b.columns[c].to_pylist() for c in cols}
+        n = len(b)
+        # the refresh's own writes pass the view write guard
+        self._mview_refresh = getattr(self, "_mview_refresh", 0) + 1
+        try:
+            self.execute("begin")
+            try:
+                self.execute(f"delete from {name}")
+                if n:
+                    rows = ["(" + ", ".join(_sql_literal(pylists[c][i])
+                                            for c in cols) + ")"
+                            for i in range(n)]
+                    self.execute(f"insert into {name} ({', '.join(cols)}) "
+                                 f"values " + ", ".join(rows))
+                self.execute("commit")
+            except Exception:
+                self.execute("rollback")
+                raise
+        finally:
+            self._mview_refresh -= 1
+        return n
+
+    def _drop_mview_row(self, name: str) -> None:
+        from matrixone_tpu_torch.mview import catalog as vcat
+        gids = vcat.gids_for_name(self.catalog, name)
+        if not len(gids):
+            return
+        txn = self.txn_client.begin()
+        try:
+            txn.delete_rows(vcat.MVIEW_TABLE, gids)
+            txn.commit()
+        except BaseException:
+            txn.rollback()
+            raise
+
+    def _drop_materialized_view(self, stmt: ast.DropMaterializedView
+                                ) -> Result:
+        from matrixone_tpu_torch.mview import catalog as vcat
+        if vcat.lookup(self.catalog, stmt.name) is None:
+            if stmt.if_exists:
+                return Result()
+            raise BindError(f"no such materialized view {stmt.name!r}")
+        # the catalog row first: its commit's hook detaches the
+        # maintainer before the backing table goes
+        self._drop_mview_row(stmt.name)
+        self.catalog.drop_table(stmt.name, if_exists=True)
+        return Result()
+
+    def _show_materialized_views(self) -> Result:
+        from matrixone_tpu_torch.mview import catalog as vcat
+        reg = vcat.registry_for(self.catalog)
+        svc = self.catalog._mview_service
+        names = sorted(reg)
+        wms, rows = [], []
+        for n in names:
+            rt = svc.runtime(n) if svc is not None else None
+            wms.append(rt.watermark if rt is not None else None)
+            t = self.catalog.tables.get(n)
+            rows.append(t.n_rows if t is not None else None)
+        return _show({"Name": names,
+                      "Mode": [reg[n].mode for n in names],
+                      "Source": [reg[n].source or None for n in names],
+                      "Watermark": wms, "Rows": rows,
+                      "Definition": [reg[n].sql for n in names]},
+                     {"Watermark": dt.INT64, "Rows": dt.INT64,
+                      "Definition": dt.TEXT})
+
+    def _refresh_mview(self, name: str) -> int:
+        """REFRESH MATERIALIZED VIEW: an incremental view is maintained
+        at every commit (refresh reports its rows); a full one is
+        rematerialized."""
+        from matrixone_tpu_torch.mview import catalog as vcat
+        d = vcat.lookup(self.catalog, name)
+        if d is None:
+            raise BindError(f"no such materialized view {name!r}")
+        if d.mode == "incremental":
+            return self.catalog.get_table(name).n_rows
+        return self._rematerialize(name, d.sql)
+
+    def _reject_mview_write(self, table: str) -> None:
+        """Direct DML against a view would be overwritten by its next
+        maintenance or refresh: refuse it.  (Maintenance writes through
+        `Engine.commit_txn`, never through a session.)"""
+        if getattr(self, "_mview_refresh", 0):
+            return            # the refresh's own writes
+        from matrixone_tpu_torch.mview import catalog as vcat
+        if vcat.lookup(self.catalog, table) is not None:
+            raise BindError(
+                f"{table!r} is a materialized view; it is maintained "
+                f"from its source — write to the source table instead")
+
+    def _mview_annotator(self):
+        """EXPLAIN decoration: a scan of a view's backing table is marked
+        with the view's maintenance mode."""
+        from matrixone_tpu_torch.mview import catalog as vcat
+        reg = vcat.registry_for(self.catalog)
+        if not reg:
+            return None
+
+        def ann(n):
+            t = getattr(n, "table", None)
+            if isinstance(n, P.Scan) and isinstance(t, str) \
+                    and t.lower() in reg:
+                return f" mview={reg[t.lower()].mode}"
+            return ""
+        return ann
+
+    # --------------------------------------------------------------- udf
+    def _create_function(self, stmt: ast.CreateFunction) -> Result:
+        """CREATE [OR REPLACE] FUNCTION: validate and trial-compile the
+        body, then write one row of the system_udf catalog table through
+        the ordinary commit pipeline (durability and restart replay ride
+        it)."""
+        from matrixone_tpu_torch import udf as U
+        from matrixone_tpu_torch.udf import catalog as ucat
+        if self.txn is not None:
+            raise BindError(
+                "CREATE FUNCTION inside an explicit transaction is not "
+                "supported (function DDL is autocommit)")
+        props = {str(k).lower(): str(v).lower()
+                 for k, v in stmt.properties.items()}
+        for k in props:
+            if k not in ("deterministic", "vectorized"):
+                raise BindError(f"unknown function property {k!r}; "
+                                f"use 'deterministic' | 'vectorized'")
+        meta = U.UdfMeta(
+            name=stmt.name.lower(),
+            kind="aggregate" if stmt.aggregate else "scalar",
+            arg_names=[a for a, _t, _ta in stmt.args],
+            arg_types=[type_from_name(t, ta) for _a, t, ta in stmt.args],
+            ret_type=type_from_name(stmt.ret_type, stmt.ret_args),
+            language=stmt.language, body=stmt.body,
+            deterministic=props.get("deterministic", "true") != "false",
+            vectorized=props.get("vectorized", "true") != "false")
+        try:
+            U.validate_meta(meta)
+        except U.UdfError as e:
+            raise BindError(str(e))
+        ucat.ensure_table(self.catalog)
+        existing = ucat.registry_for(self.catalog)
+        if meta.name in existing and not stmt.or_replace:
+            raise BindError(f"function {meta.name!r} already exists "
+                            f"(use CREATE OR REPLACE FUNCTION)")
+        t = self.catalog.get_table(ucat.UDF_TABLE)
+        arrays, validity = t.batch_to_arrays(
+            ucat.row_batch(meta, time.time_ns() // 1000))
+        txn = self.txn_client.begin()
+        try:
+            if meta.name in existing:
+                # OR REPLACE: the delete and the insert in one commit
+                txn.delete_rows(ucat.UDF_TABLE, ucat.gids_for_name(
+                    self.catalog, meta.name))
+            txn.write_batch(ucat.UDF_TABLE, arrays, validity)
+            txn.commit()
+        except BaseException:
+            txn.rollback()
+            raise
+        return Result()
+
+    def _drop_function(self, stmt: ast.DropFunction) -> Result:
+        from matrixone_tpu_torch.udf import catalog as ucat
+        if self.txn is not None:
+            raise BindError(
+                "DROP FUNCTION inside an explicit transaction is not "
+                "supported (function DDL is autocommit)")
+        if ucat.registry_for(self.catalog).get(stmt.name.lower()) is None:
+            if stmt.if_exists:
+                return Result()
+            raise BindError(f"no such function {stmt.name!r}")
+        gids = ucat.gids_for_name(self.catalog, stmt.name)
+        txn = self.txn_client.begin()
+        try:
+            txn.delete_rows(ucat.UDF_TABLE, gids)
+            txn.commit()
+        except BaseException:
+            txn.rollback()
+            raise
+        return Result(affected=len(gids))
+
+    def _show_functions(self) -> Result:
+        from matrixone_tpu_torch.udf import catalog as ucat
+        reg = ucat.registry_for(self.catalog)
+        names = sorted(reg)
+        return _show(
+            {"Function": names,
+             "Kind": [reg[n].kind for n in names],
+             "Signature": [reg[n].signature() for n in names],
+             "Language": [reg[n].language for n in names],
+             "Deterministic": [int(reg[n].deterministic) for n in names],
+             "Vectorized": [int(reg[n].vectorized) for n in names]},
+            {"Signature": dt.TEXT, "Deterministic": dt.INT64,
+             "Vectorized": dt.INT64})
+
     def _alter_partition(self, stmt: ast.AlterPartition) -> Result:
         """TRUNCATE/DROP PARTITION (partitionservice management ops):
         rows leave via an ordinary tombstone commit, so MVCC snapshots
@@ -1297,6 +1640,7 @@ class Session:
             raise BindError(
                 "LOAD DATA does not support FORMAT iceberg; create an "
                 "external table over it and INSERT ... SELECT instead")
+        self._reject_mview_write(stmt.table)
         src = open_location(self.catalog, stmt.path)
         if fmt == "parquet":
             return Result(affected=self.load_parquet(stmt.table, stmt.path))
@@ -1448,6 +1792,7 @@ class Session:
         return gids, new_cols
 
     def _delete(self, stmt: ast.Delete) -> Result:
+        self._reject_mview_write(stmt.table)
         txn = self.txn or self.txn_client.begin()
         proj = self._dml_plan(stmt.table, stmt.where)
         gids, _ = self._plan_and_lock_rows(
@@ -1458,6 +1803,7 @@ class Session:
         return Result(affected=len(gids))
 
     def _update(self, stmt: ast.Update) -> Result:
+        self._reject_mview_write(stmt.table)
         txn = self.txn or self.txn_client.begin()
         table = self.catalog.get_table(stmt.table)
         schema = table.meta.schema
@@ -1483,6 +1829,7 @@ class Session:
         return Result(affected=len(gids))
 
     def _insert(self, stmt: ast.Insert) -> Result:
+        self._reject_mview_write(stmt.table)
         table = self.catalog.get_table(stmt.table)
         schema = table.meta.schema
         cols = stmt.columns or [c for c, _ in schema]
@@ -1544,11 +1891,10 @@ class Session:
 _MO_CTL_NOT_PORTED = {
     "lint": "the molint tool of the JAX package",
     "san": "the concurrency sanitizer",
-    "qa": "the moqa corpus runner",
+    "qa": "the moqa corpus runner (tools/moqa, which imports the JAX "
+          "package; the padding canary itself is utils/qa.py)",
     "crash": "the crash-recovery sweep (mocrash)",
-    "mview": "materialized views",
     "rpc": "distribution (the RPC fabric)",
-    "udf": "UDFs",
 }
 
 
@@ -1687,6 +2033,30 @@ def _resolve_format(fmt: str, location: str) -> str:
     if fmt not in ("csv", "parquet", "iceberg"):
         raise BindError(f"unsupported external format {fmt!r}")
     return fmt
+
+
+def _sql_literal(v) -> str:
+    """One Python value as a SQL literal (a full view refresh writes its
+    rows as INSERT text)."""
+    import math
+    if v is None:
+        return "null"
+    if isinstance(v, bool):
+        return "1" if v else "0"
+    if isinstance(v, str):
+        return "'" + v.replace("'", "''") + "'"
+    if isinstance(v, datetime.datetime):
+        epoch = datetime.datetime(1970, 1, 1)
+        return str(int((v - epoch).total_seconds() * 1e6))
+    if isinstance(v, datetime.date):
+        return "'" + v.isoformat() + "'"
+    if isinstance(v, float):
+        # SQL has no nan/inf literals: NULL is the one value every
+        # dialect round-trips for them
+        if math.isnan(v) or math.isinf(v):
+            return "null"
+        return repr(v)
+    return str(v)
 
 
 def _param_literal(v) -> ast.Node:

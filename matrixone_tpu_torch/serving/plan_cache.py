@@ -47,7 +47,8 @@ Design (and why it is safe):
     `retarget_tree` then resets every operator's per-execution state.
 
 `MO_PLAN_CACHE=0` disables; `MO_PLAN_CACHE_SIZE` bounds entries (LRU).
-`set_dynamic_nondet` is fed by nothing until UDFs are ported.
+`set_dynamic_nondet` takes the names of the nondeterministic UDFs
+(`udf/catalog.sync_serving`, before each statement is normalized).
 """
 
 from __future__ import annotations

@@ -32,10 +32,11 @@ from matrixone_tpu_torch.sql.parser import (AGG_FUNCS, BASIC_AGGS, BIT_AGGS,
                                       STDDEV_AGGS)
 
 def _udf_lookup(catalog, name: str):
-    """The user-defined function named `name`: always None here, since
-    the port has no UDF catalog yet (ROADMAP.md, section A), so every
-    name binds as a builtin."""
-    return None
+    """The user-defined function named `name` in the catalog's
+    system_udf table, or None (a builtin name always binds as the
+    builtin)."""
+    from matrixone_tpu_torch.udf import catalog as ucat
+    return ucat.lookup(catalog, name)
 
 
 # SAMPLE seeds: each bound Sample node (and each re-bind of the same

@@ -226,8 +226,14 @@ def _udf_call_notes(node: PlanNode) -> str:
              if isinstance(e, BoundUdfCall)]
     if not calls:
         return ""
-    raise NotImplementedError(
-        "user-defined functions are not ported yet (ROADMAP.md, section A)")
+    from matrixone_tpu_torch.udf.executor import expected_tier
+    seen = []
+    for c in calls:
+        tier = ("aggregate" if c.is_aggregate else expected_tier(c))
+        note = f"UdfCall {c.name} [{tier}]"
+        if note not in seen:
+            seen.append(note)
+    return " " + " ".join(seen)
 
 
 def explain(node: PlanNode, indent: int = 0, annotate=None) -> str:

@@ -54,10 +54,20 @@ Stages (named external locations) and external tables
 (`storage/external.py`: CSV read in place) ride the catalog, the WAL and
 the manifest as the reference's do.
 
+The logtail funnel: `subscribe(fn)` registers a subscriber that every
+commit calls under the commit lock as `fn(commit_ts, table, kind,
+payload)`, deletes ("delete", the global row ids) before inserts
+("insert", the new Segment), and WAL replay calls the same way.  After
+a commit has fully applied and the lock is released,
+`_notify_post_commit` drives the materialized-view maintenance service
+(`mview/maintain.py`), created at the first commit of an engine that
+has a `system_mview` catalog.  A commit that touches `system_udf` or
+`system_mview` is catalog shape and bumps `ddl_gen`.
+
 Not ported yet (ROADMAP.md, section A): the CN bootstrap
 (`open_checkpoint`), external parquet and iceberg tables,
-publications, sources and dynamic tables, the logtail subscribers (CDC)
-and the co-partitioned shard read.
+publications, sources and dynamic tables, CDC sinks and the
+co-partitioned shard read.
 """
 
 from __future__ import annotations
@@ -929,6 +939,13 @@ class Engine:
         self._watermarks: Dict[str, Tuple[str, Callable]] = {}
         #: the last restart's recovery report (Engine.open fills it)
         self.recovery_summary: Optional[dict] = None
+        #: logtail subscribers: fn(commit_ts, table, kind, payload),
+        #: called under the commit lock
+        self._subscribers: List[Callable] = []
+        #: materialized views: the maintenance service, made at the first
+        #: commit once a system_mview catalog exists (mview/maintain.py)
+        self._has_mview_catalog = False
+        self._mview_service = None
 
     # ----------------------------------------------------------- catalog
     def create_table(self, meta: TableMeta, if_not_exists=False,
@@ -941,6 +958,9 @@ class Engine:
         t.engine = self
         self.tables[meta.name] = t
         self.ddl_gen += 1
+        from matrixone_tpu_torch.mview.catalog import is_mview_table
+        if is_mview_table(meta.name):
+            self._has_mview_catalog = True
         if log:
             self.wal.append({"op": "create_table", "name": meta.name,
                              "ts": self.hlc.now(),
@@ -1105,6 +1125,15 @@ class Engine:
         with self._commit_lock:
             self.active_txns -= 1
 
+    def subscribe(self, fn: Callable) -> None:
+        """Register a logtail subscriber: fn(commit_ts, table, kind,
+        payload), kind "insert" (payload: the new Segment) or "delete"
+        (the global row ids), called under the commit lock."""
+        self._subscribers.append(fn)
+
+    def unsubscribe(self, fn: Callable) -> None:
+        self._subscribers = [f for f in self._subscribers if f is not fn]
+
     # -------------------------------------- delta-consumer watermarks
     def register_watermark(self, key: str, table: str,
                            fn: Callable) -> None:
@@ -1225,6 +1254,8 @@ class Engine:
                 t = self.get_table(tname)
                 t.apply_tombstones(commit_ts, np.asarray(gids, np.int64))
                 affected += len(gids)
+                for fn in self._subscribers:
+                    fn(commit_ts, tname, "delete", gids)
             for tname, segs in inserts.items():
                 t = self.get_table(tname)
                 for arrays, validity in segs:
@@ -1232,13 +1263,50 @@ class Engine:
                                                  commit_ts):
                         t._pk_bloom_add(seg)
                         affected += seg.n_rows
-            for tname in set(list(inserts) + list(deletes)):
-                for ix in self.indexes_on(tname):
-                    ix.dirty = True
-            # max(): the read frontier must never retreat
+                        for fn in self._subscribers:
+                            fn(commit_ts, tname, "insert", seg)
+            touched = set(list(inserts) + list(deletes))
+            self._mark_touched(touched)
+            # max(): a view's maintenance commit, nested off a post-commit
+            # hook, mints a newer ts than the commit that triggered it;
+            # the read frontier must never retreat
             self.committed_ts = max(self.committed_ts, commit_ts)
             metrics.txn_commits.inc(outcome="ok")
+        # outside the commit lock: view maintenance commits into this same
+        # engine, and doing that mid-apply would tear reads
+        self._notify_post_commit(commit_ts, touched)
         return affected
+
+    def _mark_touched(self, touched) -> None:
+        """After a commit or its replay: the tables' indexes go dirty,
+        and a commit to the UDF or view catalog is DDL (the serving
+        caches must not outlive the functions and views they were
+        planned against)."""
+        from matrixone_tpu_torch.mview.catalog import is_mview_table
+        from matrixone_tpu_torch.udf.catalog import is_udf_table
+        for tname in touched:
+            for ix in self.indexes_on(tname):
+                ix.dirty = True
+            if is_udf_table(tname) or is_mview_table(tname):
+                self.ddl_gen += 1
+
+    def _notify_post_commit(self, commit_ts: int, touched: set) -> None:
+        """Drive the materialized-view maintenance after a commit has
+        fully applied.  An engine without a system_mview catalog pays one
+        attribute read per commit."""
+        svc = self._mview_service
+        if svc is None:
+            if not self._has_mview_catalog:
+                return
+            from matrixone_tpu_torch.mview.maintain import service_for
+            svc = service_for(self)
+        if self._commit_lock._is_owned():
+            # a caller still holds the commit lock (a commit nested in
+            # a locked section): maintaining now would take the service's
+            # lock under the commit lock.  The subscriber has queued the
+            # delta; the next unlocked commit drains it
+            return
+        svc.on_commit(commit_ts, touched)
 
     # ---------------------------------------------------------- compaction
     def merge_table(self, name: str, min_segments: int = 2,
@@ -1683,16 +1751,18 @@ class WalApplier:
                                   else np.array(a))
                               for c, a in arrays.items()}
                     validity = {c: np.array(v) for c, v in validity.items()}
-                    t.insert_segments(arrays, validity, ts)
+                    for seg in t.insert_segments(arrays, validity, ts):
+                        for fn in eng._subscribers:
+                            fn(ts, h["table"], "insert", seg)
                     ac = t.meta.auto_increment
                     if ac and ac in arrays:
                         t.observe_auto(arrays[ac][validity[ac]])
                 else:
                     gids = np.frombuffer(b, dtype="<i8").astype(np.int64)
                     t.apply_tombstones(ts, gids)
-            for tname in {h["table"] for _k, h, _b in ordered}:
-                for ix in eng.indexes_on(tname):
-                    ix.dirty = True
+                    for fn in eng._subscribers:
+                        fn(ts, h["table"], "delete", gids)
+            eng._mark_touched({h["table"] for _k, h, _b in ordered})
             self.pending = []
             return ts
         return None

@@ -447,3 +447,36 @@ external_parses = REGISTRY.counter(
     "mo_external_parses_total",
     "CSV files an external table read and parsed, by table (a scan "
     "served from the decoded-chunk cache parses nothing)")
+
+# ---- user-defined functions (udf/)
+udf_calls = REGISTRY.counter(
+    "mo_udf_calls_total",
+    "UDF evaluations by tier (jit/row/aggregate)")
+udf_rows = REGISTRY.counter(
+    "mo_udf_rows_total", "rows processed by UDF evaluations, by tier")
+udf_compile = REGISTRY.counter(
+    "mo_udf_compile_total",
+    "UDF compile-cache lookups by outcome (hit/miss/trace_fail)")
+
+# ---- materialized views (mview/)
+mview_apply = REGISTRY.counter(
+    "mo_mview_apply_total",
+    "materialized-view maintenance applications by tier "
+    "(dense/general/recompute/init/error)")
+mview_rows = REGISTRY.counter(
+    "mo_mview_rows_total",
+    "delta rows processed by materialized-view maintenance")
+mview_apply_seconds = REGISTRY.counter(
+    "mo_mview_apply_seconds_total",
+    "seconds spent in view maintenance by kind (delta/full)")
+
+# ---- the padding canary (utils/qa.py)
+qa_queries = REGISTRY.counter(
+    "mo_qa_queries_total",
+    "queries run under a differential check")
+qa_oracle_checks = REGISTRY.counter(
+    "mo_qa_oracle_checks_total",
+    "differential verdicts by oracle")
+qa_findings = REGISTRY.counter(
+    "mo_qa_findings_total",
+    "findings by kind (canary-in-result/canary-in-carry/...)")

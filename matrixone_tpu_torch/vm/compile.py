@@ -14,8 +14,10 @@ do.
 `VectorTopK` compiles to `vm/vector_scan.VectorTopKOp` (the IVF-Flat,
 IVF-PQ or HNSW search as a source) and `FulltextTopK` to
 `vm/fulltext_scan.FulltextTopKOp` (BM25 on the index's device).
-`Materialized` and `UdfAggregate` are not ported yet (ROADMAP.md,
-section A, steps 4 and 3): compiling one raises NotImplementedError.
+`UdfAggregate` compiles to `vm/operators.UdfAggregateOp` (the aggregate
+UDF tier, udf/executor.py).  `Materialized` is not ported yet
+(ROADMAP.md, section A, step 4): compiling one raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -143,6 +145,9 @@ def _compile_node(node: P.PlanNode, ctx: ExecContext) -> ops.Operator:
     if isinstance(node, P.Join):
         return JoinOp(node, _compile_node(node.left, ctx),
                       _compile_node(node.right, ctx), ctx=ctx)
+    if isinstance(node, P.UdfAggregate):
+        return ops.UdfAggregateOp(node, _compile_node(node.child, ctx),
+                                  ctx.device)
     raise NotImplementedError(
         f"compile: {type(node).__name__} is not ported yet (ROADMAP.md, "
         f"section A)")

@@ -7,8 +7,8 @@ comparisons (decimal-exact) and math functions, the date functions
 `timestampadd`/`timestampdiff`, `makedate`, the period functions,
 `time_bucket`, `to_datetime`), the string functions (`vm/strfuncs.py`),
 the numeric-to-string functions (`_NUM2STR_FUNCS`), the row-wise vector
-distances, `bit_count`, `rand`, `uuid` and `llm_embed`.  UDF calls raise
-`EvalError("not yet ported: ...")` (ROADMAP.md, section A, step 3).
+distances, `bit_count`, `rand`, `uuid` and `llm_embed`.  A UDF call
+evaluates through `udf/executor.eval_udf_call`.
 
 Varchar columns arrive as dictionary codes + a host-side dictionary
 (ExecBatch.dicts): string predicates are evaluated on the *dictionary*
@@ -38,7 +38,7 @@ from matrixone_tpu_torch.ops import scalar as S
 from matrixone_tpu_torch.sql.expr import (BoundCase, BoundCast, BoundCol,
                                           BoundExpr, BoundFunc, BoundInList,
                                           BoundIsNull, BoundLike,
-                                          BoundLiteral)
+                                          BoundLiteral, BoundUdfCall)
 from matrixone_tpu_torch.vm.strfuncs import (_COLPOS, _STRING_FUNCS,
                                              EvalError, _apply_string_func)
 
@@ -194,6 +194,9 @@ def eval_expr(e: BoundExpr, ex: ExecBatch) -> DeviceColumn:
         if e.negated:
             lut = ~lut
         return DeviceColumn(lut_gather(lut, arg.data), arg.validity, dt.BOOL)
+    if isinstance(e, BoundUdfCall):
+        from matrixone_tpu_torch.udf.executor import eval_udf_call
+        return eval_udf_call(e, ex)
     if isinstance(e, BoundFunc):
         return _eval_func(e, ex)
     raise EvalError(f"not yet ported: expression {type(e).__name__}")

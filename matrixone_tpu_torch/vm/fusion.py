@@ -69,7 +69,7 @@ from matrixone_tpu_torch.sql.expr import (BoundCase, BoundCast, BoundCol,
                                           BoundLiteral, BoundUdfCall)
 from matrixone_tpu_torch.sql.parser import STDDEV_AGGS
 from matrixone_tpu_torch.utils import keys as keyaudit
-from matrixone_tpu_torch.utils import metrics as M, motrace
+from matrixone_tpu_torch.utils import metrics as M, motrace, qa
 from matrixone_tpu_torch.vm import exprs as EX
 from matrixone_tpu_torch.vm import graphs as G
 from matrixone_tpu_torch.vm import operators as O
@@ -1643,6 +1643,11 @@ class FusedFragmentOp(O.Operator):
         if self._terminal == "agg_scalar":
             return agg._scalar_result(list(carry), agg._agg_tracker,
                                       self.ctx.device)
+        if qa.armed():
+            # the padding canary: a poisoned pad row that reached a float
+            # accumulator lane shows up as NaN in the carry
+            qa.audit_carry(carry[0], f"fragment {self.fragment_id} "
+                                     f"({self.describe()})")
         dense = self._grouped_partials(carry, sizes)
         state = agg._dense_to_state(dense)
         return agg._finalize(state, key_dicts)

@@ -1351,6 +1351,55 @@ def _apply_offset(db: DeviceBatch, offset: int, k: Optional[int]) -> DeviceBatch
     return F.gather(db, idx, remaining)
 
 
+class UdfAggregateOp(Operator):
+    """Whole-relation aggregate UDFs (plan.UdfAggregate): every call's
+    argument columns compacted on the host (the batch mask AND every
+    argument's validity: a row with a NULL argument is skipped, as the
+    builtin aggregates skip NULLs), then each body run ONCE over the
+    concatenated arrays.  One output row."""
+
+    def __init__(self, node: P.UdfAggregate, child: Operator, device):
+        self.node = node
+        self.child = child
+        self.schema = node.schema
+        self.device = device
+
+    def execute(self) -> Iterator[ExecBatch]:
+        from matrixone_tpu_torch.udf.executor import (_broadcast,
+                                                      eval_udf_aggregate)
+        parts: List[List[list]] = [[[] for _ in c.args]
+                                   for c in self.node.calls]
+        for ex in self.child.execute():
+            n = ex.padded_len
+            for ci, call in enumerate(self.node.calls):
+                cols = [eval_expr(a, ex) for a in call.args]
+                keep = ex.mask
+                datas = []
+                for col in cols:
+                    datas.append(_broadcast(col.data, n))
+                    keep = keep & _broadcast(col.validity, n)
+                for ai, d in enumerate(datas):
+                    arr = d[keep].cpu().numpy()
+                    if len(arr):
+                        parts[ci][ai].append(arr)
+        cols_out: Dict[str, DeviceColumn] = {}
+        for ci, call in enumerate(self.node.calls):
+            arrays = [np.concatenate(p) if p
+                      else np.zeros(0, call.arg_types[ai].np_dtype)
+                      for ai, p in enumerate(parts[ci])]
+            v = eval_udf_aggregate(call, arrays, device=self.device)
+            name, dtype = self.schema[ci]
+            cols_out[name] = (
+                DeviceColumn.const_null(dtype, self.device) if v is None
+                else DeviceColumn.const(v, dtype, self.device))
+        db = DeviceBatch(columns=cols_out,
+                         n_rows=torch.tensor(1, dtype=torch.int32,
+                                             device=self.device))
+        yield ExecBatch(batch=db, dicts={},
+                        mask=torch.ones((1,), dtype=torch.bool,
+                                        device=self.device))
+
+
 class SampleOp(Operator):
     """Random sampling (reference: colexec/sample).  PERCENT is a
     streaming per-row Bernoulli mask; N ROWS is a single-pass reservoir

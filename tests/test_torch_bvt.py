@@ -40,7 +40,6 @@ _PARQUET = "no step: not queued, parquet needs pyarrow, which the card lacks"
 #: section A step, and the first differing line with the statement or
 #: reader the port does not have there
 XFAIL = {
-    "ddl/materialized_view": "step 3; line 8: CreateMaterializedView",
     "errors2/iceberg_errors": "step 5; line 5: the iceberg reader",
     "load/external_parquet": f"{_PARQUET}; line 5: the parquet reader",
     "load/parquet_basic": f"{_PARQUET}; line 5: the parquet reader",

@@ -9,6 +9,7 @@ package; these hold each CUDA kernel against its plain version and the
 CUDA paths against the CPU paths on the same index.
 """
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -2185,3 +2186,259 @@ def test_topk_smallest_captures_in_a_graph(cuda):
         assert torch.equal(i.cpu(), ci)
         assert torch.equal(v.cpu().nan_to_num(7.0), cv.nan_to_num(7.0))
     assert int(i.max()) < 100
+
+
+# ------------------------------- UDFs, materialized views, the canary
+
+#: JAX's result dtypes with 64-bit mode on, for the operations whose
+#: torch defaults differ (the CPU tests hold the shim to JAX itself)
+SHIM_DTYPES = {
+    ("int32", "x / x"): "float32", ("int32", "x * 2.0"): "float64",
+    ("int32", "x + 1"): "int32", ("int32", "jnp.sqrt(x)"): "float32",
+    ("int32", "jnp.sum(x)"): "int64", ("int32", "jnp.mean(x)"): "float32",
+    ("int32", "jnp.where(x > 0, 1, 0) * x"): "int32",
+    ("int32", "round(x)"): "int64", ("int32", "x ** 0.5"): "float64",
+    ("int32", "jnp.minimum(x, 1.5)"): "float64",
+    ("int64", "x / x"): "float64", ("int64", "jnp.sqrt(x)"): "float64",
+    ("int64", "jnp.mean(x)"): "float64", ("int64", "x // 2"): "int64",
+    ("float32", "x * 2.0"): "float32", ("float32", "x + 1"): "float32",
+    ("float32", "jnp.exp(x)"): "float32", ("bool", "x / x"): "float32",
+    ("bool", "x * 2.0"): "float64", ("bool", "x + 1"): "int64",
+    ("bool", "x ** 2"): "int32", ("bool", "jnp.sum(x)"): "int64"}
+
+
+def test_udf_shim_dtypes_and_refusals_on_the_card(cuda):
+    import math
+
+    from matrixone_tpu_torch.udf import jnp
+    ns = jnp.namespace()
+    cols = {"int32": [1, -2, 3], "int64": [1, -2, 3],
+            "float32": [1.5, -2.0, 3.0], "bool": [True, False, True]}
+    for (cname, expr), want in SHIM_DTYPES.items():
+        dt_ = getattr(torch, cname)
+        out = {}
+        for dev in ("cuda", "cpu"):
+            x = jnp.Array(torch.tensor(cols[cname], dtype=dt_,
+                                       device=dev), traced=True)
+            with jnp.on_device(dev):
+                out[dev] = eval(expr, {"jnp": ns, "x": x})   # noqa: S307
+        assert str(out["cuda"].dtype) == want, (cname, expr)
+        assert out["cuda"]._t.is_cuda
+        torch.testing.assert_close(out["cuda"]._t.cpu(), out["cpu"]._t,
+                                   equal_nan=True)
+    x = jnp.Array(torch.arange(4.0, device=cuda), traced=True)
+    for refuse in (lambda: bool(x > 1), lambda: float(x[0]),
+                   lambda: int(x[0]), lambda: x.item(), lambda: x.tolist(),
+                   lambda: np.asarray(x), lambda: np.exp(x),
+                   lambda: math.exp(x[0]), lambda: x[x > 1],
+                   lambda: range(x[0])):
+        with pytest.raises(TypeError):
+            refuse()
+
+
+def _udf_on(device, body, n, pad, seed):
+    """One eval_udf_call of `body` over n rows padded to `pad` on
+    `device` (a fresh compile cache: the tier is decided anew) ->
+    (values, validity, tier), or ("error", class name)."""
+    from matrixone_tpu_torch.container import device as tdev, dtypes as tdt
+    from matrixone_tpu_torch.sql import binder
+    from matrixone_tpu_torch.sql.expr import BoundCol
+    from matrixone_tpu_torch.udf import catalog as ucat, executor as uexec
+    from matrixone_tpu_torch.vm.exprs import ExecBatch
+    uexec.COMPILE_CACHE.clear()
+    rng = np.random.default_rng(seed)
+    arrays = {"a": rng.integers(-50, 50, n).astype(np.int64),
+              "b": np.round(rng.normal(0, 3, n), 3),
+              "c": np.round(rng.normal(0, 2, n), 2).astype(np.float32)}
+    valid = {k: rng.random(n) > 0.2 for k in "abc"}
+    dtypes = {"a": tdt.INT64, "b": tdt.FLOAT64, "c": tdt.FLOAT32}
+    db = tdev.from_numpy(arrays, dtypes, valid, n_rows=n, pad_to=pad,
+                         device=device)
+    ex = ExecBatch(batch=db, dicts={}, mask=db.row_mask())
+    u = ucat.UdfMeta("g", "scalar", ["x", "y", "z"],
+                     [dtypes[c] for c in "abc"], tdt.FLOAT64, "python",
+                     body, True, True)
+    call = binder._bind_udf_call(u, [BoundCol(c, dtypes[c]) for c in "abc"])
+    try:
+        col = uexec.eval_udf_call(call, ex)
+    except Exception as e:   # noqa: BLE001 — compared by class
+        return "error", type(e).__name__
+    return (col.data.cpu().numpy()[:n], col.validity.cpu().numpy()[:n],
+            uexec.expected_tier(call))
+
+
+def _udf_card_agrees(body, n, pad, seed=0):
+    import re
+    got, want = (_udf_on(d, body, n, pad, seed) for d in ("cuda", "cpu"))
+    if isinstance(want[0], str) or isinstance(got[0], str):
+        assert got == want, (body, got, want)
+        return "error"
+    assert got[2] == want[2], (body, got[2], want[2])
+    assert np.array_equal(got[1], want[1]), body
+    v = want[1]
+    rtol = (1e-5 if "z" in body else
+            1e-9 if re.search(r"exp|log|sqrt|tanh|power", body) else 1e-12)
+    np.testing.assert_allclose(got[0][v], want[0][v], rtol=rtol, atol=1e-6,
+                               equal_nan=True, err_msg=body)
+    return got[2]
+
+
+def test_udf_reference_bodies_take_the_same_tier_on_the_card(cuda):
+    """Every body of the reference's UDF tests: the card's tier and
+    values equal the CPU session's (which the CPU tests hold to the
+    reference's), at padded lengths 1, 16 and 1024."""
+    from torch_scripts import UDF_REFERENCE_BODIES
+    for body in UDF_REFERENCE_BODIES:
+        for n, pad in ((1, 1), (11, 16), (700, 1024)):
+            _udf_card_agrees(body, n, pad, seed=n)
+
+
+def test_udf_generated_bodies_agree_on_the_card(cuda):
+    """The CPU tests' generated bodies (the same grammar and wrappers),
+    on the card against the CPU: the same tier and the same values."""
+    from hypothesis import HealthCheck, given, settings, strategies as st
+
+    from torch_scripts import UDF_BINARY, UDF_LEAVES, UDF_TIER, UDF_UNARY
+    exprs = st.recursive(
+        st.sampled_from(UDF_LEAVES),
+        lambda inner: st.one_of(
+            st.builds(lambda f, e: f.format(e), st.sampled_from(UDF_UNARY),
+                      inner),
+            st.builds(lambda f, a, b: f.format(a, b),
+                      st.sampled_from(UDF_BINARY), inner, inner)),
+        max_leaves=6)
+
+    @settings(max_examples=60, deadline=None, derandomize=True,
+              suppress_health_check=[HealthCheck.too_slow,
+                                     HealthCheck.function_scoped_fixture])
+    @given(expr=exprs, wrap=st.sampled_from(UDF_TIER),
+           pad=st.integers(1, 64), seed=st.integers(0, 1 << 16))
+    def check(expr, wrap, pad, seed):
+        tier = _udf_card_agrees(wrap.format(expr), pad - pad // 4, pad,
+                                seed)
+        assert tier in ("error", "jit" if wrap == "{}" else "row")
+    check()
+
+
+def test_udf_out_of_memory_on_the_card_surfaces(cuda, monkeypatch):
+    """A jit-tier body that runs the card out of memory (a real failed
+    allocation inside `jnp.exp`): the error surfaces, no row loop runs,
+    the body keeps its jit tier, and the next call takes it."""
+    from matrixone_tpu_torch.frontend import Session
+    from matrixone_tpu_torch.udf import executor as uexec, jnp as tjnp
+    from matrixone_tpu_torch.utils import metrics as M
+
+    def oom(x):
+        torch.empty(1 << 45, dtype=torch.float64, device=cuda)  # 256 TiB
+        return x
+    uexec.COMPILE_CACHE.clear()
+    s = Session(device="cuda")
+    s.execute("create table t (b double)")
+    s.execute("insert into t values (1.5), (2.5), (null)")
+    s.execute("create function ex1(x double) returns double language "
+              "python as $$ jnp.exp(x) $$")
+    rows, fails = M.udf_rows.get(tier="row"), \
+        uexec.COMPILE_CACHE.stats()["trace_failures"]
+    with monkeypatch.context() as mp:
+        mp.setattr(tjnp, "exp", oom)
+        with pytest.raises(torch.cuda.OutOfMemoryError):
+            s.execute("select ex1(b) from t")
+    assert M.udf_rows.get(tier="row") == rows
+    assert uexec.COMPILE_CACHE.stats()["trace_failures"] == fails
+    assert "UdfCall ex1 [jit]" in s.execute(
+        "explain select ex1(b) from t").text
+    uexec.COMPILE_CACHE.clear()      # the entry compiled the patched exp
+    got = s.execute("select ex1(b) from t where b is not null").rows()
+    np.testing.assert_allclose([r[0] for r in got], np.exp([1.5, 2.5]),
+                               rtol=1e-12, atol=0.0)
+    s.close()
+
+
+def test_mview_dense_delta_replays_one_graph(fused_everywhere):
+    """A Q1-shaped view on the card: the first delta of a padded shape
+    captures the dense step as a graph, which holds work (torch warns of
+    a capture that recorded nothing), every later one is ONE replay and
+    nothing runs eagerly; the view equals its defining SELECT and the
+    CPU session's view.  (`select * from q1` captures an empty graph:
+    its fragment passes the scanned columns through, so the replay has
+    nothing to do; the inputs are copied into the graph's buffers before
+    it.)"""
+    import warnings
+    from matrixone_tpu_torch.frontend import Session
+    from matrixone_tpu_torch.utils import metrics as M
+    q = ("select flag, status, sum(qty), avg(price), count(*) from li "
+         "group by flag, status")
+    outs = []
+    for dev in ("cuda", "cpu"):
+        s = Session(device=dev)
+        s.execute("create table li (flag varchar(1), status varchar(1), "
+                  "qty decimal(10,2), price double)")
+        s.execute("insert into li values ('A','F',1.0,2.5),('N','O',2.0,3.5)")
+        s.execute("create materialized view q1 as select flag, status, "
+                  "sum(qty) sq, avg(price) ap, count(*) n from li "
+                  "group by flag, status")
+
+        def counts():
+            return (M.fusion_graphs.get(event="capture"),
+                    M.fusion_graphs.get(event="replay"),
+                    M.mview_apply.get(tier="dense"),
+                    M.fusion_dispatch.get(kind="eager"))
+        c0 = counts()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            s.execute("insert into li values ('A','F',3.0,1.0)")
+            c1 = counts()
+            s.execute("insert into li values ('N','F',4.0,2.0)")
+            s.execute("insert into li values ('A','O',5.0,2.5)")
+            c3 = counts()
+        assert not [w for w in caught
+                    if "CUDA Graph is empty" in str(w.message)]
+        if dev == "cuda":
+            assert c1[0] - c0[0] == 1 and c1[1] - c0[1] == 1, (c0, c1)
+            assert c3[0] == c1[0] and c3[1] - c1[1] == 2, (c1, c3)
+            assert c3[2] - c0[2] == 3 and c3[3] == c0[3]
+        rows = sorted(s.execute("select * from q1").rows())
+        assert rows == sorted(s.execute(q).rows())
+        outs.append(rows)
+        s.close()
+    assert outs[0] == outs[1]
+
+
+def test_segment_sum_over_poisoned_padding(cuda):
+    """The padding canary on the card: a batch uploaded armed carries NaN
+    and the int canary in its padded tail; the segment sum over it is
+    bit-identical to its plain version and to the unarmed upload's, and a
+    GROUP BY armed equals its unarmed rows with no finding."""
+    from matrixone_tpu_torch.container import device as tdev, dtypes as tdt
+    from matrixone_tpu_torch.frontend import Session
+    from matrixone_tpu_torch.utils import qa
+    rng = np.random.default_rng(5)
+    n, g = 70001, 1000
+    arrays = {"v": rng.integers(0, 16, n).astype(np.float32),
+              "g": rng.integers(0, g, n).astype(np.int32)}
+    dtypes = {"v": tdt.FLOAT32, "g": tdt.INT32}
+    sums = []
+    for armed in (True, False):
+        with qa.armed_scope() if armed else contextlib.nullcontext():
+            b = tdev.from_numpy(arrays, dtypes, n_rows=n, device=cuda)
+        v, gid, m = b.columns["v"].data, b.columns["g"].data, b.row_mask()
+        assert bool(torch.isnan(v[n:]).all()) == armed
+        got = CK.segment_sum(v, gid, m, g)
+        torch.cuda.synchronize()
+        assert torch.equal(got.view(torch.int32),
+                           CK.segment_sum_plain(v, gid, m, g)
+                           .view(torch.int32))
+        sums.append(got)
+    assert torch.equal(sums[0].view(torch.int32), sums[1].view(torch.int32))
+    s = Session(device="cuda")
+    s.execute("create table pz (grp int, x float)")
+    s.execute("insert into pz values " + ", ".join(
+        f"({i % 17}, {float(i % 7)})" for i in range(3001)))
+    sql = "select grp, sum(x), count(*) from pz group by grp order by grp"
+    want = s.execute(sql).rows()
+    CK.LAUNCHES.reset()
+    with qa.armed_scope(), qa.capture() as probe:
+        got = s.execute(sql).rows()
+    assert got == want and probe.findings() == []
+    assert CK.LAUNCHES.get("segment_sum") > 0
+    s.close()

@@ -4,7 +4,7 @@ package's, on the CPU.
 
 The scenarios of tests/test_motrace.py but the distributed one, the
 HTTP scrape endpoint and the UDF-offload fallback events (the RPC
-fabric, the scrape tool and UDFs are not ported) and the precheck smoke
+fabric and the remote UDF tier are not ported) and the precheck smoke
 gate (a tool of the JAX package): each runs through both packages on
 the same statements (`torch_serving_pkgs.run_both`), comparing span
 names and tree shapes, statement-table columns and counter deltas.  The

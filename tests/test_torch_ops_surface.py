@@ -288,7 +288,16 @@ def test_mo_ctl_commands_match_reference_text():
 @pytest.mark.parametrize("cmd", ["lint", "san", "qa", "crash", "mview",
                                  "rpc", "udf"])
 def test_mo_ctl_over_modules_not_ported_names_the_roadmap(cmd):
+    """A command over a module the port lacks names the ROADMAP; `mview`
+    and `udf` are ported (their modules are mview/ and udf/): their
+    status answers and an unknown subcommand names the known ones."""
     s = TSession(device="cpu")
+    if cmd in ("mview", "udf"):
+        assert isinstance(json.loads(s.execute(
+            f"select mo_ctl('{cmd}')").rows()[0][0]), dict)
+        with pytest.raises(BindError, match=f"unknown {cmd} subcommand"):
+            s.execute(f"select mo_ctl('{cmd}','bogus')")
+        return
     with pytest.raises(BindError, match=r"ROADMAP\.md, section A"):
         s.execute(f"select mo_ctl('{cmd}')")
 

@@ -40,15 +40,20 @@ def reference_compiled(monkeypatch):
     shared temporary file (`native/build/libmo_native.so.tmp`), so when
     several test processes build it at once a loser's compile fails, and
     its `get_lib()` stays None for the rest of that process: its roaring
-    bitmap then reports the numpy route's bytes.  Load the library the
-    winner left behind, once no build is in flight: a retry that finds no
-    library builds it again, and may meet another process's build (the
-    module's state is restored afterwards)."""
+    bitmap then reports the numpy route's bytes.  This helper never
+    builds: it waits until a build in flight has finished (no `.tmp`)
+    and a library newer than its source is in place, then lets this
+    process load that one (`get_lib` compiles only when the library is
+    missing or stale), so it cannot collide with another process's build
+    (the module's state is restored afterwards)."""
     deadline = time.monotonic() + 180
     while jnative.get_lib() is None and shutil.which("g++") \
             and time.monotonic() < deadline:
         time.sleep(0.5)
-        if os.path.exists(jnative._SO + ".tmp"):
+        if os.path.exists(jnative._SO + ".tmp") \
+                or not os.path.exists(jnative._SO) \
+                or os.path.getmtime(jnative._SO) \
+                < os.path.getmtime(jnative._SRC):
             continue
         monkeypatch.setattr(jnative, "_tried", False)
         monkeypatch.setattr(jnative, "_lib", None)

@@ -561,3 +561,28 @@ BUILTINS = {
         " limit 3"],
 }
 
+
+
+# ------------------------------------------------------------ UDF bodies
+
+#: every body tests/test_udf.py defines outside the offload, worker,
+#: replica and tenant cases
+UDF_REFERENCE_BODIES = (
+    "x * 2.0 + y", "x * x", "x + 1.0", "x + 2.0", "x - y", "x", "x + 0.0",
+    "x * 3.0", "x * 5.0", "x + 41.0", "1.0 / x",
+    "if x > 2.0:\n    return x * 10.0\nreturn x",
+    "float(len(range(int(x))))", "x + undefined_name")
+
+#: the generated bodies' grammar over x (BIGINT), y (DOUBLE), z (FLOAT)
+UDF_LEAVES = ["x", "y", "z", "2", "3", "-1", "0.5", "2.0", "-1.25"]
+UDF_UNARY = ["-({})", "abs({})", "jnp.abs({})", "jnp.sqrt(jnp.abs({}))",
+             "jnp.exp(jnp.clip({}, -5, 5))", "jnp.log1p(jnp.abs({}))",
+             "jnp.tanh({})", "jnp.floor({})", "jnp.round({})",
+             "jnp.square({})", "jnp.sign({})", "jnp.isnan({}) * 1.0"]
+UDF_BINARY = ["({} + {})", "({} - {})", "({} * {})", "({} / {})",
+              "({} // {})", "({} % {})", "jnp.minimum({}, {})",
+              "jnp.maximum({}, {})", "jnp.where({0} > {1}, {0}, {1})",
+              "jnp.power(jnp.abs({}) + 1.0, jnp.clip({}, -2, 2))"]
+#: wrappers that decide the tier: the jit tier, or host code on a value
+UDF_TIER = ["{}", "if x > 0:\n    return {}\nreturn y",
+            "float(x) * 0.0 + {}", "math.exp(y * 0.0) * {}"]
