@@ -32,6 +32,11 @@ Phases, each of which raises on failure:
        0.005 of sequential; the recall against the probed lists' original
        f32 rows is recorded beside it (the loss of bf16 storage);
     c. `rerank_exact`, bit-identical to a numpy f64 left-fold oracle;
+    d. the worker's sharded and replicated modes over b's index on 8
+       slots of the card (`WorkerCore.serve_index`, no second build):
+       the ids of every query equal the single index's after the exact
+       re-rank, recall@20 equal, every L2 launch held against its plain
+       version, QPS of each mode;
  4. IVF-PQ at `bench.py`'s IVF-PQ configuration, on the same data,
     queries and truth: the build and one search run of all queries each
     counted (the search must launch the ADC kernel's list form and the
@@ -180,10 +185,10 @@ Phases, each of which raises on failure:
     engine of its own, freed after; the host library
     (`matrixone_tpu_torch/native`) must be the compiled one.  Each path
     runs fused (default knobs) and per-operator (`plan_fusion = 0`):
-    its cold run, a counted warm run (spill counters: partitions, bytes,
-    seconds partitioning, writing and replaying; kernel launches by
-    shape with their inputs captured; peak device memory) and the best
-    of 3 warm runs, every run's rows checked:
+    a counted first run (spill counters: partitions, bytes, seconds
+    partitioning, writing and replaying; kernel launches by shape with
+    their inputs captured; peak device memory) and `SPILL_WARM_RUNS`
+    warm runs, every run's rows checked:
     a. Q21 with the default join budget (it must spill) and with one
        past its largest build (it must not): the same rows;
     b. 5c's float GROUP BY over v's values under 4096 groups with the
@@ -269,7 +274,11 @@ Phases, each of which raises on failure:
        a gate;
     d. the L2 kernel and the ADC kernel's list form against their plain
        versions at every shape 13a-13c launched them with, on the
-       paths' own inputs, timed at each.
+       paths' own inputs, timed at each;
+    e. (after a) `SET ivf_shards = 8` on 8 slots over a's index (its
+       cluster-sharded repack cached on the index, no second build): the
+       64 statements' rows equal a's, every L2 probe launch held, ms a
+       statement.
 14. HNSW, full text and `llm_embed` through SQL, last, each in an engine
     of its own, with default knobs; every kernel's launches counted in
     each part (the path launches none of the five):
@@ -365,6 +374,26 @@ Phases, each of which raises on failure:
     f64 plain sum: the plain version's `index_add_` adds in no fixed
     order on the card; NaN and infinities in the same groups), the same
     bits on a second launch; each timed at its most launched shape.
+
+17. sharded SQL (`SET query_shards`), after phase 10 and before phase 7,
+    on 8 slots laid on the one card (`parallel/mesh.simulated_slots`),
+    default knobs, `batch_rows` 375,000 (bench.py's n // 16): each
+    statement's counted run traced (for each sharded fragment one
+    `shard.exec` span, one `shard.partial` span per shard and one merge
+    counted; Q18's IN subquery is a fragment of its own), every sorted
+    search and segment sum held against its plain version (graph replays
+    included, `PathInputs` in `every`); warm seconds local and sharded:
+    a. over phase 5's arrays in an engine of its own: Q3 at 2, 4 and 8
+       shards, its rows `q3_oracle`'s and the local run's; Q1 at 8 (the
+       dense psum merge), the local rows; 5c's GROUP BY at 8 within rtol
+       1e-4 / atol 1e-3 of the local run and f64; and over phase 10's
+       TPC-H tables lineitem joined to orders on the order key, grouped
+       by o_orderpriority: EXPLAIN's exchange=shuffle, rows shuffled,
+       the local rows;
+    b. a copy of orders `PARTITION BY HASH(o_custkey) SHARDS 8`, grouped
+       by o_custkey at 8: exchange=local, 0 rows shuffled, the local rows;
+    c. Q5, Q9 and Q18 at 8 over phase 10's tables: the local rows (as a
+       multiset; whether their order matched is recorded).
 
 The second-to-last line of output is the kernels' JSON record and the
 last is {"ok": true, "device": {...}}.  Without CUDA, or outside a
@@ -1125,6 +1154,9 @@ def phase_path(torch, CK, args):
         raise AssertionError(f"3b probed-list recall {rec_probed} < 0.99")
     if abs(rec_thr - rec_seq) > 0.005:
         raise AssertionError(f"3b threaded recall {rec_thr} vs {rec_seq}")
+    report["3d_worker_modes"], modes_rows = phase_worker_modes(
+        torch, CK, worker, widx, data, q_np, seq, truth, seq_qps)
+    rows += modes_rows
     del worker, widx
     torch.cuda.empty_cache()
 
@@ -3668,18 +3700,14 @@ class AggBudget:
 def spill_path(torch, CK, TK, label: str, session, sql: str, check,
                spill: str, kernel=None) -> tuple:
     """One query that must (spill = "join_spills" / "agg_spills") or must
-    not (spill = "") spill: the cold run, the counted warm run (its
-    spill counters, kernel launches by shape with their inputs captured,
-    peak device memory), then the best of `SPILL_WARM_RUNS` warm runs;
-    every run's rows checked.  -> (record, the captured kernel inputs,
-    the rows)."""
+    not (spill = "") spill: the counted run, which is the first and
+    captures (its spill counters, kernel launches by shape with their
+    inputs captured, peak device memory), then the best of
+    `SPILL_WARM_RUNS` warm runs; every run's rows checked.  -> (record,
+    the captured kernel inputs, the rows)."""
     def spilled(c):
         return {k: v for k, v in c.items() if v} if spill else {}
 
-    c0 = spill_counts()
-    rows, _batch, cold_s = run_sql(torch, session, sql)
-    check(rows)
-    cold = {k: v - c0[k] for k, v in spill_counts().items()}
     CK.LAUNCHES.reset()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3692,24 +3720,22 @@ def spill_path(torch, CK, TK, label: str, session, sql: str, check,
     launches = kernel_launches(CK, label, ("sorted_search", "segment_sum",
                                            "segment_sum_walk"),
                                required=(kernel,) if kernel else ())
-    for name, c in (("cold", cold), ("counted", counted)):
-        n = c["join_spills"] + c["agg_spills"]
-        if spill and not c[spill]:
-            raise AssertionError(f"{label}: the {name} run did not spill")
-        if not spill and n:
-            raise AssertionError(f"{label}: the {name} run spilled: {c}")
+    if spill and not counted[spill]:
+        raise AssertionError(f"{label}: the counted run did not spill")
+    if not spill and counted["join_spills"] + counted["agg_spills"]:
+        raise AssertionError(f"{label}: the counted run spilled: {counted}")
     warm = []
     for _ in range(SPILL_WARM_RUNS):
         rows, _batch, w = run_sql(torch, session, sql)
         check(rows)
         warm.append(w)
-    out = {"cold_seconds": cold_s, "counted_seconds": counted_s,
+    out = {"counted_seconds": counted_s,
            "warm_seconds": warm, "warm_seconds_best": min(warm),
            "spill": spilled(counted), "peak_device_bytes": peak,
            "launches": launches}
-    log(f"[{label}] cold {cold_s:.3f}s warm {['%.3f' % w for w in warm]} "
-        f"peak {peak / 2 ** 20:.0f} MiB; spill of the counted run "
-        f"{out['spill']}")
+    log(f"[{label}] counted {counted_s:.3f}s warm "
+        f"{['%.3f' % w for w in warm]} peak {peak / 2 ** 20:.0f} MiB; "
+        f"spill of the counted run {out['spill']}")
     return out, cap, rows
 
 
@@ -3755,7 +3781,8 @@ def phase_spill_storage(torch, CK, args, sf1, keep=None) -> tuple:
     of the grouped aggregate (10b), and a partitioned table (10c), on
     an engine of their own (freed after), read-only; the host library
     must be the compiled one.  `keep`, if given, receives the
-    generator's customer and orders arrays for phase 15."""
+    generator's customer and orders arrays for phase 15, and the engine
+    with the generator's tables for phase 17."""
     import gc
     from matrixone_tpu_torch import native
     from matrixone_tpu_torch.frontend import Session
@@ -3775,6 +3802,9 @@ def phase_spill_storage(torch, CK, args, sf1, keep=None) -> tuple:
     report["rows"] = {t: eng.get_table(t).n_rows for t in eng.tables}
     if keep is not None:
         keep.update({t: tables[t] for t in INGEST_TABLES})
+        # phase 17 shards Q5, Q9 and Q18 over the same engine (no second
+        # SF1 load)
+        keep["tpch_sf1"] = (eng, tables)
     log(f"[10] loaded TPC-H at SF1 {report['rows']} in "
         f"{report['load_seconds']:.1f}s; host library: "
         f"{report['host_library']}")
@@ -4647,9 +4677,10 @@ def phase_serving(torch, CK, eng, lineitem, q3data, v, seed: int) -> tuple:
 # ---------------------------------------------------------------- phase 13
 #: 13a/13c's queries a pass, and how many of them the exact scan (the
 #: same session's plan without the index, about 0.5 s a statement at
-#: 1M x 768) answers for recall: cut to half to keep phase 13 near 150 s
+#: 1M x 768) answers for recall: cut to half to keep phase 13 near 150 s,
+#: and to a quarter for phase 17's time (PERF.md section 4)
 VSQL_QUERIES = 64
-VSQL_EXACT_QUERIES = 32
+VSQL_EXACT_QUERIES = 16
 VSQL_LISTS = 1024
 #: sql/optimize.apply_indices' overfetch (x 3 again for IVF-PQ)
 VSQL_OVERFETCH = 3
@@ -4969,6 +5000,10 @@ def phase_vector_sql(torch, CK, args, dev: str = "cuda") -> tuple:
     log(f"[13a] recall@20 against the exact scan "
         f"{rep['recall_at_20_vs_exact_scan']:.4f} ({ne} queries; the exact "
         f"scan {rep['exact_scan_ms_per_query']:.1f} ms a statement)")
+    report["13e"], sharded_l2 = phase_sharded_vector_sql(torch, CK, sess,
+                                                         q_np, rows)
+    ix.options.pop("_sharded", None)        # its repack's card memory
+    torch.cuda.empty_cache()
 
     # 13b: upkeep on the card
     t_sub = time.perf_counter()
@@ -5130,6 +5165,7 @@ def phase_vector_sql(torch, CK, args, dev: str = "cuda") -> tuple:
         for rec in launches.values():
             del rec["by_shape_map"]
     sess.execute("drop table items_pq")
+    l2_rows += sharded_l2
     report["seconds"] = time.perf_counter() - t_phase
     log(f"[13] phase 13 took {report['seconds']:.1f}s")
     return report, l2_rows, adc_rows
@@ -5140,7 +5176,7 @@ def phase_vector_sql(torch, CK, args, dev: str = "cuda") -> tuple:
 SEARCH_QUERIES = 64
 #: HNSW rows: phase 13's 1M halved until the single-threaded native
 #: build fits 60 s on the card machine's host (12,500 rows took
-#: 47.8-57.4 s on an H100 machine's host; 25,000 took longer than 60 s)
+#: 47.8-60.1 s on an H100 machine's host; 25,000 took longer than 60 s)
 HNSW_ROWS = 12_500
 HNSW_M, HNSW_EF_CONSTRUCTION = 16, 64
 FT_DOCS = 100_000
@@ -6012,10 +6048,12 @@ def udf_jit_oracle(x: np.ndarray) -> np.ndarray:
                         np.exp(x) / (1.0 + np.exp(x)))
 
 
-def load_phase16_tables(eng, lineitem, q3data, v) -> dict:
+def load_phase16_tables(eng, lineitem, q3data, v,
+                        v_tables=("v", "v_copy")) -> dict:
     """Phase 5's generator arrays into `eng`: lineitem, customer and
-    orders with `utils/tpch`'s schemas, v with 5c's, and v_copy (the
-    same rows, no view) -> seconds per table."""
+    orders with `utils/tpch`'s schemas, and v with 5c's under each name
+    of `v_tables` (phase 16's v_copy: the same rows, no view) -> seconds
+    per table."""
     from matrixone_tpu_torch.container import dtypes as dt
     from matrixone_tpu_torch.storage.engine import TableMeta
     from matrixone_tpu_torch.utils import tpch
@@ -6040,7 +6078,7 @@ def load_phase16_tables(eng, lineitem, q3data, v) -> dict:
     out["customer_orders"] = time.perf_counter() - t0
     schema = [("id", dt.INT64), ("grp", dt.INT64), ("xi", dt.FLOAT32),
               ("xn", dt.FLOAT32)]
-    for name in ("v", "v_copy"):
+    for name in v_tables:
         t0 = time.perf_counter()
         eng.create_table(TableMeta(name, schema, ["id"]))
         eng.get_table(name).insert_numpy(v)
@@ -6458,6 +6496,466 @@ def phase_views_udfs(torch, CK, args, arrays) -> tuple:
     return report, search_rows, segsum_rows
 
 
+# ------------------------------------------ phase 17: sharded SQL
+
+#: phase 17's mesh: 8 slots laid on the one card
+#: (`parallel/mesh.simulated_slots`), as the CPU tests lay them
+SHARD_SLOTS = 8
+#: phase 17's scan batch: bench.py:484's n // 16, so every one of 8
+#: shards owns chunks of the 6M-row tables
+SHARD_BATCH_ROWS = 375_000
+#: 17a: both join sides plain scans, the build 1.5M estimated rows (past
+#: MO_SHUFFLE_BUILD_ROWS) over the probe's key range: exchange=shuffle
+SHUFFLE_SQL = ("select o_orderpriority, count(*), sum(l_quantity) "
+               "from lineitem join orders on l_orderkey = o_orderkey "
+               "group by o_orderpriority order by o_orderpriority")
+#: 17b: orders hash-partitioned on o_custkey into 8 shards, grouped by it
+COPART_DDL = "partition by hash(o_custkey) shards 8"
+COPART_SQL = ("select o_custkey, count(*), sum(o_totalprice) from "
+              "orders_by_cust group by o_custkey order by o_custkey")
+#: the merges the shard executor counts, by kind
+MERGE_KINDS = ("dense", "general", "single", "empty", "scalar", "topk",
+               "join")
+
+
+def exchange_counts() -> dict:
+    """The exchange counters so far (`utils/metrics.py`)."""
+    from matrixone_tpu_torch.utils import metrics as M
+    out = {k: M.exchange_partial_merge.get(kind=k) for k in MERGE_KINDS}
+    out["shuffle_rows"] = M.exchange_shuffle_rows.get()
+    out["broadcast_bytes"] = M.exchange_broadcast_bytes.get()
+    return out
+
+
+def exchanges_since(before: dict) -> dict:
+    now = exchange_counts()
+    return {k: now[k] - before[k] for k in now}
+
+
+class OnShards:
+    """`SET query_shards = n` (every input big enough) for the block."""
+
+    def __init__(self, session, n: int):
+        self.session, self.n = session, n
+
+    def __enter__(self):
+        self.session.execute(f"set query_shards = {self.n}")
+        self.session.execute("set dist_min_rows = 0")
+        return self
+
+    def __exit__(self, *exc):
+        self.session.execute("set query_shards = 0")
+        return False
+
+
+def warm_seconds(torch, session, sql: str, n: int, runs: int = 1) -> list:
+    """Warm seconds of `runs` runs of `sql` at n shards (0: local)."""
+    out = []
+    for _ in range(runs):
+        if n:
+            with OnShards(session, n):
+                out.append(run_sql(torch, session, sql)[2])
+        else:
+            out.append(run_sql(torch, session, sql)[2])
+    return out
+
+
+def shard_run(torch, CK, TK, label: str, session, sql: str, n: int,
+              check, timed: bool = False) -> tuple:
+    """`sql` at n shards: one counted run with its spans traced and
+    every sorted-search and segment-sum launch captured (`PathInputs` in
+    `every`, graph replays included), `check`ed; for each sharded
+    fragment (a statement may hold two: Q18's IN subquery runs as one of
+    its own) one `shard.exec` span, one merge and one `shard.partial`
+    span per shard; every launch held against its plain
+    version (`hold_launches`, the most launched shapes timed if `timed`).
+    -> (record, sorted-search rows, segment-sum rows)."""
+    from matrixone_tpu_torch.utils import motrace
+    from matrixone_tpu_torch.vm import fusion
+    tr = motrace.TRACER
+    was = (tr.armed, tr.sample)
+    tr.arm(sample=1.0)
+    tr.clear()
+    # every graph the counted run replays is captured under the spy (a
+    # broadcast build's fragment is the local run's), so each in-graph
+    # launch is held
+    fusion.CACHE.clear()
+    c0 = exchange_counts()
+    CK.LAUNCHES.reset()
+    try:
+        with PathInputs(torch, TK, "every") as cap, OnShards(session, n):
+            rows, _batch, secs = run_sql(torch, session, sql)
+        spans = {}
+        for tid in tr.trace_ids():
+            for sp in tr.spans_of(tid):
+                spans[sp["name"]] = spans.get(sp["name"], 0) + 1
+    finally:
+        tr.armed, tr.sample = was
+        tr.clear()
+    moved = exchanges_since(c0)
+    launches = kernel_launches(CK, label, ("sorted_search", "segment_sum",
+                                           "l2_distance_sq"))
+    check(rows)
+    merges = {k: moved[k] for k in MERGE_KINDS if moved[k]}
+    execs = spans.get("shard.exec", 0)
+    if not execs or sum(merges.values()) != execs \
+            or spans.get("shard.partial") != n * execs:
+        raise AssertionError(f"{label}: merges {merges}, spans {spans}: not "
+                             f"one merge and {n} shard.partial spans a "
+                             f"sharded fragment")
+    search, segsum, held = hold_launches(torch, CK, cap, label, launches,
+                                         timed=timed)
+    del cap
+    rec = {"counted_seconds": secs, "merge": merges,
+           "shuffle_rows": moved["shuffle_rows"],
+           "broadcast_bytes": moved["broadcast_bytes"],
+           "span_counts": spans, "launches": launches, "held": held,
+           "rows": len(rows)}
+    log(f"[{label}] {n} shards: {len(rows)} rows, merge {merges}, "
+        f"shuffled {moved['shuffle_rows']:.0f} rows, broadcast "
+        f"{moved['broadcast_bytes'] / 1e6:.1f} MB, spans "
+        f"shard.partial x{spans.get('shard.partial')}")
+    return rec, search, segsum
+
+
+def sharded_vs_local(torch, CK, TK, label: str, session, sql: str,
+                     counts, check=None, timed: bool = False,
+                     compare: str = "equal") -> tuple:
+    """`sql` local (the reference rows, a warm run's seconds) and at each
+    shard count of `counts` (`shard_run`, then a warm run): the rows equal
+    the local rows (`compare` "equal"), as multisets ("multiset": ties
+    under the ORDER BY may come in another order), or by `check`
+    ("check") -> (record, sorted-search rows, segment-sum rows)."""
+    local = session.execute(sql).rows()
+    if check is not None:
+        check(local)
+    order = {}
+
+    def same(rows):
+        if compare == "check":
+            check(rows)
+            return
+        order["same"] = rows == local
+        if compare == "multiset":
+            ok = sorted(rows, key=repr) == sorted(local, key=repr)
+        else:
+            ok = order["same"]
+        if not ok:
+            raise AssertionError(f"{label}: sharded rows differ from the "
+                                 f"local rows: {rows[:3]} vs {local[:3]}")
+
+    rec = {"local_warm_seconds": warm_seconds(torch, session, sql, 0),
+           "local_rows": len(local)}
+    search, segsum = [], []
+    for n in counts:
+        r, s_rows, g_rows = shard_run(torch, CK, TK, f"{label} x{n}",
+                                      session, sql, n, same,
+                                      timed=timed and n == max(counts))
+        r["warm_seconds"] = warm_seconds(torch, session, sql, n)
+        if compare == "multiset":
+            r["same_order"] = order["same"]
+        rec[f"x{n}"] = r
+        search += s_rows
+        segsum += g_rows
+    log(f"[{label}] warm local {min(rec['local_warm_seconds']):.3f}s; "
+        + ", ".join(f"x{n} {min(rec[f'x{n}']['warm_seconds']):.3f}s"
+                    for n in counts))
+    return rec, search, segsum
+
+
+def explain_exchanges_of(session, sql: str, n: int) -> list:
+    with OnShards(session, n):
+        text = session.execute("explain " + sql).text
+    return sorted({tok.split("=", 1)[1] for tok in text.split()
+                   if tok.startswith("exchange=")})
+
+
+def phase_sharded_sql(torch, CK, args, arrays, full) -> tuple:
+    """Phase 17: sharded SQL on 8 slots of the one card at SF1, default
+    knobs (fused) and `batch_rows` SHARD_BATCH_ROWS.  17a over phase 5's
+    arrays in an engine of its own (Q3 at 2, 4, 8 shards, Q1 and 5c's
+    GROUP BY at 8); the shuffle join, 17b (a hash-partitioned copy of
+    orders) and 17c (Q5, Q9, Q18 at 8) over phase 10's TPC-H engine
+    (`full`: (engine, generator arrays)).  -> (report, sorted-search
+    rows, segment-sum rows)."""
+    import gc
+
+    from matrixone_tpu_torch.frontend import Session
+    from matrixone_tpu_torch.ops import kernels as TK
+    from matrixone_tpu_torch.parallel.mesh import simulated_slots
+    from matrixone_tpu_torch.storage.engine import Engine, TableMeta
+    from matrixone_tpu_torch.utils import tpch, tpch_full
+
+    lineitem, q3data, v = arrays
+    full_eng, full_tables = full
+    t_phase = time.perf_counter()
+    report = {}
+    search_rows, segsum_rows = [], []
+    eng = Engine()
+    report["17_load_seconds"] = load_phase16_tables(eng, lineitem, q3data,
+                                                    v, v_tables=("v",))
+    sess = Session(catalog=eng, device="cuda")
+    fsess = Session(catalog=full_eng, device="cuda")
+    for s in (sess, fsess):
+        s.execute(f"set batch_rows = {SHARD_BATCH_ROWS}")
+
+    def add(key, out):
+        rec, s_rows, g_rows = out
+        report[key] = rec
+        search_rows.extend(s_rows)
+        segsum_rows.extend(g_rows)
+
+    with simulated_slots(SHARD_SLOTS):
+        # 17a: Q3 (broadcast builds), Q1 (the dense psum), 5c (f32)
+        report["17a_q3_exchanges"] = explain_exchanges_of(
+            sess, tpch.Q3_SQL, SHARD_SLOTS)
+        q3_check = q3_rows_check(tpch.q3_oracle(lineitem, q3data), "17a")
+        add("17a_q3", sharded_vs_local(
+            torch, CK, TK, "17a Q3", sess, tpch.Q3_SQL, (2, 4, 8),
+            check=lambda rows: q3_check(rows, None), timed=True))
+        report["17a_q3"]["profile_x8"] = profile_run(
+            torch, lambda: sharded_once(sess, tpch.Q3_SQL, SHARD_SLOTS),
+            "17a Q3 x8")
+        add("17a_q1", sharded_vs_local(torch, CK, TK, "17a Q1", sess,
+                                       tpch.Q1_SQL, (SHARD_SLOTS,)))
+        if "dense" not in report["17a_q1"][f"x{SHARD_SLOTS}"]["merge"]:
+            raise AssertionError("17a Q1: the shards' partials did not "
+                                 "merge by the dense psum")
+        errs = {}
+        gb_check = group_by_check(v, errs, "17a 5c")
+        local_gb = sess.execute(GROUP_BY_SQL).rows()
+
+        def gb_same(rows):
+            gb_check(rows, None)
+            if not rows_agree(rows, local_gb):
+                raise AssertionError("17a 5c: the sharded sums differ from "
+                                     "the local ones past rtol 1e-4 / "
+                                     "atol 1e-3")
+        add("17a_group_by", sharded_vs_local(
+            torch, CK, TK, "17a 5c GROUP BY", sess, GROUP_BY_SQL,
+            (SHARD_SLOTS,), check=gb_same, timed=True, compare="check"))
+        report["17a_group_by"]["errors"] = errs
+        # 17a: the shuffle join over phase 10's lineitem and orders
+        ex = explain_exchanges_of(fsess, SHUFFLE_SQL, SHARD_SLOTS)
+        if ex != ["shuffle"]:
+            raise AssertionError(f"17a shuffle: the planner chose {ex}")
+        add("17a_shuffle", sharded_vs_local(
+            torch, CK, TK, "17a shuffle join", fsess, SHUFFLE_SQL,
+            (SHARD_SLOTS,)))
+        if not report["17a_shuffle"][f"x{SHARD_SLOTS}"]["shuffle_rows"]:
+            raise AssertionError("17a shuffle: no row crossed the exchange")
+        report["17a_shuffle"]["exchanges"] = ex
+        # 17b: a copy of orders hash-partitioned on o_custkey, read
+        # co-partitioned
+        orders = full_tables["orders"]
+        schema = tpch_full._SCHEMAS["orders"]
+        t0 = time.perf_counter()
+        fsess.execute("create table orders_by_cust ("
+                      + ", ".join(f"{c} {d}" for c, d in schema)
+                      + f") {COPART_DDL}")
+        full_eng.get_table("orders_by_cust").insert_numpy(
+            orders, strings={c: tpch_full._encode_strings(orders[c])
+                             for c, d in schema if d.is_varlen})
+        copart_load = time.perf_counter() - t0
+        spec = full_eng.get_table("orders_by_cust").meta.partition
+        if (spec.kind, spec.column, spec.n_parts) != ("hash", "o_custkey",
+                                                      SHARD_SLOTS):
+            raise AssertionError(f"17b: the DDL made {spec}")
+        ex = explain_exchanges_of(fsess, COPART_SQL, SHARD_SLOTS)
+        if ex != ["local"]:
+            raise AssertionError(f"17b: the exchanges {ex}, not local")
+        add("17b_copartitioned", sharded_vs_local(
+            torch, CK, TK, "17b co-partitioned GROUP BY", fsess,
+            COPART_SQL, (SHARD_SLOTS,)))
+        if report["17b_copartitioned"][f"x{SHARD_SLOTS}"]["shuffle_rows"]:
+            raise AssertionError("17b: rows crossed the exchange")
+        report["17b_copartitioned"].update(
+            load_seconds=copart_load, exchanges=ex,
+            segments=len(full_eng.get_table("orders_by_cust").segments))
+        full_eng.drop_table("orders_by_cust")
+        # 17c: Q5, Q9, Q18 at 8 shards against the local rows
+        for q in (5, 9, 18):
+            sql = tpch_full.QUERIES[q]
+            report[f"17c_q{q}_exchanges"] = explain_exchanges_of(
+                fsess, sql, SHARD_SLOTS)
+            add(f"17c_q{q}", sharded_vs_local(
+                torch, CK, TK, f"17c Q{q}", fsess, sql, (SHARD_SLOTS,),
+                compare="multiset"))
+    held = {k: sum(r[f"x{n}"]["held"][k] for r in report.values()
+                   if isinstance(r, dict) for n in (2, 4, 8)
+                   if f"x{n}" in r)
+            for k in ("sorted_search", "segment_sum", "in_graph_replays")}
+    report["17_held"] = held
+    report["seconds"] = time.perf_counter() - t_phase
+    log(f"[17] held {held['sorted_search']} sorted searches and "
+        f"{held['segment_sum']} segment sums ({held['in_graph_replays']} in "
+        f"graph replays); phase 17 {report['seconds']:.1f}s")
+    del sess, fsess, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return report, search_rows, segsum_rows
+
+
+def sharded_once(session, sql: str, n: int):
+    with OnShards(session, n):
+        return session.execute(sql).rows()
+
+
+class L2Held:
+    """Holds every launch of the L2 kernel in the scope against its plain
+    version in f64 as it returns, with `check_kernel`'s tolerance
+    (|err| <= 1e-5 (x2 + q2) + 1e-4), and keeps the first inputs of each
+    launch shape for the timed rows.  The check runs between launches,
+    so a pass under it is not timed."""
+
+    def __init__(self, torch, CK, TK, label: str):
+        self.torch, self.CK, self.TK, self.label = torch, CK, TK, label
+        self.held, self.max_err, self.first = 0, 0.0, {}
+
+    def __enter__(self):
+        torch, CK, spy = self.torch, self.CK, self
+        self._real = real = self.TK.l2_distance_sq_exact
+
+        def l2(x, q):
+            out = real(x, q)
+            if x.is_cuda:
+                x64, q64 = x.double(), q.double()
+                q2_64 = (q64 * q64).sum(1)
+                ref = CK.l2_distance_sq_plain(x64, q64, q2_64)
+                err = (out.double() - ref).abs()
+                tol = 1e-5 * ((x64 * x64).sum(1, keepdim=True)
+                              + q2_64[None, :]) + 1e-4
+                if bool((err > tol).any()):
+                    raise AssertionError(f"{spy.label}: an L2 launch at "
+                                         f"{tuple(x.shape)} x "
+                                         f"{tuple(q.shape)} differs from "
+                                         f"its plain version")
+                spy.held += 1
+                spy.max_err = max(spy.max_err, float(err.max()))
+                key = (x.shape[0], q.shape[0], x.shape[1])
+                if key not in spy.first:
+                    spy.first[key] = (x.float().contiguous().clone(),
+                                      q.float().contiguous().clone())
+            return out
+        self.TK.l2_distance_sq_exact = l2
+        return self
+
+    def __exit__(self, *exc):
+        self.TK.l2_distance_sq_exact = self._real
+        return False
+
+    def rows(self, launches: dict, label: str) -> list:
+        """The kernel at each shape held, timed (`check_kernel`)."""
+        if self.held != launches["l2_distance_sq"]["launches"]:
+            raise AssertionError(f"{label}: {self.held} L2 launches held "
+                                 f"of {launches['l2_distance_sq']['launches']}")
+        by_shape = launches["l2_distance_sq"]["by_shape"]
+        counts = {tuple(r[:-1]): r[-1] for r in by_shape}
+        return [dict(check_kernel(self.torch, self.CK, f"{label}_{n}x{b}",
+                                  x, q), path=label,
+                     path_launches=counts.get((n, b, d), 0))
+                for (n, b, d), (x, q) in sorted(self.first.items())]
+
+
+def phase_worker_modes(torch, CK, worker, widx, data, q_np, seq, truth,
+                       single_qps: float) -> tuple:
+    """3d: the worker's sharded and replicated modes over 3b's index at
+    8 slots (`serve_index`: the built index, no second build): the
+    sharded ids equal the single index's after the exact re-rank (the
+    reference's post-rerank contract), both modes' recall@20 the single
+    index's; every L2 launch held on a counted pass, QPS on a second.
+    -> (record, L2 rows)."""
+    from matrixone_tpu_torch.ops import kernels as TK
+    from matrixone_tpu_torch.parallel.mesh import simulated_slots
+    from matrixone_tpu_torch.vectorindex import ivf_flat
+    from matrixone_tpu_torch.vectorindex.recall import recall_at_k
+    nq = len(q_np)
+    out, rows = {"single_qps": single_qps}, []
+    with simulated_slots(SHARD_SLOTS):
+        for mode in ("sharded", "replicated"):
+            name = f"bench_{mode}"
+            t0 = time.perf_counter()
+            info = worker.serve_index(name, widx, mode=mode)
+            serve_s = time.perf_counter() - t0
+            CK.LAUNCHES.reset()
+            with L2Held(torch, CK, TK, f"3d {mode}") as held:
+                ids = np.concatenate([worker.search_index(
+                    name, q_np[i:i + BATCH], k=K, nprobe=NPROBE)[1]
+                    for i in range(0, nq, BATCH)])
+            launches = kernel_launches(CK, f"3d {mode}",
+                                       ("l2_distance_sq",),
+                                       required=("l2_distance_sq",))
+            rows += held.rows(launches, f"3d_{mode}")
+            t0 = time.perf_counter()
+            again = np.concatenate([worker.search_index(
+                name, q_np[i:i + BATCH], k=K, nprobe=NPROBE)[1]
+                for i in range(0, nq, BATCH)])
+            qps = nq / (time.perf_counter() - t0)
+            if not np.array_equal(again, ids):
+                raise AssertionError(f"3d {mode}: two passes differ")
+            dev = data.device
+            q_t = torch.from_numpy(q_np).to(dev)
+            _d1, r1 = ivf_flat.rerank_exact(
+                data, q_t, torch.from_numpy(seq.astype(np.int32)).to(dev))
+            _d2, r2 = ivf_flat.rerank_exact(
+                data, q_t, torch.from_numpy(ids.astype(np.int32)).to(dev))
+            if not torch.equal(r1, r2):
+                bad = int((r1 != r2).any(dim=1).sum())
+                raise AssertionError(f"3d {mode}: {bad} queries' ids after "
+                                     f"the exact re-rank differ from the "
+                                     f"single index's")
+            rec = recall_at_k(ids, truth)
+            rec_single = recall_at_k(seq, truth)
+            if rec != rec_single:
+                raise AssertionError(f"3d {mode}: recall@20 {rec} vs the "
+                                     f"single index's {rec_single}")
+            out[mode] = {"serve_seconds": serve_s, "info": info, "qps": qps,
+                         "recall_at_20": rec, "launches": launches,
+                         "held": held.held, "max_abs_err": held.max_err}
+            log(f"[3d] {mode} over {SHARD_SLOTS} slots: recall@20 "
+                f"{rec:.4f} (single {rec_single:.4f}), ids equal the "
+                f"single index's after the re-rank, {qps:.1f} qps "
+                f"(single {single_qps:.1f}); {held.held} L2 launches held")
+            worker.indexes.pop(name)
+    return out, rows
+
+
+def phase_sharded_vector_sql(torch, CK, sess, q_np, want_rows) -> tuple:
+    """13e: `SET ivf_shards = 8` over 13a's index at 8 slots (its repack
+    cached on the index, no second build): the 64 statements' rows equal
+    13a's at `ivf_shards = 0`, every L2 probe launch held on a counted
+    pass, ms a statement on a second.  -> (record, L2 rows)."""
+    from matrixone_tpu_torch.ops import kernels as TK
+    from matrixone_tpu_torch.parallel.mesh import simulated_slots
+    with simulated_slots(SHARD_SLOTS):
+        sess.execute(f"set ivf_shards = {SHARD_SLOTS}")
+        try:
+            CK.LAUNCHES.reset()
+            t0 = time.perf_counter()
+            with L2Held(torch, CK, TK, "13e") as held:
+                rows, _c, _s = knn_pass(torch, sess, "items", q_np)
+            counted_s = time.perf_counter() - t0
+            launches = kernel_launches(CK, "13e_ivf_shards",
+                                       ("l2_distance_sq",),
+                                       required=("l2_distance_sq",))
+            l2_rows = held.rows(launches, "13e_ivf_shards")
+            timed, _c, secs = knn_pass(torch, sess, "items", q_np)
+        finally:
+            sess.execute("set ivf_shards = 0")
+    for i, (a, b, w) in enumerate(zip(rows, timed, want_rows)):
+        if a != w or b != w:
+            raise AssertionError(f"13e: statement {i}'s rows at "
+                                 f"ivf_shards = {SHARD_SLOTS} differ from "
+                                 f"ivf_shards = 0's")
+    rec = {"counted_seconds": counted_s,
+           "ms_per_query": secs * 1e3 / len(q_np), "launches": launches,
+           "held": held.held, "max_abs_err": held.max_err}
+    log(f"[13e] ivf_shards = {SHARD_SLOTS}: {len(q_np)} statements' rows "
+        f"equal ivf_shards = 0's; {rec['ms_per_query']:.2f} ms a "
+        f"statement; {held.held} L2 launches held")
+    return rec, l2_rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=1_000_000)
@@ -6531,6 +7029,10 @@ def main(argv=None) -> int:
     report["spill"]["seconds"] = time.perf_counter() - t0
     log(f"[10] phase 10 took {report['spill']['seconds']:.1f}s")
     t0 = time.perf_counter()
+    report["sharded"], shard_search, shard_segsum = phase_sharded_sql(
+        torch, CK, args, sf1[1:], ingest_tables.pop("tpch_sf1"))
+    log(f"[17] phase 17 took {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
     rf01_report, rf01_search, rf01_segsum = phase_refresh_sf01(
         torch, CK, args, sf01)
     report["refresh"] = {"sf01": rf01_report}
@@ -6557,9 +7059,9 @@ def main(argv=None) -> int:
     del sf1_arrays
     search_rows += (search_path + tpch_search + rf01_search + refresh_search
                     + exec_search + fusion_search + spill_search
-                    + obj_search + ingest_search + mv_search)
+                    + obj_search + ingest_search + mv_search + shard_search)
     segsum_rows += (segsum_path + rf01_segsum + refresh_segsum + exec_segsum
-                    + spill_segsum + obj_segsum + mv_segsum)
+                    + spill_segsum + obj_segsum + mv_segsum + shard_segsum)
     rows += path_rows + pq_rows + vsql_l2
     adc_rows += pq_adc_rows + vsql_adc
     pq_build = report["ivf_pq"]["build_launches"]
@@ -6669,6 +7171,22 @@ def main(argv=None) -> int:
         **{f"16d_canary_{q}": mv["16d_canary"][q]["launches"][kernel][
             "launches"] for q in ("q1", "q3", "group_by")}}
         for kernel in ("sorted_search", "segment_sum")}
+    # phase 17: each sharded statement's counted run, by shard count
+    sharded = report["sharded"]
+    shard_launches = {kernel: {
+        f"{key}_x{n}": rec[f"x{n}"]["launches"][kernel]["launches"]
+        for key, rec in sharded.items() if isinstance(rec, dict)
+        for n in (2, 4, 8) if f"x{n}" in rec}
+        for kernel in ("sorted_search", "segment_sum")}
+    shard_timed = {}
+    for kernel, rows_ in (("sorted_search", shard_search),
+                          ("segment_sum", shard_segsum)):
+        best = max((r for r in rows_ if "ms" in r),
+                   key=lambda r: r["path_launches"], default=None)
+        shard_timed[kernel] = None if best is None else {
+            "shape": best["shape"], "path": best["path"],
+            "path_launches": best["path_launches"],
+            **{key: best[key] for key in timed}}
     mv_timed = {}
     for kernel, rows_ in (("sorted_search", mv_search),
                           ("segment_sum", mv_segsum)):
@@ -6692,7 +7210,12 @@ def main(argv=None) -> int:
             "4_pq_build": pq_build["l2_distance_sq"]["launches"],
             "4_pq_search": pq_search["l2_distance_sq"]["launches"],
             **{p: v["launches"] for p, v in vsql_l2_launches.items()},
-            **counted_launches("l2_distance_sq")},
+            **counted_launches("l2_distance_sq"),
+            **{f"3d_{m}": report["3d_worker_modes"][m]["launches"][
+                "l2_distance_sq"]["launches"]
+               for m in ("sharded", "replicated")},
+            "13e_ivf_shards": vsql["13e"]["launches"]["l2_distance_sq"][
+                "launches"]},
         "phase13": vsql_timed["l2_distance_sq"],
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         **{key: l2_row[key] for key in timed},
@@ -6744,10 +7267,12 @@ def main(argv=None) -> int:
             **object_launches["sorted_search"],
             **serving_launches["sorted_search"],
             **counted_launches("sorted_search"),
-            **mv_launches["sorted_search"]},
+            **mv_launches["sorted_search"],
+            **shard_launches["sorted_search"]},
         "launches_under_fusion": fusion_launches["9a_q3"],
         "phase15": ingest_timed,
         "phase16": mv_timed["sorted_search"],
+        "phase17": shard_timed["sorted_search"],
         "max_abs_err": max(r["max_abs_err"] for r in search_rows),
         **{key: search_row[key] for key in timed},
         "library_call": "torch.searchsorted on pre-flipped int64",
@@ -6766,8 +7291,10 @@ def main(argv=None) -> int:
             **object_launches["segment_sum"],
             **serving_launches["segment_sum"],
             **counted_launches("segment_sum"),
-            **mv_launches["segment_sum"]},
+            **mv_launches["segment_sum"],
+            **shard_launches["segment_sum"]},
         "phase16": mv_timed["segment_sum"],
+        "phase17": shard_timed["segment_sum"],
         "max_abs_err": max(r["max_abs_err"] for r in segsum_rows),
         **{key: segsum_row[key] for key in timed},
         **{key: segsum_row[key] for key in (

@@ -69,6 +69,39 @@ def ivf_flat_from_numpy(fields: dict, device=None) -> IvfFlatIndex:
     return _from_numpy(IvfFlatIndex, IVF_FLAT_FIELDS, fields, device)
 
 
+SHARDED_IVF_FIELDS = ("owner", "local_slot", "vectors", "r_norm2",
+                      "r_dot_c", "ids", "local_offsets")
+
+
+def sharded_ivf_from_numpy(fields: dict, mesh):
+    """The reference's ShardedIvfIndex arrays (centroids, owner,
+    local_slot [nlist]; vectors, r_norm2, r_dot_c, ids [S, rows]; and
+    local_offsets [S, L + 1], bf16 included) and metric,
+    max_cluster_size, n, as the port's index over `mesh`'s S slots."""
+    from matrixone_tpu_torch.vectorindex import sharded
+    cpu = "cpu"
+    packed = {f: tensor_from_numpy(fields[f], cpu)
+              for f in SHARDED_IVF_FIELDS}
+    return sharded.from_packing(
+        tensor_from_numpy(fields["centroids"], mesh.slots[0]), packed,
+        str(fields["metric"]), int(fields["max_cluster_size"]),
+        int(fields["n"]), mesh)
+
+
+def sharded_ivf_to_numpy(sidx) -> dict:
+    """The port's ShardedIvfIndex as the reference's arrays (each slot's
+    arrays stacked in slot order; bf16 vectors as float32) and values."""
+    out = {f: np.stack([(t.float() if t.dtype == torch.bfloat16 else t)
+                        .cpu().numpy() for t in getattr(sidx, f)])
+           for f in ("vectors", "r_norm2", "r_dot_c", "ids",
+                     "local_offsets")}
+    for f in ("centroids", "owner", "local_slot"):
+        out[f] = getattr(sidx, f)[0].cpu().numpy()
+    out.update(metric=sidx.metric, max_cluster_size=sidx.max_cluster_size,
+               n=sidx.n)
+    return out
+
+
 def ivf_pq_from_numpy(fields: dict, device=None) -> IvfPqIndex:
     """`fields` maps centroids, codebooks, codes (uint8), ids, offsets
     to arrays and metric, max_cluster_size, n to their values."""

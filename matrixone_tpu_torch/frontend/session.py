@@ -87,6 +87,7 @@ import copy
 import dataclasses
 import datetime
 import json
+import os
 import re
 import time
 import types
@@ -161,7 +162,12 @@ class Session:
         self.txn_client = TxnClient(self.catalog)
         self.txn = None                 # active explicit transaction
         self.last_insert_id = 0         # MySQL LAST_INSERT_ID()
-        self.variables = {"batch_rows": 1 << 20}
+        # SET query_shards = N runs eligible statements' fragments on N
+        # slots of the mesh (parallel/dist_query.py); the environment
+        # default serves deployments that always shard
+        self.variables = {"batch_rows": 1 << 20,
+                          "query_shards": int(os.environ.get(
+                              "MO_QUERY_SHARDS", "0") or 0)}
         self._procs = registry_for(self.catalog)
         self._admission_depth = 0      # re-entrant execute() guard
         self.conn_id = self._procs.register("root")  # no accounts yet
@@ -391,6 +397,7 @@ class Session:
             if stmt.analyze:
                 return Result(text=self._explain_analyze(node))
             anns = [a for a in (self._fragment_annotator(node),
+                                self._exchange_annotator(node),
                                 self._mview_annotator()) if a is not None]
             annotate = (None if not anns else
                         (lambda pn: "".join(a(pn) for a in anns)))
@@ -965,12 +972,14 @@ class Session:
         if sv is not None and sv.result_enabled():
             versions, frozen = self._capture_versions(node)
         ctx = self._ctx(frozen_ts=frozen)
+        node2 = self._maybe_distribute(node, ctx)
         # ---- compiled-tree reuse: the tree of the last completed
         # execution rides the plan-cache entry (pop semantics: a
-        # concurrent execution finds none and compiles its own)
+        # concurrent execution finds none and compiles its own); a
+        # statement whose fragment ran on the mesh has a plan of its own
         op = cached = None
         tree_cacheable = (sv is not None and sv.template_mode
-                          and sv.plan_enabled())
+                          and sv.plan_enabled() and node2 is node)
         tree_vars = self._tree_vars_sig() if tree_cacheable else None
         if tree_cacheable:
             if keyaudit.armed():
@@ -991,6 +1000,7 @@ class Session:
                     # parameters were patched into them in place)
                     node = cached["plan"]
         if op is None:
+            node = node2
             op = compile_plan(node, ctx)
             built = {"op": op, "plan": node} if tree_cacheable else None
         else:
@@ -1180,6 +1190,43 @@ class Session:
                 out.extend(render(c, indent + 1))
             return out
         return "\n".join(render(op))
+
+    def _maybe_distribute(self, node, ctx):
+        """Device shards (reference: the compiler's Magic: Remote
+        decision, compile/types.go:162): under `SET query_shards = N`
+        (MO_QUERY_SHARDS) a qualifying plan runs its lower fragment on N
+        slots of the mesh and re-enters here as a Materialized node
+        (parallel/dist_query.py).  Never inside a transaction; `SET dist
+        = 0` disables; `dist_min_rows` is the input size threshold.  The
+        host-peer branch of the reference is not ported."""
+        if self.txn is not None:
+            return node
+        if str(self.variables.get("dist", 1)) in ("0", "off", "false"):
+            return node
+        shards = int(self.variables.get("query_shards", 0) or 0)
+        if shards < 2:
+            return node
+        from matrixone_tpu_torch.parallel import dist_query as DQ
+        rebuilt = DQ.try_shard(
+            node, self.catalog, ctx, shards,
+            min_rows=int(self.variables.get("dist_min_rows", 100_000)))
+        return rebuilt if rebuilt is not None else node
+
+    def _exchange_annotator(self, node):
+        """EXPLAIN decoration for the device-shard executor: each
+        exchange the CBO planned, exchange=broadcast|shuffle|local on the
+        spine joins and the probe scan (parallel/dist_query.py)."""
+        shards = int(self.variables.get("query_shards", 0) or 0)
+        if shards < 2:
+            return None
+        from matrixone_tpu_torch.parallel import dist_query as DQ
+        modes = DQ.explain_exchanges(
+            node, self.catalog, self._ctx(), shards,
+            min_rows=int(self.variables.get("dist_min_rows", 100_000)))
+        if not modes:
+            return None
+        return lambda n: (f" exchange={modes[id(n)]}"
+                          if id(n) in modes else "")
 
     def _fragment_annotator(self, node):
         """EXPLAIN decoration: compile the operator tree (no execution)
@@ -1970,7 +2017,9 @@ class _ServingCtx:
     def _vars_key(self):
         s = current_session()
         v = s.variables if s is not None else {}
-        return (str(v.get("cbo", 1)), int(v.get("ivf_nprobe", 8) or 8))
+        return (str(v.get("cbo", 1)), int(v.get("ivf_nprobe", 8) or 8),
+                int(v.get("ivf_shards", 0) or 0),
+                int(v.get("query_shards", 0) or 0))
 
     def plan_key(self) -> tuple:
         return ("plan", self.scope, self.norm.template,

@@ -33,6 +33,16 @@ def unsigned_order(h: torch.Tensor) -> torch.Tensor:
     return h ^ INT64_MIN
 
 
+def unsigned_mod(h: torch.Tensor, n: int) -> torch.Tensor:
+    """h mod n with h read as the uint64 its int64 bits hold (a negative
+    h stands for h + 2^64): what `hash % np.uint64(n)` gives."""
+    r = torch.remainder(h, n)
+    wrap = (1 << 64) % n
+    if wrap:
+        r = torch.where(h < 0, torch.remainder(r + wrap, n), r)
+    return r
+
+
 def _shr(x: torch.Tensor, k: int) -> torch.Tensor:
     """Logical right shift of int64 bit patterns."""
     return (x >> k) & ((1 << (64 - k)) - 1)

@@ -561,8 +561,8 @@ class MVCCTable:
                     snapshot_ts: Optional[int] = None,
                     extra_segments: Optional[List[Segment]] = None,
                     extra_deletes: Optional[np.ndarray] = None,
-                    device=None, read_ahead: bool = False
-                    ) -> Iterator[tuple]:
+                    device=None, read_ahead: bool = False,
+                    only_part: Optional[int] = None) -> Iterator[tuple]:
         """Yield (arrays, validity, dicts, n) chunks of at most batch_rows
         rows: the segments committed at or before snapshot_ts, then a
         transaction's own segments, without the rows tombstoned at
@@ -575,7 +575,10 @@ class MVCCTable:
         the chunk zonemaps are still evaluated on the host tier's arrays,
         so the same chunks survive as on the host path.  `read_ahead`
         (this generator runs on the scan's read-ahead thread) decodes
-        each such segment's cold columns into the host tier first."""
+        each such segment's cold columns into the host tier first.
+        `only_part` (a co-partitioned shard read, vm/operators
+        `_hash_route`) keeps that partition's segments and the ones
+        without a part id, which the caller routes row by row."""
         want_rowid = ROWID in columns
         data_cols = [c for c in columns if c != ROWID]
         schema = dict(self.meta.schema)
@@ -603,6 +606,9 @@ class MVCCTable:
             if allowed_parts is not None and seg.part_id >= 0 \
                     and seg.part_id not in allowed_parts:
                 metrics.scan_segments.inc(outcome="pruned")
+                continue
+            if only_part is not None and seg.part_id >= 0 \
+                    and seg.part_id != only_part:
                 continue
             # object-backed segments: prune on the STORED zonemaps before
             # any column fetch (readutil block-list prune)

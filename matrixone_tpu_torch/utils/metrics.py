@@ -480,3 +480,20 @@ qa_oracle_checks = REGISTRY.counter(
 qa_findings = REGISTRY.counter(
     "mo_qa_findings_total",
     "findings by kind (canary-in-result/canary-in-carry/...)")
+
+# ---- device-shard exchanges (parallel/dist_query.py shard executor)
+exchange_shuffle_rows = REGISTRY.counter(
+    "mo_exchange_shuffle_rows_total",
+    "rows that crossed a hash exchange (vm/operators._hash_route row "
+    "routing; co-partitioned reads that resolve structurally count 0)")
+exchange_broadcast_bytes = REGISTRY.counter(
+    "mo_exchange_broadcast_bytes_total",
+    "bytes replicated to the non-owning shards by broadcast join "
+    "builds (materialized once, bytes x (n_shards - 1))")
+exchange_partial_merge = REGISTRY.counter(
+    "mo_exchange_partial_merge_total",
+    "cross-shard partial-result merges by kind "
+    "(dense/general/scalar/topk/join)")
+vector_shard_imbalance = REGISTRY.gauge(
+    "mo_vector_shard_imbalance",
+    "sharded IVF row imbalance: max shard rows / mean shard rows")

@@ -54,6 +54,7 @@ class IndexCache:
                 self.used -= sz
                 self.evictions += 1
                 m.index_obj = None      # free device memory
+                m.options.pop("_sharded", None)   # and its sharded repack
                 m.dirty = True          # rebuild on next use
             # a single index larger than the whole budget stays resident:
             # evicting the only copy would thrash every query

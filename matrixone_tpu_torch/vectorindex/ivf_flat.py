@@ -1,7 +1,8 @@
 """IVF-Flat index: build and batched search.
 
-Counterpart of `matrixone_tpu/vectorindex/ivf_flat.py` (all of it but
-the mesh-sharded hooks), with the same design:
+Counterpart of `matrixone_tpu/vectorindex/ivf_flat.py` (its mesh-sharded
+search is `vectorindex/sharded.py`, over this module's chunk scorer),
+with the same design:
 
  * build = k-means (kmeans.py) + one stable argsort: vectors are stored
    cluster-major with CSR offsets, so an inverted list is a contiguous
@@ -199,12 +200,15 @@ def _residual_scores(index: IvfFlatIndex, cs: torch.Tensor,
 
 
 def _score_chunk(index: IvfFlatIndex, qc: torch.Tensor, pc: torch.Tensor,
-                 cs: torch.Tensor, k: int, compute_dtype):
+                 cs: torch.Tensor, k: int, compute_dtype,
+                 pmask: Optional[torch.Tensor] = None):
     """Score one query chunk's probed lists and return its top-k.
 
     qc [qc, d] queries, pc [qc, nprobe] probed list ids, cs [qc, nprobe]
-    probe-stage scores.  Lanes past a list's end score +inf and carry
-    candidate 0; they sort after every real candidate."""
+    probe-stage scores, pmask [qc, nprobe] the live probes (None: all;
+    the sharded search masks the lists other slots own).  Lanes past a
+    list's end or of a dead probe score +inf and carry candidate 0; they
+    sort after every real candidate."""
     query_chunk, nprobe = pc.shape
     pad = index.max_cluster_size
     d = index.dim
@@ -213,6 +217,8 @@ def _score_chunk(index: IvfFlatIndex, qc: torch.Tensor, pc: torch.Tensor,
     lane = torch.arange(pad, dtype=torch.int32, device=qc.device)
     cand = starts[:, :, None] + lane[None, None, :]    # [qc, nprobe, pad]
     valid = cand < ends[:, :, None]
+    if pmask is not None:
+        valid = valid & pmask[:, :, None]
     cand = torch.where(valid, cand, torch.zeros_like(cand)).to(torch.int64)
     cdt = torch.float32 if compute_dtype is None else compute_dtype
     vecs = index.vectors[cand].to(cdt)                 # [qc, nprobe, pad, d]

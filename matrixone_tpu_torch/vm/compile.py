@@ -15,9 +15,8 @@ do.
 IVF-PQ or HNSW search as a source) and `FulltextTopK` to
 `vm/fulltext_scan.FulltextTopKOp` (BM25 on the index's device).
 `UdfAggregate` compiles to `vm/operators.UdfAggregateOp` (the aggregate
-UDF tier, udf/executor.py).  `Materialized` is not ported yet
-(ROADMAP.md, section A, step 4): compiling one raises
-NotImplementedError.
+UDF tier, udf/executor.py) and `Materialized` (a merged cross-shard
+result, parallel/dist_query.py) to `vm/operators.MaterializedOp`.
 """
 
 from __future__ import annotations
@@ -148,6 +147,7 @@ def _compile_node(node: P.PlanNode, ctx: ExecContext) -> ops.Operator:
     if isinstance(node, P.UdfAggregate):
         return ops.UdfAggregateOp(node, _compile_node(node.child, ctx),
                                   ctx.device)
+    if isinstance(node, P.Materialized):
+        return ops.MaterializedOp(node, ctx)
     raise NotImplementedError(
-        f"compile: {type(node).__name__} is not ported yet (ROADMAP.md, "
-        f"section A)")
+        f"compile: unknown plan node {type(node).__name__}")

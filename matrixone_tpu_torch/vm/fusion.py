@@ -892,9 +892,28 @@ class FusedFragmentOp(O.Operator):
     def _prelude_labels(self) -> List[str]:
         return []
 
+    def _shard_ctx(self):
+        """The exchange shape the source scan is routed under: (mode,
+        column, mesh size, mesh axis) or None.  Shard routing is a row
+        mask at chunk production (vm/operators._hash_route), so the step
+        is the same for every shard index: the shape alone keys the
+        cache, and one captured graph serves every shard of the mesh on
+        a device (the device is in the runtime key)."""
+        sc = getattr(self.child, "node", None)
+        hs = getattr(sc, "hash_shard", None)
+        if hs is not None:
+            return ("hash", hs[0], int(hs[2]), "shard")
+        rr = getattr(sc, "shard", None)
+        if rr is not None:
+            return ("rr", None, int(rr[1]), "shard")
+        return None
+
     # ----------------------------------------------------------- sig
     def _build_plan_sig(self, lift_ids) -> tuple:
         parts: List[tuple] = [("term", self._terminal)]
+        sctx = self._shard_ctx()
+        if sctx is not None:
+            parts.append(("shard",) + sctx)
         parts.extend(self._prelude_sig(lift_ids))
         if self._scan_defer:
             parts.append(("scanf",
@@ -998,6 +1017,44 @@ class FusedFragmentOp(O.Operator):
         out = [st.op for st in self.stages]
         out += [op for op in (self._agg_op, self._sort_op) if op is not None]
         return out
+
+    def partial_state(self):
+        """The shard executor's partial (parallel/dist_query.py): the
+        fragment runs as in `execute`, and its carry comes back as
+        `AggOp.partial_state`'s ("dense", ...) tuple, or for a scalar
+        terminal as `AggOp.partial_scalar_state`'s (states, tracker),
+        instead of being finalized; a degrade or fallback hands back the
+        original AggOp's partial.  On the card the carry is copied out
+        of the captured graph's buffers, which the next replay of the
+        same key (the next shard's) overwrites."""
+        if self._agg_op is None:
+            raise TypeError("partial state of a fragment without an "
+                            "aggregate terminal")
+        self._partial = [None]
+        try:
+            for _ex in self.execute():
+                raise AssertionError("a partial run yields no batch")
+            return self._partial[0]
+        finally:
+            self._partial = None
+
+    #: one body serves both terminals; the name matches AggOp's
+    partial_scalar_state = partial_state
+
+    def _partial_wanted(self) -> bool:
+        return getattr(self, "_partial", None) is not None
+
+    def _keep_partial(self, carry, sizes, key_dicts) -> None:
+        """Partial mode's end of a fused run: the carry in
+        `AggOp.partial_state`'s layout, copied out of the graph's buffers
+        (`_carry_out`) before the execution releases the graph, which the
+        next shard of the statement replays."""
+        carry = self._carry_out(carry)
+        tracker = O._AggDictTracker(self._agg_op.node.aggs)
+        self._partial[0] = (
+            ("dense", self._grouped_partials(carry, sizes), key_dicts,
+             tracker) if self._terminal == "agg_grouped"
+            else (list(carry), tracker))
 
     def reset_execution(self) -> None:
         """Before a cached tree runs again (vm/compile.retarget_tree):
@@ -1152,6 +1209,12 @@ class FusedFragmentOp(O.Operator):
             return
         self._orig_bottom.child = replay
         try:
+            if self._partial_wanted():
+                agg = self._agg_op
+                self._partial[0] = (agg.partial_state()
+                                    if agg.node.group_keys
+                                    else agg.partial_scalar_state())
+                return
             yield from self._orig_top.execute()
         finally:
             self._orig_bottom.child = self.child
@@ -1171,7 +1234,7 @@ class FusedFragmentOp(O.Operator):
                       for i, e in self._dictdeps)
         return (self._plan_sig, rt_sig, colsig,
                 int(ex.mask.shape[0]), baked, dicts, sizes,
-                ENC.signature(ex.device), HK.signature(), ex.device.type)
+                ENC.signature(ex.device), HK.signature(), str(ex.device))
 
     def _audit_deps(self, envs, rt_lift, scan_filters, sizes_flags,
                     device):
@@ -1193,6 +1256,7 @@ class FusedFragmentOp(O.Operator):
             "lift_arity": len(self._lift_lits) + len(rt_lift),
             "sizes_flags": sizes_flags,
             "chain_shape": self.describe(),
+            "shard_ctx": self._shard_ctx(),
             # step-time dtype policy: bf16 lanes are applied inside the
             # step, invisible in the input dtypes
             "encoding_policy": (ENC.signature(device), HK.signature()),
@@ -1319,6 +1383,9 @@ class FusedFragmentOp(O.Operator):
                     src_iter.close()
                 break
         if self._terminal == "stream":
+            return
+        if self._partial_wanted():
+            self._keep_partial(carry, trace_sizes, key_dicts)
             return
         carry = self._carry_out(carry)
         if self._terminal == "topk":
@@ -1669,6 +1736,10 @@ class FusedFragmentOp(O.Operator):
         rewire = self._orig_bottom if self.stages else agg
         rewire.child = replay
         try:
+            if self._partial_wanted():
+                self._partial[0] = agg.partial_state(seed=seed,
+                                                     seed_dicts=key_dicts)
+                return
             yield from agg._grouped_agg(seed=seed, seed_dicts=key_dicts)
         finally:
             rewire.child = self.child

@@ -253,6 +253,11 @@ class FusedJoinProbeOp(FF.FusedFragmentOp):
             self._orig_bottom.child = join
         try:
             top = self._orig_top if self._orig_top is not None else join
+            if self._partial_wanted():
+                self._partial[0] = (top.partial_state()
+                                    if top.node.group_keys
+                                    else top.partial_scalar_state())
+                return
             yield from top.execute()
         finally:
             join.left, join.right = saved_l, saved_r
@@ -288,7 +293,7 @@ class FusedJoinProbeOp(FF.FusedFragmentOp):
                tuple(FF._dict_key(d) for d in self._bkey_dicts),
                tuple(FF._dict_key(FF._static_dict(e, self._build_dicts))
                      for _i, e in binfo.dictdep),
-               FF.ENC.signature(device), FF.HK.signature(), device.type)
+               FF.ENC.signature(device), FF.HK.signature(), str(device))
         entry = FF.CACHE.entry(key)
         if keyaudit.armed():
             keyaudit.audit("vm/fusion_join.py:joinbuild", key, {
@@ -374,7 +379,7 @@ class FusedJoinProbeOp(FF.FusedFragmentOp):
         return (self._plan_sig, colsig, int(ex.mask.shape[0]), baked,
                 dicts, sizes_flags, mm, build_key, keydicts,
                 FF.ENC.signature(ex.device), FF.HK.signature(),
-                ex.device.type)
+                str(ex.device))
 
     def _make_probe_step(self, trig_schema, bschema, sizes, flags, envs,
                          mm):
@@ -533,6 +538,9 @@ class FusedJoinProbeOp(FF.FusedFragmentOp):
                 break
         if self._terminal == "stream":
             return
+        if self._partial_wanted():
+            self._keep_partial(carry, trace_sizes, key_dicts)
+            return
         carry = self._carry_out(carry)
         if self._terminal == "topk":
             yield self._finalize_topk(carry)
@@ -560,6 +568,10 @@ class FusedJoinProbeOp(FF.FusedFragmentOp):
         saved_child = rewire.child
         rewire.child = join
         try:
+            if self._partial_wanted():
+                self._partial[0] = agg.partial_state(seed=seed,
+                                                     seed_dicts=key_dicts)
+                return
             yield from agg._grouped_agg(seed=seed, seed_dicts=key_dicts)
         finally:
             join.left, join.right = saved_l, saved_r

@@ -28,9 +28,13 @@ device tier (`storage/engine.resolve_chunk`) and, when a scan is cold,
 runs a read-ahead thread (`_ChunkPrefetcher`) that decodes the next
 chunks' columns into the host tier while the current chunk computes.
 
-Not ported yet (ROADMAP.md, section A): the aggregate's distributed
-`partial_state`, aggregate UDFs, materialized host arrays, and the
-scan's shard routing.
+The device-shard executor (`parallel/dist_query.py`) reads through the
+same scan: `shard=(s, n)` keeps every n-th chunk, `hash_shard=(col, s,
+n)` keeps the rows whose splitmix64(col) % n is s (`_hash_route`, on
+the card where the chunk is already there), and the aggregate hands
+back its partial state before finalizing (`AggOp.partial_state`,
+`partial_scalar_state`).  `MaterializedOp` feeds host arrays (a merged
+cross-shard result) back into a plan.
 """
 
 from __future__ import annotations
@@ -192,9 +196,6 @@ class ScanOp(Operator):
 
     def __init__(self, node: P.Scan, relation, ctx,
                  batch_rows: int = 1 << 20):
-        if node.shard is not None or node.hash_shard is not None:
-            raise NotImplementedError(
-                "sharded scans are not ported yet (ROADMAP.md, section A)")
         self.node = node
         self.rel = relation
         self.batch_rows = batch_rows
@@ -227,6 +228,21 @@ class ScanOp(Operator):
         if getattr(self.rel, "scan_is_cold", None) is not None:
             read_args = dict(read_args, device=device,
                              read_ahead=depth > 0)
+        shard = self.node.shard
+        hs = self.node.hash_shard
+        hs_aligned = False
+        if hs is not None:
+            # read-side hash exchange: a table hash-partitioned on the
+            # shuffle column with the same fan-out is read by segment
+            # (only_part) and no row moves; the row route below stays on
+            # for any segment without a part id
+            pspec = getattr(getattr(self.rel, "meta", None), "partition",
+                            None)
+            hs_aligned = (pspec is not None and pspec.kind == "hash"
+                          and pspec.column == hs[0]
+                          and pspec.n_parts == hs[2])
+            if hs_aligned:
+                read_args = dict(read_args, only_part=hs[1])
         chunks = self.rel.iter_chunks(
             self.node.columns, batch_rows, filters=filters,
             qualified_names=qnames, **read_args)
@@ -236,9 +252,20 @@ class ScanOp(Operator):
             chunks = iter(prefetcher)
         from matrixone_tpu_torch.storage.engine import resolve_chunk
         try:
-            for arrays, validity, dicts, n in chunks:
-                metrics.rows_scanned.inc(n, table=self.node.table)
+            for ci, (arrays, validity, dicts, n) in enumerate(chunks):
+                if shard is not None and ci % shard[1] != shard[0]:
+                    # a shard reads every n-th chunk of the same chunk
+                    # sequence (same snapshot, same filters, same pruning)
+                    continue
                 arrays, validity = resolve_chunk(arrays, validity, device)
+                if hs is not None:
+                    arrays, validity, n, moved = _hash_route(
+                        arrays, validity, n, hs, hs_aligned)
+                    if n == 0:
+                        continue
+                    if moved:
+                        metrics.exchange_shuffle_rows.inc(moved)
+                metrics.rows_scanned.inc(n, table=self.node.table)
                 ex = chunk_to_execbatch(arrays, validity, dicts, n,
                                         self.node.columns,
                                         self.node.schema, device)
@@ -252,6 +279,109 @@ class ScanOp(Operator):
         finally:
             if prefetcher is not None:
                 prefetcher.close()
+
+
+def _route_keep(key, valid, n_shards: int, idx: int):
+    """Rows shard `idx` owns: splitmix64(key) % n_shards == idx, NULL to
+    shard 0, as `storage.partition.assign_partitions` places them.  A
+    tensor key is routed where it lies (on the card: `ops/hash.py`'s
+    int64 bit patterns, reduced modulo n as unsigned); a numpy key by
+    the host library's hash."""
+    if isinstance(key, torch.Tensor):
+        from matrixone_tpu_torch.ops import hash as H
+        pid = H.unsigned_mod(H.splitmix64(key.to(torch.int64)), n_shards)
+        if valid is not None:
+            pid = torch.where(valid.to(torch.bool), pid,
+                              torch.zeros_like(pid))
+        return pid == idx
+    from matrixone_tpu_torch import native
+    key = np.asarray(key)
+    pid = (native.hash64(key.astype(np.int64))
+           % np.uint64(n_shards)).astype(np.int64)
+    if valid is not None:
+        pid = np.where(np.asarray(valid, bool), pid, 0)
+    return pid == idx
+
+
+def _hash_route(arrays, validity, n: int, hs, aligned: bool):
+    """Keep only the rows this shard owns under the hash exchange
+    `hash_shard=(column, idx, n_shards)` (`_route_keep`), so a
+    partitioned table and an implicit repartition agree on every row's
+    home.  -> (arrays, validity, n_kept, n_moved); n_moved counts the
+    rows that crossed the exchange (0 for a co-partitioned read, whose
+    segments were selected structurally)."""
+    col, idx, n_shards = hs
+    key = arrays.get(col)
+    if key is None:
+        raise EvalError(f"hash_shard column {col!r} not in scan columns")
+    kdt = key.dtype
+    integer = (not kdt.is_floating_point and not kdt.is_complex
+               and kdt != torch.bool) if isinstance(key, torch.Tensor) \
+        else np.issubdtype(np.asarray(key).dtype, np.integer)
+    if not integer:
+        raise EvalError(f"hash_shard column {col!r} must be int-backed, "
+                        f"got {kdt}")
+    keep = _route_keep(key, validity.get(col), n_shards, idx)
+    kept = int(keep.sum())
+    moved = 0 if aligned else kept
+    if kept == n:
+        return arrays, validity, n, moved
+
+    def take(a):
+        if a is None:
+            return None
+        if isinstance(a, torch.Tensor):
+            return a[torch.as_tensor(keep, device=a.device)]
+        return np.asarray(a)[keep.cpu().numpy()
+                             if isinstance(keep, torch.Tensor) else keep]
+
+    return ({c: take(a) for c, a in arrays.items()},
+            {c: take(v) for c, v in validity.items()}, kept, moved)
+
+
+class MaterializedOp(Operator):
+    """Host arrays as a plan input (P.Materialized): the merged cross-
+    shard result re-enters the local operator tree here."""
+
+    def __init__(self, node, ctx):
+        self.node = node
+        self.schema = node.schema
+        self.ctx = ctx
+
+    def execute(self) -> Iterator[ExecBatch]:
+        arrays, validity, dicts = {}, {}, {}
+        n = None
+        for name, dtype in self.node.schema:
+            a = self.node.arrays[name]
+            if dtype.is_varlen and name in self.node.dicts:
+                arrays[name] = np.asarray(a, np.int32)
+                dicts[name] = self.node.dicts[name]
+            elif dtype.is_varlen and isinstance(a, list):
+                d: List[str] = []
+                lut: Dict[str, int] = {}
+                codes = np.zeros(len(a), np.int32)
+                for i, s_ in enumerate(a):
+                    if s_ is None:
+                        continue
+                    code = lut.get(s_)
+                    if code is None:
+                        code = len(d)
+                        lut[s_] = code
+                        d.append(s_)
+                    codes[i] = code
+                arrays[name] = codes
+                dicts[name] = d
+            else:
+                arrays[name] = np.asarray(a)
+            v = self.node.validity.get(name)
+            validity[name] = (np.asarray(v, bool) if v is not None
+                              else np.ones(len(arrays[name]), np.bool_))
+            n = len(arrays[name])
+        if n is None or n == 0:
+            return
+        yield chunk_to_execbatch(arrays, validity, dicts, n,
+                                 [c for c, _ in self.node.schema],
+                                 self.node.schema, self.ctx.device)
 
 
 class ValuesOp(Operator):
@@ -898,6 +1028,79 @@ class AggOp(Operator):
             cols[name] = col
         db = DeviceBatch(columns=cols, n_rows=state["n"])
         return ExecBatch(batch=db, dicts=dicts, mask=state["present"])
+
+    # ---- cross-shard partials (parallel/dist_query.py shard executor)
+    def partial_state(self, seed=None, seed_dicts=None):
+        """The grouped accumulation loop stopped BEFORE finalize: the raw
+        partial group table for a cross-shard merge.  The dense fast
+        path stays live (its partials add across shards).  -> (kind,
+        payload, key_dicts, tracker):
+
+          kind "dense"   -> payload = the dense accumulator dict
+          kind "general" -> payload = the state dict (keys/kvalid/
+                            present/partials/n), max_groups rows
+          kind "empty"   -> payload None (this shard saw no rows)
+
+        Spill is off: a shard whose group table outgrows the device
+        budget raises ShardDegrade (the statement runs on one device,
+        where it may spill).  `seed`/`seed_dicts` continue a fused
+        fragment's partials that had to leave the dense path."""
+        nkeys = len(self.node.group_keys)
+        key_dicts: List[Optional[list]] = \
+            list(seed_dicts) if seed_dicts is not None else [None] * nkeys
+        tracker = _AggDictTracker(self.node.aggs)
+        state = seed
+        dense = None
+        dense_checked = seed is not None
+        for ex in self.child.execute():
+            tracker.observe(ex)
+            keys = [eval_expr(k, ex) for k in self.node.group_keys]
+            for i, k_ast in enumerate(self.node.group_keys):
+                d = _expr_dict(k_ast, ex)
+                if d is not None:
+                    key_dicts[i] = d
+            kdata = [_broadcast_full(k, ex.padded_len).data for k in keys]
+            kvalid = [_broadcast_full(k, ex.padded_len).validity
+                      for k in keys]
+            values = [None if (a.func == "count" and a.arg is None)
+                      else _agg_value(a, ex) for a in self.node.aggs]
+            if not dense_checked:
+                dense_checked = True
+                dense = self._dense_init(ex)
+            if dense is not None:
+                if self._dense_sizes(ex) == list(dense["sizes"]):
+                    self._dense_step(dense, kdata, kvalid, ex.mask, values)
+                    continue
+                state = self._dense_to_state(dense)
+                dense = None
+            metrics.agg_chunks.inc(path="general")
+            try:
+                part = self._partial_vals(kdata, kvalid, ex.mask, values,
+                                          allow_spill=True)
+                state = part if state is None else \
+                    self._merge(state, part, allow_spill=True)
+            except _NeedSpill:
+                from matrixone_tpu_torch.parallel.merge_exec import \
+                    ShardDegrade
+                raise ShardDegrade(
+                    f"a shard's group table outgrew the device budget "
+                    f"({self.max_device_groups} groups)") from None
+        if dense is not None:
+            return "dense", dense, key_dicts, tracker
+        if state is not None:
+            return "general", state, key_dicts, tracker
+        return "empty", None, key_dicts, tracker
+
+    def partial_scalar_state(self):
+        """Scalar (no GROUP BY) counterpart of partial_state: the per-
+        aggregate partial tuples and the string-dictionary tracker."""
+        states = [None] * len(self.node.aggs)
+        tracker = _AggDictTracker(self.node.aggs)
+        for ex in self.child.execute():
+            tracker.observe(ex)
+            for i, a in enumerate(self.node.aggs):
+                states[i] = _scalar_step_host(a, ex, states[i])
+        return states, tracker
 
 
 def _broadcast_full(col: DeviceColumn, n: int) -> DeviceColumn:

@@ -4,7 +4,10 @@ ivf_search.go + vectorindex/ivfflat/search.go).
 The port of `matrixone_tpu/vm/vector_scan.py`.  An IVF index is a
 dataclass of tensors on its device and the search is the port's batched
 `ivf_flat.search` / `ivf_pq.search` (the L2 kernel in the probe, the ADC
-kernel's list form in IVF-PQ's scoring); an HNSW index is a host graph
+kernel's list form in IVF-PQ's scoring); under `SET ivf_shards = N`
+(MO_IVF_SHARDS) an IVF-Flat search runs cluster-sharded over N slots
+of the mesh (`vectorindex/sharded.py`, the repack cached on the index's
+options); an HNSW index is a host graph
 walked on the host (`vectorindex/hnsw.search`, ef = max(64, 2k)).
 Candidate rows are fetched by row id on the host and re-enter the
 pipeline on the context's device; the exact re-rank is the Project's.  The operator is a source that syncs with the host
@@ -33,17 +36,31 @@ from matrixone_tpu_torch.vm.operators import Operator, chunk_to_execbatch
 
 def ivf_shards(variables, index) -> int:
     """The shard count a query asks for (`SET ivf_shards = N`, or the
-    MO_IVF_SHARDS default), cut to the devices and lists there are, as
-    the reference computes it."""
+    MO_IVF_SHARDS default), cut to the mesh's slots and the lists there
+    are, as the reference cuts it to its devices."""
+    from matrixone_tpu_torch.parallel import mesh as MS
     want = (variables or {}).get("ivf_shards",
                                  os.environ.get("MO_IVF_SHARDS", 0))
     try:
         want = int(want)
     except (TypeError, ValueError):
         return 0
-    dev = index.device
-    n_dev = torch.cuda.device_count() if dev.type == "cuda" else 1
-    return min(want, n_dev, index.nlist)
+    return min(want, len(MS.devices(index.device)), index.nlist)
+
+
+def sharded_view(ix, index, shards: int):
+    """The cluster-sharded repack of `index` over `shards` slots, cached
+    on the IndexMeta as (index, shards, sharded index): a refresh or a
+    recluster swaps `index_obj`, which invalidates it (the identity is
+    compared, not the id, so an id reused after a free cannot alias)."""
+    cached = ix.options.get("_sharded")
+    if cached is not None and cached[0] is index and cached[1] == shards:
+        return cached[2]
+    from matrixone_tpu_torch.parallel.mesh import make_mesh
+    from matrixone_tpu_torch.vectorindex import sharded as shmod
+    sidx = shmod.shard_ivf(index, make_mesh(shards, device=index.device))
+    ix.options["_sharded"] = (index, shards, sidx)
+    return sidx
 
 
 def delta_distances(ix, q: torch.Tensor, delta_vecs) -> np.ndarray:
@@ -78,18 +95,22 @@ class VectorTopKOp(Operator):
         """(gids, distances, query tensor) of the IVF-Flat / IVF-PQ
         search of the node's query on the index's device."""
         from matrixone_tpu_torch.vectorindex import ivf_flat, ivf_pq
-        if ivf_shards(self.ctx.variables, index) >= 2:
-            raise NotImplementedError(
-                "the sharded VectorTopK is not ported yet (ROADMAP.md, "
-                "section A, step 4)")
         q = torch.as_tensor(
             np.asarray([self.node.query_vector], dtype=np.float32),
             device=index.device)
         nprobe = min(self.node.nprobe, index.nlist)
         pool = nprobe * index.max_cluster_size
         k = min(self.node.k, index.n, pool) or 1
-        search_fn = ivf_pq.search if ix.algo == "ivfpq" else ivf_flat.search
-        dists, pos = search_fn(index, q, k=k, nprobe=nprobe)
+        shards = (ivf_shards(self.ctx.variables, index)
+                  if ix.algo == "ivfflat" else 0)
+        if shards >= 2:
+            from matrixone_tpu_torch.vectorindex import sharded as shmod
+            dists, pos = shmod.search_sharded(
+                sharded_view(ix, index, shards), q, k=k, nprobe=nprobe)
+        else:
+            search_fn = (ivf_pq.search if ix.algo == "ivfpq"
+                         else ivf_flat.search)
+            dists, pos = search_fn(index, q, k=k, nprobe=nprobe)
         main_d = dists[0].cpu().numpy()
         pos = pos[0].cpu().numpy()
         keep = pos >= 0

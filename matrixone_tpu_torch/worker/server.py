@@ -2,13 +2,15 @@
 
 Counterpart of `WorkerCore` in `matrixone_tpu/worker/server.py` (the
 cuvs_worker_t design: a persistent owner of device-resident indexes with
-dynamic batching of concurrent searches), in its single-device mode.
-The JAX package's replicated and sharded index modes, its `run_stage`
-operators and its gRPC transport are not ported yet.
+dynamic batching of concurrent searches), in its single, replicated and
+sharded index modes over the slots of the mesh (`parallel/mesh.py`).
+The JAX package's `run_stage` operators and its gRPC transport are not
+ported (the card machine has neither pyarrow nor grpc).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import threading
 import time
 from typing import Dict
@@ -150,19 +152,57 @@ class WorkerCore:
     def load_index(self, name: str, data: np.ndarray, nlist: int = 64,
                    metric: str = "l2", mode: str = "single") -> dict:
         """Build an IVF-Flat index of `data` on the worker's device and
-        keep it there under `name`, with the JAX worker's build settings
-        (nlist, metric, bf16 storage, capped balancing)."""
-        if mode != "single":
-            raise NotImplementedError(
-                f"index mode {mode!r}: only 'single' is ported")
+        serve it under `name` in `mode` (`serve_index`), with the JAX
+        worker's build settings (nlist, metric, bf16 storage, capped
+        balancing)."""
+        if mode not in ("single", "sharded", "replicated"):
+            raise ValueError(f"unknown index mode {mode!r}")
         idx = ivf_flat.build(np.asarray(data, np.float32),
                              nlist=max(1, min(nlist, len(data))),
                              metric=metric, storage_dtype=torch.bfloat16,
                              device=self.device)
+        return self.serve_index(name, idx, mode)
+
+    def serve_index(self, name: str, idx, mode: str = "single") -> dict:
+        """Serve a built IvfFlatIndex under `name`.  The modes are the
+        reference's (cuvs_worker_t single / replicated / sharded), over
+        the slots of the mesh (`parallel/mesh.devices`):
+
+          * "sharded": ONE index, its inverted lists cluster-sharded over
+            the slots (`vectorindex/sharded.py`); a search returns the
+            single index's candidates;
+          * "replicated": the index on every slot, searches taken round
+            robin (replicas on one card share the index's storage: `.to`
+            the same device is no copy).
+
+        With one slot, "sharded" serves the single index."""
+        from matrixone_tpu_torch.parallel import mesh as MS
+        slots = MS.devices(self.device)
+        if mode == "sharded":
+            from matrixone_tpu_torch.vectorindex import sharded as shmod
+            n_shards = max(1, min(len(slots), idx.nlist))
+            if n_shards > 1:
+                entry = {"mode": "sharded", "n": idx.n,
+                         "sharded": shmod.shard_ivf(
+                             idx, MS.Mesh(tuple(slots[:n_shards])))}
+            else:
+                entry = {"mode": "single", "index": idx, "n": idx.n}
+        elif mode == "replicated":
+            replicas = [dataclasses.replace(
+                idx, **{f.name: getattr(idx, f.name).to(d)
+                        for f in dataclasses.fields(idx)
+                        if isinstance(getattr(idx, f.name), torch.Tensor)})
+                for d in slots]
+            entry = {"mode": "replicated", "replicas": replicas,
+                     "rr": [0], "n": idx.n}
+        elif mode == "single":
+            entry = {"mode": "single", "index": idx, "n": idx.n}
+        else:
+            raise ValueError(f"unknown index mode {mode!r}")
         with self._lock:
-            self.indexes[name] = {"mode": "single", "index": idx,
-                                  "n": len(data)}
-        return {"ok": True, "n": len(data), "mode": mode, "devices": 1}
+            self.indexes[name] = entry
+        return {"ok": True, "n": idx.n, "mode": mode,
+                "devices": len(slots)}
 
     def search_index(self, name: str, queries: np.ndarray, k: int = 10,
                      nprobe: int = 8):
@@ -178,11 +218,23 @@ class WorkerCore:
             key, queries, lambda qs: self._search_all(entry, qs, k, nprobe))
 
     def _search_all(self, entry: dict, q: np.ndarray, k: int, nprobe: int):
-        idx = entry["index"]
+        q = np.asarray(q, np.float32)
+        if entry["mode"] == "sharded":
+            from matrixone_tpu_torch.vectorindex import sharded as shmod
+            idx = entry["sharded"]
+            search = shmod.search_sharded
+        else:
+            if entry["mode"] == "replicated":
+                with self._lock:
+                    r = entry["rr"][0]
+                    entry["rr"][0] = (r + 1) % len(entry["replicas"])
+                idx = entry["replicas"][r]
+            else:
+                idx = entry["index"]
+            search = ivf_flat.search
         np_ = min(nprobe, idx.nlist)
         kk = min(k, idx.n, np_ * idx.max_cluster_size) or 1
-        d, i = ivf_flat.search(idx, np.asarray(q, np.float32), k=kk,
-                               nprobe=np_)
+        d, i = search(idx, q, k=kk, nprobe=np_)
         return d.cpu().numpy(), i.cpu().numpy().astype(np.int64)
 
     def health(self) -> dict:

@@ -2442,3 +2442,106 @@ def test_segment_sum_over_poisoned_padding(cuda):
     assert got == want and probe.findings() == []
     assert CK.LAUNCHES.get("segment_sum") > 0
     s.close()
+
+
+# ------------------------------------------- device shards (slot mesh)
+
+def _shard_sessions(device):
+    """A session on `device` over `sh`: 8 inserts of 3072 rows, read in
+    1024-row batches, so each of 8 shards of the chunk round robin gets
+    three batches of one padded shape."""
+    from matrixone_tpu_torch.frontend import Session
+    s = Session(device=device)
+    s.execute("create table sh (id bigint, g varchar(4), v bigint,"
+              " x float)")
+    rng = np.random.default_rng(23)
+    for lo in range(0, 8 * 3072, 3072):
+        s.execute("insert into sh values " + ", ".join(
+            f"({i}, 'g{i % 5}', {i % 97}, {float(rng.standard_normal()):.6f})"
+            for i in range(lo, lo + 3072)))
+    s.execute("set batch_rows = 1024")
+    return s
+
+
+def _on_shards(s, n, sql):
+    s.execute(f"set query_shards = {n}")
+    s.execute("set dist_min_rows = 0")
+    try:
+        return s.execute(sql).rows()
+    finally:
+        s.execute("set query_shards = 0")
+
+
+def test_eight_shards_replay_one_graph_and_keep_their_partials(
+        fused_everywhere):
+    """8 shards run the same captured fragment one after another (the key
+    holds the exchange's shape and the device, not the shard index); each
+    shard's dense partial is the graph's carry, copied out of it before
+    the next shard replays it (`FusedFragmentOp._keep_partial`).  Without
+    that copy the merge would add shard 7's carry 8 times and the rows
+    would differ from the local ones."""
+    from matrixone_tpu_torch.parallel import simulated_slots
+    from matrixone_tpu_torch.utils import metrics as M
+    from matrixone_tpu_torch.vm import fusion
+    from matrixone_tpu_torch.vm import graphs as G
+    s = _shard_sessions("cuda")
+    sql = "select g, count(*), sum(v) from sh group by g order by g"
+    local = s.execute(sql).rows()
+    fusion.CACHE.clear()
+    with simulated_slots(8):
+        first = _on_shards(s, 8, sql)                # captures
+        replays = max(g.replays for e in fusion.CACHE._lru.snapshot()
+                      for g in G.entry_graphs(e))
+        c0 = M.fusion_graphs.get(event="capture")
+        d0 = M.exchange_partial_merge.get(kind="dense")
+        got = _on_shards(s, 8, sql)
+    assert first == got == local
+    # one graph took all 8 shards' 3 batches each (its capture's replay
+    # included); a graph per shard would hold 3 replays at most
+    assert replays == 8 * 3
+    assert M.fusion_graphs.get(event="capture") == c0
+    assert M.exchange_partial_merge.get(kind="dense") == d0 + 1
+
+
+def test_sharded_float_group_by_same_bits_on_five_runs(fused_everywhere):
+    """A general-path f32 GROUP BY at 8 shards (the segment-sum kernel in
+    every shard, one re-group merge): the same bits on 5 runs, within
+    5c's tolerance of the CPU session's sharded rows."""
+    from matrixone_tpu_torch.parallel import simulated_slots
+    sql = ("select id % 1000 k, sum(x), count(*) from sh group by k"
+           " order by k")
+    s = _shard_sessions("cuda")
+    before = CK.LAUNCHES.get("segment_sum")
+    with simulated_slots(8):
+        runs = [_on_shards(s, 8, sql) for _ in range(5)]
+        cpu = _on_shards(_shard_sessions("cpu"), 8, sql)
+    assert CK.LAUNCHES.get("segment_sum") - before >= 5 * 8 * 3
+    assert all(r == runs[0] for r in runs[1:])
+    assert [(r[0], r[2]) for r in runs[0]] == [(r[0], r[2]) for r in cpu]
+    np.testing.assert_allclose([r[1] for r in runs[0]],
+                               [r[1] for r in cpu], rtol=1e-4, atol=1e-3)
+
+
+def test_hash_route_on_the_card_equals_the_host(cuda):
+    """The scan's hash route on a chunk already on the card (the block
+    cache's device tier) keeps the rows the host route keeps: splitmix64
+    read unsigned, modulo the shard count, NULL to shard 0."""
+    from matrixone_tpu_torch.vm import operators as O
+    rng = np.random.default_rng(31)
+    n, shards = 1 << 16, 8
+    key = rng.integers(-2 ** 63, 2 ** 63 - 1, n, dtype=np.int64)
+    valid = rng.random(n) > 0.05
+    for s in range(shards):
+        host = O._route_keep(key, valid, shards, s)
+        dev = O._route_keep(torch.from_numpy(key).to(cuda),
+                            torch.from_numpy(valid).to(cuda), shards, s)
+        np.testing.assert_array_equal(dev.cpu().numpy(), host)
+    arrays = {"k": torch.from_numpy(key).to(cuda), "r": np.arange(n)}
+    validity = {"k": torch.from_numpy(valid).to(cuda),
+                "r": np.ones(n, bool)}
+    a2, _v2, kept, moved = O._hash_route(arrays, validity, n,
+                                         ("k", 5, shards), False)
+    want = np.flatnonzero(O._route_keep(key, valid, shards, 5))
+    assert kept == moved == len(want)
+    np.testing.assert_array_equal(a2["r"], want)
+    assert a2["k"].is_cuda

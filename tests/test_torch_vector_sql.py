@@ -703,26 +703,37 @@ def test_create_index_outcomes_equal_the_reference(sql):
     assert outs[0] == outs[1], outs
 
 
-def test_sharded_vector_topk_is_not_ported(monkeypatch):
+def test_sharded_vector_topk_answers_the_single_rows(monkeypatch):
+    """`SET ivf_shards = 2` under 8 slots answers the rows of
+    `ivf_shards = 0`; the mesh's slot count bounds the shards (one CPU is
+    one slot), not torch.cuda.device_count()."""
+    from matrixone_tpu_torch.parallel import simulated_slots
+
     class _Idx:
-        device = torch.device("cuda")
+        device = torch.device("cpu")
         nlist = 64
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
-    assert TVS.ivf_shards({"ivf_shards": 4}, _Idx()) == 4
-    assert TVS.ivf_shards({"ivf_shards": 1}, _Idx()) == 1
-    assert TVS.ivf_shards({}, _Idx()) == 0
-    monkeypatch.setenv("MO_IVF_SHARDS", "2")
+    assert TVS.ivf_shards({"ivf_shards": 4}, _Idx()) == 1
+    with simulated_slots(8):
+        assert TVS.ivf_shards({"ivf_shards": 4}, _Idx()) == 4
+        assert TVS.ivf_shards({"ivf_shards": 9}, _Idx()) == 8
+        assert TVS.ivf_shards({"ivf_shards": 1}, _Idx()) == 1
+        assert TVS.ivf_shards({}, _Idx()) == 0
     t = TSession(device="cpu")
     t.execute("create table s (id bigint, emb vecf32(4))")
-    t.execute("insert into s values (1, '[1,0,0,0]'), (2, '[0,1,0,0]')")
-    t.execute("create index si using ivfflat on s (emb) lists = 2")
-    # the CPU is one device: the single-device path
-    assert len(t.execute("select id, l2_distance(emb, '[1,0,0,0]') d "
-                         "from s order by d limit 1").rows()) == 1
-    monkeypatch.setattr(TVS, "ivf_shards", lambda v, i: 2)
-    with pytest.raises(NotImplementedError, match="step 4"):
-        t.execute("select id, l2_distance(emb, '[1,0,0,0]') d from s "
-                  "order by d limit 1")
+    rng = np.random.default_rng(9)
+    t.execute("insert into s values " + ", ".join(
+        f"({i}, '[{','.join(f'{x:.4f}' for x in rng.normal(size=4))}]')"
+        for i in range(60)))
+    t.execute("create index si using ivfflat on s (emb) lists = 4")
+    sql = ("select id, l2_distance(emb, '[0.1,0.2,0,0.3]') d from s "
+           "order by d limit 5")
+    want = t.execute(sql).rows()
+    assert "_sharded" not in t.catalog.indexes["si"].options
+    t.execute("set ivf_shards = 2")
+    with simulated_slots(8):
+        assert t.execute(sql).rows() == want
+    assert t.catalog.indexes["si"].options["_sharded"][1] == 2
 
 
 def test_drop_table_drops_its_indexes_and_cache_entries():

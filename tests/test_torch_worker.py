@@ -13,6 +13,17 @@ from matrixone_tpu_torch.vectorindex.recall import recall_at_k
 from matrixone_tpu_torch.worker import WorkerCore
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The suite runs six test processes at once (xdist): torch's own
+    thread pool in each would oversubscribe the cores, and these tests'
+    many small ops per shard are what it slows most."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _data(seed, n, d):
     rng = np.random.default_rng(seed)
     centers = rng.standard_normal((40, d)).astype(np.float32) * 3.0
@@ -39,8 +50,62 @@ def test_index_lifecycle(worker):
     assert worker.health()["indexes"] == ["ix1"]
     with pytest.raises(KeyError):
         worker.search_index("missing_index", np.zeros((1, 24), np.float32))
-    with pytest.raises(NotImplementedError):
-        worker.load_index("ix_sharded", data, nlist=8, mode="sharded")
+    with pytest.raises(ValueError, match="unknown index mode"):
+        worker.load_index("ix_bad", data, nlist=8, mode="striped")
+
+
+def test_sharded_and_replicated_modes(worker):
+    """tests/test_worker.py's modes over 8 slots: each answers a self
+    query with itself; one slot serves the single index."""
+    from matrixone_tpu_torch.parallel import simulated_slots
+    rng = np.random.default_rng(6)
+    data = rng.normal(size=(1200, 8)).astype(np.float32)
+    q = data[17:18]
+    with simulated_slots(8):
+        for mode in ("sharded", "replicated"):
+            r = worker.load_index(f"ix_{mode}", data, nlist=8, mode=mode)
+            assert r["mode"] == mode and r["devices"] == 8
+            _d, ids = worker.search_index(f"ix_{mode}", q, k=3, nprobe=8)
+            assert int(ids[0][0]) == 17, (mode, ids[0])
+        assert worker.indexes["ix_sharded"]["sharded"].n_shards == 8
+        assert len(worker.indexes["ix_replicated"]["replicas"]) == 8
+    worker.load_index("ix_one", data, nlist=8, mode="sharded")
+    assert worker.indexes["ix_one"]["mode"] == "single"
+
+
+def test_sharded_mode_recall_parity(worker):
+    """Sharded recall@10 at the single index's nprobe budget matches or
+    beats the single index's (tests/test_worker.py's bar), and is the
+    JAX worker's sharded recall on the same data within 0.02 (each
+    worker builds with its own settings, as in
+    test_recall_matches_reference_worker)."""
+    from matrixone_tpu_torch.parallel import simulated_slots
+    rng = np.random.default_rng(11)
+    centers = rng.normal(size=(64, 16)).astype(np.float32) * 3.0
+    labels = rng.integers(0, 64, 6000)
+    data = (centers[labels]
+            + rng.normal(size=(6000, 16)).astype(np.float32) * 0.4)
+    queries = (centers[rng.integers(0, 64, 100)]
+               + rng.normal(size=(100, 16)).astype(np.float32) * 0.4)
+    truth = np.argsort(((queries[:, None, :] - data[None, :, :]) ** 2
+                        ).sum(-1), axis=1)[:, :10]
+    with simulated_slots(8):
+        worker.load_index("rp_single", data, nlist=32, mode="single")
+        worker.load_index("rp_shard", data, nlist=32, mode="sharded")
+        r_single = recall_at_k(
+            worker.search_index("rp_single", queries, k=10, nprobe=8)[1],
+            truth)
+        r_shard = recall_at_k(
+            worker.search_index("rp_shard", queries, k=10, nprobe=8)[1],
+            truth)
+    jw = JaxWorkerCore()
+    jw.load_index("rp_shard", data, nlist=32, mode="sharded")
+    assert jw.indexes["rp_shard"]["mode"] == "sharded"
+    r_jax = recall_at_k(
+        jw.search_index("rp_shard", queries, k=10, nprobe=8)[1], truth)
+    assert r_single > 0.8, r_single
+    assert r_shard >= r_single - 0.01, (r_shard, r_single)
+    assert r_shard >= r_jax - 0.02, (r_shard, r_jax)
 
 
 def test_empty_queries(worker):
