@@ -253,12 +253,13 @@ Phases, each of which raises on failure:
     a. `create index ... using ivfflat` (seconds, the index's bytes in
        the `IndexCache`); the plan holds VectorTopK and no Scan; a
        counted pass and a timed pass of the 64 statements (the busy
-       share from a trace of 8 more): each query's VectorTopK candidates (20 x the
-       planner's overfetch of 3) equal to the exact top over its 8
-       probed lists scored in f64 from what the index stores
-       (`probed_truth_stored`; rows within the L2 kernel's error bound
-       of the cut may swap), and its rows equal, ids and distances, to
-       an f64 re-rank of its candidates, in both passes; recall@20
+       share from a trace of 4 more): each query's VectorTopK
+       candidates (20 x the planner's overfetch of 3) equal to the
+       exact top over its 8 probed lists scored in f64 from what the
+       index stores (`probed_truth_stored`; rows within the L2
+       kernel's error bound of the cut may swap), and its rows equal,
+       ids and distances, to an f64 re-rank of its candidates, in both
+       passes; recall@20
        against the exact scan of the same session (a transaction: the
        planner skips the index); three warm runs capture no graph;
     b. upkeep: 100 rows inserted near a centre are served from the
@@ -301,9 +302,10 @@ Phases, each of which raises on failure:
        within rtol 1e-5 of the oracle's score at their rank may swap),
        scores within rtol 1e-5; p50/p99, busy share;
     c. 1,000 documents with a term new to the corpus inserted: the next
-       statement rebuilds the index and finds them; deleted, they are
-       gone; the index evicted under a small budget frees >= 90% of its
-       bytes and the next statement rebuilds it to the same rows;
+       statement rebuilds the index and finds them; deleted, and the
+       index evicted under a small budget, it frees >= 90% of its bytes,
+       the next statement rebuilds it to 14b's rows and the deleted
+       documents are gone (one rebuild for both: a cut, PERF.md);
     d. `select id, llm_embed(txt)` over 100,000 rows holding 512 distinct
        texts against a loopback endpoint served from a thread of this
        script: exactly 512 calls, every row the endpoint's vector for
@@ -394,6 +396,35 @@ Phases, each of which raises on failure:
        by o_custkey at 8: exchange=local, 0 rows shuffled, the local rows;
     c. Q5, Q9 and Q18 at 8 over phase 10's tables: the local rows (as a
        multiset; whether their order matched is recorded).
+
+18. host peers (`parallel/fragments.py` over `cluster/`), after phase
+    17, default knobs (fused):
+    a. PEERS (4) `FragmentServer`s in this process over phase 10's SF1
+       engine with phase 5's v loaded beside it, `dist_min_rows` 0 and
+       `dist_batch_rows` PEER_BATCH_ROWS (262,144: 5-6 of lineitem's
+       chunks a peer): TPC-H Q1, Q3, Q6, Q10, Q18 (the JAX package's
+       distributed set), 5c's f32 GROUP BY and lineitem joined to orders
+       as a shuffle join.  The peers' rows equal the local run's (Q1's
+       decimals also exact to an int64 oracle; 5c within rtol 1e-4 /
+       atol 1e-3 of the local run and of f64; the shuffle join as a
+       multiset); 4 fragments for each distributed aggregate or top-k
+       (Q18: 8), 12 for the shuffle; every sorted search and segment sum
+       the peers launched held against its plain version (graph replays
+       included, `PathInputs` in `every` on every peer's thread);
+       seconds local and on the peers, bytes on the fabric, rows pushed,
+       graph captures and spares recorded;
+    b. one peer stopped: the next statement runs locally, the same rows;
+    c. a `TNService` and two `RemoteCatalog` CNs in this process on a
+       LocalFS directory: TPC-H at SF 0.1 loaded through CN 1 (rows/s;
+       the same tables as 6b's), the 22 on CN 2 against sqlite3's
+       answers from 6b, RF1 and RF2 through CN 1 with Q1 and Q3 on CN 2
+       after each against a copy of 6b's sqlite3 database, a view of
+       Q1 made through CN 1 and maintained by the TN read fresh on CN 2
+       after RF1, Q3 and Q18 on both CNs' fragment servers equal to CN
+       2's local rows (every launch there held against its plain
+       version, as in a), and the logtail's lag from a commit to CN 2's
+       applied position (p50/p99);
+       every thread of the services joined at their stop.
 
 The second-to-last line of output is the kernels' JSON record and the
 last is {"ok": true, "device": {...}}.  Without CUDA, or outside a
@@ -1762,8 +1793,10 @@ class PathInputs:
         self.torch, self.TK, self.mode = torch, TK, mode
         self.search, self.segsum = {}, {}
         self.search_all, self.segsum_all = [], []
-        #: the graph being captured (None where captures are not tracked)
-        self._capturing, self._in_graph = [None], {}
+        #: the graph each thread is capturing (host peers capture on
+        #: their handler threads at once; a capture is serialized, but
+        #: its push and pop here are not)
+        self._capturing, self._in_graph = {}, {}
 
     @property
     def seen(self) -> list:
@@ -1776,9 +1809,12 @@ class PathInputs:
         stay known, so their later replays are held."""
         self.search_all, self.segsum_all = [], []
 
+    def _stack(self) -> list:
+        return self._capturing.setdefault(threading.get_ident(), [None])
+
     def _keep(self, kind: str, tensors: tuple, extra: tuple) -> None:
         if self.torch.cuda.is_current_stream_capturing():
-            self._in_graph.setdefault(self._capturing[-1], []).append(
+            self._in_graph.setdefault(self._stack()[-1], []).append(
                 (kind, tensors, extra))
         elif self.mode == "every":
             held = self.search_all if kind == "search" else self.segsum_all
@@ -1826,11 +1862,11 @@ class PathInputs:
             spy = self
 
             def capture(graph, flat, spec):
-                spy._capturing.append(graph)
+                spy._stack().append(graph)
                 try:
                     return real_capture(graph, flat, spec)
                 finally:
-                    spy._capturing.pop()
+                    spy._stack().pop()
 
             def count_replay(graph):
                 real_count(graph)
@@ -2328,6 +2364,9 @@ def dense_lanes_check(torch, n: int, seed: int) -> dict:
 #: oracle loads about 10x longer, and Q16 and Q21 raise (DISTINCT's group
 #: cap, the join's build budget; PERF.md section 4)
 TPCH_SF = 0.1
+#: sqlite3's answers to the 22 over 6b's tables before any refresh, by
+#: query: 9c and 18c compare with them instead of asking sqlite3 again
+SQLITE_SF01: dict = {}
 
 
 def phase_tpch(torch, CK, args, sf1) -> tuple:
@@ -2390,6 +2429,7 @@ def phase_tpch(torch, CK, args, sf1) -> tuple:
         want = tpch_full.normalize_rows(
             conn.execute(tpch_full.to_sqlite_sql(sql)).fetchall())
         sqlite_q = time.perf_counter() - t0
+        SQLITE_SF01[q] = want
 
         def check(rows, _batch, q=q, want=want):
             if not tpch_full.rows_match(tpch_full.normalize_rows(rows),
@@ -3547,15 +3587,14 @@ def phase_fusion(torch, CK, args, sf1, sf01, earlier) -> tuple:
             raise AssertionError(f"{key}: not fused: {report[key]['warm']}")
 
     # 9c: the 22 at SF 0.1 on 6b's tables, fused, against sqlite3 and 6b
-    perop_sess, conn, _tables = sf01
+    perop_sess = sf01[0]
     fsess01 = Session(catalog=perop_sess.catalog, device="cuda")
     rows_of = {t: perop_sess.catalog.get_table(t).n_rows
                for t in perop_sess.catalog.tables}
     q22 = {}
     for q in sorted(tpch_full.QUERIES):
         sql = tpch_full.QUERIES[q]
-        want = tpch_full.normalize_rows(
-            conn.execute(tpch_full.to_sqlite_sql(sql)).fetchall())
+        want = SQLITE_SF01[q]
         perop_rows = tpch_full.normalize_rows(perop_sess.execute(sql).rows())
 
         def check(rows, _batch, q=q, want=want, perop_rows=perop_rows):
@@ -4678,9 +4717,11 @@ def phase_serving(torch, CK, eng, lineitem, q3data, v, seed: int) -> tuple:
 #: 13a/13c's queries a pass, and how many of them the exact scan (the
 #: same session's plan without the index, about 0.5 s a statement at
 #: 1M x 768) answers for recall: cut to half to keep phase 13 near 150 s,
-#: and to a quarter for phase 17's time (PERF.md section 4)
+#: to a quarter for phase 17's time and to an eighth for phase 18's
+#: (PERF.md section 4); and how many statements the traced run holds
 VSQL_QUERIES = 64
-VSQL_EXACT_QUERIES = 16
+VSQL_EXACT_QUERIES = 8
+VSQL_TRACED = 4
 VSQL_LISTS = 1024
 #: sql/optimize.apply_indices' overfetch (x 3 again for IVF-PQ)
 VSQL_OVERFETCH = 3
@@ -4879,12 +4920,12 @@ def vsql_index_pass(torch, CK, TK, label: str, session, table: str, ix,
         raise AssertionError(f"{label}: the search ran the ADC kernel's "
                              f"dense form")
     timed, _, secs = knn_pass(torch, session, table, q_np)
-    # the busy share from a trace of the first 8 statements: tracing all
-    # 64 costs seconds of the profiler's own host work
+    # the busy share from a trace of the first VSQL_TRACED statements:
+    # tracing all 64 costs seconds of the profiler's own host work
     t0 = time.perf_counter()
     prof = profile_run(torch, lambda: knn_pass(torch, session, table,
-                                               q_np[:8]),
-                       f"{label}, 8 statements")
+                                               q_np[:VSQL_TRACED]),
+                       f"{label}, {VSQL_TRACED} statements")
     prof_s = time.perf_counter() - t0
     k_cand = len(cands[0])
     t0 = time.perf_counter()
@@ -4909,7 +4950,8 @@ def vsql_index_pass(torch, CK, TK, label: str, session, table: str, ix,
     log(f"[{label}] {len(q_np)} statements: candidates {k_cand} equal to "
         f"the oracle's ({swaps} tie swaps), rows equal to the f64 re-rank "
         f"(twice); {out['ms_per_query']:.2f} ms a statement, busy "
-        f"{prof['device_busy_share']:.1%} (8 statements traced in "
+        f"{prof['device_busy_share']:.1%} ({VSQL_TRACED} statements traced "
+        f"in "
         f"{prof_s:.1f}s); the oracle {oracle_s:.1f}s, the checks "
         f"{out['check_seconds']:.1f}s")
     return out, rows, cands, cap
@@ -5538,14 +5580,9 @@ def phase_fulltext_sql(torch, CK, args, dev: str) -> tuple:
                   bm25_oracle(ft_host(rebuilt), FT_NEW_TERM),
                   lambda pos: np.asarray(ix.options["_row_gids"])[pos])
     del index, rebuilt
+    # deleted, then evicted under a small budget: one rebuild serves both
+    # checks (the next statement's), not one each
     sess.execute(f"delete from docs where id >= {n}")
-    t0 = time.perf_counter()
-    got = sess.execute(match_sql(FT_NEW_TERM)).rows()
-    torch.cuda.synchronize()
-    c["after_delete_statement_seconds"] = time.perf_counter() - t0
-    if {r[0] for r in got} & new_ids or any(r[1] != 0 for r in got):
-        raise AssertionError("14c: deleted documents are still found")
-    # eviction under a small budget frees the postings' card memory
     idx_bytes = index_nbytes(ix.index_obj)
     gc.collect()
     mem0 = torch.cuda.memory_allocated()
@@ -5572,14 +5609,20 @@ def phase_fulltext_sql(torch, CK, args, dev: str) -> tuple:
             [r[0] for r in rows[0]]:
         raise AssertionError("14c: the evicted index was not rebuilt to "
                              "the same answer")
+    t0 = time.perf_counter()
+    got = sess.execute(match_sql(FT_NEW_TERM)).rows()
+    torch.cuda.synchronize()
+    c["after_delete_statement_seconds"] = time.perf_counter() - t0
+    if {r[0] for r in got} & new_ids or any(r[1] != 0 for r in got):
+        raise AssertionError("14c: deleted documents are still found")
     c["seconds"] = time.perf_counter() - t_sub
     log(f"[14c] {FT_NEW_DOCS} documents with a new term inserted "
         f"({c['insert_seconds']:.2f}s) found by the lazy rebuild "
         f"({c['rebuild_statement_seconds']:.2f}s with the statement); "
-        f"deleted: gone ({c['after_delete_statement_seconds']:.2f}s); "
-        f"eviction freed {(mem0 - mem1) / 1e6:.1f} of {idx_bytes / 1e6:.1f} "
-        f"MB, rebuilt by the next statement "
-        f"({c['rebuild_after_eviction_seconds']:.2f}s); 14c "
+        f"deleted, then evicted: freed {(mem0 - mem1) / 1e6:.1f} of "
+        f"{idx_bytes / 1e6:.1f} MB, rebuilt by the next statement "
+        f"({c['rebuild_after_eviction_seconds']:.2f}s), the deleted "
+        f"gone ({c['after_delete_statement_seconds']:.2f}s); 14c "
         f"{c['seconds']:.1f}s")
     sess.execute("drop table small")
     sess.execute("drop table docs")
@@ -6801,6 +6844,414 @@ def sharded_once(session, sql: str, n: int):
         return session.execute(sql).rows()
 
 
+# --------------------------------------------------- phase 18: host peers
+
+#: 18a: fragment servers in this process over phase 10's SF1 engine
+PEERS = 4
+#: 18a: the peers' scan batch: lineitem's 6M rows in 23 chunks, 5-6 a
+#: peer
+PEER_BATCH_ROWS = 262_144
+#: 18a: the JAX package's distributed TPC-H set
+#: (`tests/test_distributed_scopes.py:151`) and the fragments each runs
+#: on PEERS peers: one a peer for each distributed aggregate or top-k
+#: (Q18's IN subquery is a second one); Q10's count is recorded
+PEER_TPCH = (1, 3, 6, 10, 18)
+PEER_FRAGS = {1: PEERS, 3: PEERS, 6: PEERS, 18: 2 * PEERS}
+#: 18a: phase 17's lineitem-orders join with no aggregate above it, so
+#: the host peers run it as a shuffle join (2 x PEERS scans, PEERS
+#: joins); the filter keeps its result near 240,000 rows
+PEER_SHUFFLE_SQL = ("select l_orderkey, l_quantity, o_orderpriority "
+                    "from lineitem join orders on l_orderkey = o_orderkey "
+                    "where l_quantity <= 2")
+#: 18c: single-row commits through CN 1 timed to CN 2's logtail
+LOGTAIL_COMMITS = 50
+
+
+def peer_counts(servers) -> dict:
+    """The host-peer counters so far: fragments run, fabric bytes, rows
+    pushed, graph captures and spares (`utils/metrics.py`)."""
+    from matrixone_tpu_torch.utils import metrics as M
+    return {"frags_run": sum(f.frags_run for f in servers),
+            "result_bytes": M.fragment_wire_bytes.get(kind="result"),
+            "shuffle_bytes": M.fragment_wire_bytes.get(kind="shuffle"),
+            "pushed_rows": M.fragment_pushed_rows.get(),
+            "graph_captures": M.fusion_graphs.get(event="capture"),
+            "graph_spares": M.fusion_graphs.get(event="spare")}
+
+
+def q1_oracle_strings(li) -> dict:
+    """`q1_oracle_int64` over `tpch_full`'s lineitem, whose flag and
+    status are strings."""
+    from matrixone_tpu_torch.utils import tpch_full
+    sel = li["l_shipdate"] <= tpch_full._days(1998, 12, 1) - 90
+    flag = np.asarray(li["l_returnflag"][sel], dtype="U1")
+    status = np.asarray(li["l_linestatus"][sel], dtype="U1")
+    q, p, d, t = (li[c][sel].astype(np.int64) for c in (
+        "l_quantity", "l_extendedprice", "l_discount", "l_tax"))
+    disc_price = p * (100 - d)
+    charge = disc_price * (100 + t)
+    out = {}
+    for f in np.unique(flag):
+        for st in np.unique(status):
+            m = (flag == f) & (status == st)
+            n = int(m.sum())
+            if not n:
+                continue
+            sq, sp, sd = int(q[m].sum()), int(p[m].sum()), int(d[m].sum())
+            out[(str(f), str(st))] = {
+                "sum_qty": sq, "sum_base_price": sp,
+                "sum_disc_price": int(disc_price[m].sum()),
+                "sum_charge": int(charge[m].sum()),
+                "avg_qty": sq / n / 100, "avg_price": sp / n / 100,
+                "avg_disc": sd / n / 100, "count_order": n}
+    return out
+
+
+def peer_run(torch, CK, TK, label: str, local, dist, servers, sql: str,
+             same, frags=None, timed: bool = False) -> tuple:
+    """`sql` locally (its rows, a warm run's seconds) and on the host
+    peers: one counted run with every sorted search and segment sum
+    captured (`PathInputs` in `every`, graph replays included, on every
+    peer's thread), its fragments, fabric bytes, rows pushed, graph
+    captures and spares counted, its rows held to the local rows by
+    `same(rows, local_rows, batch)`, each launch held against its plain
+    version (`hold_launches`); then a warm run's seconds.  `frags`: the
+    fragments it must run (None: recorded).  -> (record, sorted-search
+    rows, segment-sum rows)."""
+    from matrixone_tpu_torch.vm import fusion
+    want = local.execute(sql).rows()
+    local_s = run_sql(torch, local, sql)[2]
+    fusion.CACHE.clear()
+    c0 = peer_counts(servers)
+    CK.LAUNCHES.reset()
+    with PathInputs(torch, TK, "every") as cap:
+        rows, batch, secs = run_sql(torch, dist, sql)
+    launches = kernel_launches(CK, label, ("sorted_search", "segment_sum",
+                                           "l2_distance_sq"))
+    moved = {k: v - c0[k] for k, v in peer_counts(servers).items()}
+    same(rows, want, batch)
+    if frags is not None and moved["frags_run"] != frags:
+        raise AssertionError(f"{label}: {moved['frags_run']} fragments "
+                             f"ran on the peers, not {frags}")
+    search, segsum, held = hold_launches(torch, CK, cap, label, launches,
+                                         timed=timed)
+    del cap
+    warm = run_sql(torch, dist, sql)[2]
+    rec = {"rows": len(rows), "local_warm_seconds": local_s,
+           "counted_seconds": secs, "warm_seconds": warm, **moved,
+           "launches": launches, "held": held}
+    log(f"[{label}] {len(rows)} rows = local; {moved['frags_run']} "
+        f"fragments, {moved['result_bytes'] / 1e6:.2f} MB back, "
+        f"{moved['shuffle_bytes'] / 1e6:.2f} MB and "
+        f"{moved['pushed_rows']:.0f} rows pushed, "
+        f"{moved['graph_captures']:.0f} captures "
+        f"({moved['graph_spares']:.0f} spares); warm local "
+        f"{local_s:.3f}s, peers {warm:.3f}s")
+    return rec, search, segsum
+
+
+def phase_host_peers(torch, CK, args, v, full) -> tuple:
+    """Phase 18a/18b: PEERS fragment servers in this process over phase
+    10's SF1 engine (`full`: (engine, generator arrays)) with phase 5's
+    v loaded beside it, default knobs (fused): the JAX package's
+    distributed TPC-H set, 5c's f32 GROUP BY and the lineitem-orders
+    shuffle join on the peers against the local runs; then one peer
+    stopped.  -> (report, sorted-search rows, segment-sum rows)."""
+    from matrixone_tpu_torch.cluster import FragmentServer
+    from matrixone_tpu_torch.container import dtypes as dt
+    from matrixone_tpu_torch.frontend import Session
+    from matrixone_tpu_torch.ops import kernels as TK
+    from matrixone_tpu_torch.parallel import fragments as FR
+    from matrixone_tpu_torch.storage.engine import TableMeta
+    from matrixone_tpu_torch.utils import metrics as M
+    from matrixone_tpu_torch.utils import tpch_full
+
+    eng, tables = full
+    t_phase = time.perf_counter()
+    report, search_rows, segsum_rows = {}, [], []
+    t0 = time.perf_counter()
+    eng.create_table(TableMeta("v", [("id", dt.INT64), ("grp", dt.INT64),
+                                     ("xi", dt.FLOAT32),
+                                     ("xn", dt.FLOAT32)], ["id"]))
+    eng.get_table("v").insert_numpy(v)
+    report["18_load_v_seconds"] = time.perf_counter() - t0
+    servers = [FragmentServer(eng, device="cuda").start()
+               for _ in range(PEERS)]
+    try:
+        eng.dist_peers = [f.addr for f in servers]
+        local = Session(catalog=eng, device="cuda")
+        local.execute("set dist = 0")
+        dist = Session(catalog=eng, device="cuda")
+        dist.execute("set dist_min_rows = 0")
+        dist.execute(f"set dist_batch_rows = {PEER_BATCH_ROWS}")
+
+        def add(key, out):
+            rec, s_rows, g_rows = out
+            report[key] = rec
+            search_rows.extend(s_rows)
+            segsum_rows.extend(g_rows)
+
+        q1_want = q1_oracle_strings(tables["lineitem"])
+        for q in PEER_TPCH:
+            label = f"18a Q{q}"
+
+            def same(rows, want, batch, q=q, label=label):
+                if rows != want:
+                    raise AssertionError(f"{label}: the peers' rows differ "
+                                         f"from the local rows: "
+                                         f"{rows[:2]} vs {want[:2]}")
+                if q == 1:
+                    bad = q1_exact(batch, q1_want)
+                    if bad:
+                        raise AssertionError(f"{label}: the decimals "
+                                             f"differ from the int64 "
+                                             f"oracle: {bad[:4]}")
+            add(f"18a_q{q}", peer_run(
+                torch, CK, TK, label, local, dist, servers,
+                tpch_full.QUERIES[q], same, frags=PEER_FRAGS.get(q),
+                timed=q == 3))
+        if report["18a_q10"]["frags_run"] not in (0, PEERS):
+            raise AssertionError("18a Q10: a fragment count of neither "
+                                 "a local run nor one a peer")
+        errs = {}
+        gb_check = group_by_check(v, errs, "18a 5c")
+
+        def gb_same(rows, want, _batch):
+            gb_check(rows, None)
+            if not rows_agree(rows, want):
+                raise AssertionError("18a 5c: the peers' sums differ from "
+                                     "the local ones past rtol 1e-4 / atol "
+                                     "1e-3")
+        add("18a_group_by", peer_run(torch, CK, TK, "18a 5c GROUP BY",
+                                     local, dist, servers, GROUP_BY_SQL,
+                                     gb_same, frags=PEERS, timed=True))
+        report["18a_group_by"]["errors"] = errs
+
+        def multiset(rows, want, _batch):
+            if sorted(rows) != sorted(want):
+                raise AssertionError("18a shuffle join: the peers' rows "
+                                     "differ from the local rows as "
+                                     "multisets")
+        add("18a_shuffle_join", peer_run(
+            torch, CK, TK, "18a shuffle join", local, dist, servers,
+            PEER_SHUFFLE_SQL, multiset, frags=3 * PEERS, timed=True))
+        if not report["18a_shuffle_join"]["pushed_rows"]:
+            raise AssertionError("18a shuffle join: no row was pushed to "
+                                 "another peer")
+        # 18b: a stopped peer: the next statement runs locally, same rows
+        sql = tpch_full.QUERIES[6]
+        want = local.execute(sql).rows()
+        stopped = servers[-1].stop()
+        errs0 = M.rpc_errors.get(kind="transport", op="run_fragment")
+        rows, _b, secs = run_sql(torch, dist, sql)
+        if rows != want:
+            raise AssertionError("18b: with a peer stopped the rows differ "
+                                 "from the local rows")
+        transport = M.rpc_errors.get(kind="transport",
+                                     op="run_fragment") - errs0
+        if not transport:
+            raise AssertionError("18b: the stopped peer was never tried")
+        # the shuffle join too: the live peers' pushes to the stopped
+        # one fail inside them, and that degrades as well
+        want = local.execute(PEER_SHUFFLE_SQL).rows()
+
+        def fabric_errors():
+            return sum(M.rpc_errors.get(kind=k, op=op)
+                       for k in ("transport", "breaker")
+                       for op in ("run_fragment", "shuffle_put"))
+        errs0 = fabric_errors()
+        j_rows, _b, j_secs = run_sql(torch, dist, PEER_SHUFFLE_SQL)
+        if sorted(j_rows) != sorted(want):
+            raise AssertionError("18b: with a peer stopped the shuffle "
+                                 "join's rows differ from the local rows "
+                                 "as multisets")
+        j_errs = fabric_errors() - errs0
+        if not j_errs:
+            raise AssertionError("18b: the shuffle join never tried the "
+                                 "stopped peer")
+        if FR.shuffle_store_for(eng)._buckets:
+            raise AssertionError("18b: a peer kept buckets of the failed "
+                                 "shuffle")
+        report["18b_stopped_peer"] = {
+            "seconds": secs, "rows": len(rows),
+            "transport_errors": transport, "left_threads": stopped,
+            "shuffle_join_seconds": j_secs,
+            "shuffle_join_rows": len(j_rows),
+            "shuffle_join_fabric_errors": j_errs}
+        log(f"[18b] one of {PEERS} peers stopped: Q6 ran locally in "
+            f"{secs:.3f}s, the local rows ({transport:.0f} transport "
+            f"error); the shuffle join ran locally in {j_secs:.3f}s, "
+            f"the local rows ({j_errs:.0f} fabric errors)")
+    finally:
+        FR.pool_for(eng).close()
+        for f in servers:
+            f.stop()
+        eng.dist_peers = []
+        eng.drop_table("v")
+    held = {k: sum(r["held"][k] for r in report.values()
+                   if isinstance(r, dict) and "held" in r)
+            for k in ("sorted_search", "segment_sum", "in_graph_replays")}
+    report["18_held"] = held
+    report["seconds"] = time.perf_counter() - t_phase
+    log(f"[18] held {held['sorted_search']} sorted searches and "
+        f"{held['segment_sum']} segment sums launched on the peers "
+        f"({held['in_graph_replays']} in graph replays); 18a-18b "
+        f"{report['seconds']:.1f}s")
+    return report, search_rows, segsum_rows
+
+
+def phase_cn_tn(torch, CK, args, sf01) -> tuple:
+    """Phase 18c: a TNService and two RemoteCatalog CNs in this process
+    on a LocalFS directory, on the card: TPC-H at SF 0.1 loaded through
+    CN 1 (the same tables as 6b's, `sf01`), the 22 on CN 2 against
+    sqlite3's answers over them (`SQLITE_SF01`), RF1 and RF2 through CN
+    1 against a copy of 6b's sqlite3 database, a view of Q1 the TN
+    maintains read on CN 2, Q3 and Q18 on both CNs' fragment servers
+    (every launch there held, as in 18a), the logtail's lag.  ->
+    (report, sorted-search rows, segment-sum rows)."""
+    import shutil
+    import sqlite3
+    import tempfile
+
+    from matrixone_tpu_torch.cluster import (FragmentServer, RemoteCatalog,
+                                             TNService)
+    from matrixone_tpu_torch.frontend import Session
+    from matrixone_tpu_torch.ops import kernels as TK
+    from matrixone_tpu_torch.utils import tpch_full
+
+    t_phase = time.perf_counter()
+    rep, search_rows, segsum_rows = {}, [], []
+    root = tempfile.mkdtemp(prefix="chip_smoke_cntn_")
+    tn = TNService(data_dir=root, device="cuda").start()
+    cat1 = RemoteCatalog(("127.0.0.1", tn.port), data_dir=root)
+    cat2 = RemoteCatalog(("127.0.0.1", tn.port), data_dir=root)
+    peers = []
+    try:
+        s1 = Session(catalog=cat1, device="cuda")
+        s2 = Session(catalog=cat2, device="cuda")
+        s2.execute("set dist = 0")
+        t0 = time.perf_counter()
+        tables = tpch_full.load_tpch(cat1, sf=TPCH_SF, seed=args.seed)
+        load_s = time.perf_counter() - t0
+        n_rows = sum(len(next(iter(a.values()))) for a in tables.values())
+        cat2.consumer.wait_ts(cat1.committed_ts)
+        rep["load"] = {"rows": n_rows, "seconds": load_s,
+                       "rows_per_second": n_rows / load_s}
+        log(f"[18c] TPC-H at sf {TPCH_SF} loaded through CN 1 and the TN: "
+            f"{n_rows} rows in {load_s:.2f}s "
+            f"({n_rows / load_s:,.0f} rows/s); CN 2 caught up")
+        _sess01, conn01, tables01 = sf01
+        for name, arrays in tables.items():
+            for col, a in arrays.items():
+                if not np.array_equal(a, tables01[name][col]):
+                    raise AssertionError(f"18c: {name}.{col} differs from "
+                                         f"6b's table")
+        t0 = time.perf_counter()
+        for q in sorted(tpch_full.QUERIES):
+            got = tpch_full.normalize_rows(
+                s2.execute(tpch_full.QUERIES[q]).rows())
+            if not tpch_full.rows_match(got, SQLITE_SF01[q]):
+                raise AssertionError(f"18c Q{q}: CN 2's rows differ from "
+                                     f"sqlite3's")
+        rep["tpch22_cn2_seconds"] = time.perf_counter() - t0
+        conn = sqlite3.connect(":memory:")
+        conn01.backup(conn)         # 6b's database, before phase 7's RF1
+        log(f"[18c] the 22 on CN 2 = sqlite3 in "
+            f"{rep['tpch22_cn2_seconds']:.1f}s")
+        # a view of Q1 through CN 1: the TN maintains it
+        s1.execute("create materialized view mv_q1 as "
+                   + tpch_full.QUERIES[1])
+        rf1 = tpch_full.rf1(tables, TPCH_SF, seed=args.seed + 1)
+        rf1_s, _, _ = run_statements(torch, s1, rf1.statements)
+        tpch_full.apply_sqlite(conn, rf1.statements)
+        cat2.consumer.wait_ts(cat1.committed_ts)
+        view = s2.execute("select * from mv_q1 order by l_returnflag, "
+                          "l_linestatus").rows()
+        fresh = s2.execute(tpch_full.QUERIES[1]).rows()
+        if [r[:6] + r[9:] for r in view] != [r[:6] + r[9:] for r in fresh]:
+            raise AssertionError("18c: the view read on CN 2 differs from "
+                                 "Q1 run fresh there after RF1")
+        for q in (1, 3):
+            tpch_full.run_compare(s2, conn, q)
+        tables = tpch_full.apply_refresh(tables, rf1)
+        rf2 = tpch_full.rf2(tables, TPCH_SF, seed=args.seed + 2)
+        rf2_s, rf2_rows, _ = run_statements(torch, s1, rf2.statements)
+        tpch_full.apply_sqlite(conn, rf2.statements)
+        cat2.consumer.wait_ts(cat1.committed_ts)
+        for q in (1, 3):
+            tpch_full.run_compare(s2, conn, q)
+        rep["refresh"] = {"rf1_seconds": rf1_s, "rf2_seconds": rf2_s,
+                          "rf2_rows": rf2_rows}
+        log(f"[18c] RF1 {rf1_s:.3f}s and RF2 {rf2_s:.3f}s through CN 1; "
+            f"Q1 and Q3 on CN 2 = sqlite3 after each; mv_q1 on CN 2 "
+            f"fresh after RF1")
+        # both CNs' fragment servers as CN 2's peers, every launch on
+        # them held as in 18a
+        peers = [FragmentServer(c, device="cuda").start()
+                 for c in (cat1, cat2)]
+        cat2.dist_peers = [f.addr for f in peers]
+        sd = Session(catalog=cat2, device="cuda")
+        sd.execute("set dist_min_rows = 0")
+        for q in (3, 18):
+            label = f"18c Q{q}"
+
+            def same(rows, want, _batch, label=label):
+                if rows != want:
+                    raise AssertionError(f"{label}: on the CNs' peers the "
+                                         f"rows differ from CN 2's local "
+                                         f"rows")
+            rec, s_rows, g_rows = peer_run(torch, CK, TK, label, s2, sd,
+                                           peers, tpch_full.QUERIES[q],
+                                           same)
+            if not rec["frags_run"]:
+                raise AssertionError(f"{label}: no fragment ran on the "
+                                     f"CNs' peers")
+            rep[f"q{q}_peers"] = rec
+            search_rows.extend(s_rows)
+            segsum_rows.extend(g_rows)
+        log(f"[18c] Q3 and Q18 on both CNs' fragment servers = CN 2's "
+            f"local rows ({rep['q3_peers']['frags_run']:.0f} and "
+            f"{rep['q18_peers']['frags_run']:.0f} fragments)")
+        # the logtail's lag: a commit through CN 1 until CN 2 applied it
+        s1.execute("create table lag (id bigint primary key, t double)")
+        after_ack, total = [], []
+        for i in range(LOGTAIL_COMMITS):
+            t0 = time.perf_counter()
+            s1.execute(f"insert into lag values ({i}, {t0})")
+            t1 = time.perf_counter()
+            cat2.consumer.wait_ts(cat1.committed_ts)
+            t2 = time.perf_counter()
+            after_ack.append(t2 - t1)
+            total.append(t2 - t0)
+        rep["logtail_lag_ms"] = {
+            "commit_to_cn2_p50": 1e3 * float(np.percentile(total, 50)),
+            "commit_to_cn2_p99": 1e3 * float(np.percentile(total, 99)),
+            "after_cn1_ack_p50": 1e3 * float(np.percentile(after_ack, 50)),
+            "after_cn1_ack_p99": 1e3 * float(np.percentile(after_ack, 99)),
+            "commits": LOGTAIL_COMMITS}
+        lag = rep["logtail_lag_ms"]
+        log(f"[18c] logtail lag over {LOGTAIL_COMMITS} commits: commit to "
+            f"CN 2 applied p50 {lag['commit_to_cn2_p50']:.2f} ms p99 "
+            f"{lag['commit_to_cn2_p99']:.2f} ms; after CN 1's ack p50 "
+            f"{lag['after_cn1_ack_p50']:.3f} ms p99 "
+            f"{lag['after_cn1_ack_p99']:.3f} ms")
+        conn.close()
+    finally:
+        pool = cat2.__dict__.get("_frag_pool")
+        if pool is not None:
+            pool.close()
+        left = [t for f in peers for t in f.stop()]
+        cat1.close()
+        cat2.close()
+        left += tn.stop()
+        shutil.rmtree(root, ignore_errors=True)
+    if left:
+        raise AssertionError(f"18c: threads left alive: {left}")
+    rep["seconds"] = time.perf_counter() - t_phase
+    log(f"[18c] {rep['seconds']:.1f}s")
+    return rep, search_rows, segsum_rows
+
+
 class L2Held:
     """Holds every launch of the L2 kernel in the scope against its plain
     version in f64 as it returns, with `check_kernel`'s tolerance
@@ -7029,9 +7480,20 @@ def main(argv=None) -> int:
     report["spill"]["seconds"] = time.perf_counter() - t0
     log(f"[10] phase 10 took {report['spill']['seconds']:.1f}s")
     t0 = time.perf_counter()
+    tpch_sf1 = ingest_tables.pop("tpch_sf1")
     report["sharded"], shard_search, shard_segsum = phase_sharded_sql(
-        torch, CK, args, sf1[1:], ingest_tables.pop("tpch_sf1"))
+        torch, CK, args, sf1[1:], tpch_sf1)
     log(f"[17] phase 17 took {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    report["host_peers"], peer_search, peer_segsum = phase_host_peers(
+        torch, CK, args, sf1[3], tpch_sf1)
+    del tpch_sf1
+    report["host_peers"]["18c"], cn_search, cn_segsum = phase_cn_tn(
+        torch, CK, args, sf01)
+    peer_search += cn_search
+    peer_segsum += cn_segsum
+    report["host_peers"]["phase_seconds"] = time.perf_counter() - t0
+    log(f"[18] phase 18 took {report['host_peers']['phase_seconds']:.1f}s")
     t0 = time.perf_counter()
     rf01_report, rf01_search, rf01_segsum = phase_refresh_sf01(
         torch, CK, args, sf01)
@@ -7059,9 +7521,11 @@ def main(argv=None) -> int:
     del sf1_arrays
     search_rows += (search_path + tpch_search + rf01_search + refresh_search
                     + exec_search + fusion_search + spill_search
-                    + obj_search + ingest_search + mv_search + shard_search)
+                    + obj_search + ingest_search + mv_search + shard_search
+                    + peer_search)
     segsum_rows += (segsum_path + rf01_segsum + refresh_segsum + exec_segsum
-                    + spill_segsum + obj_segsum + mv_segsum + shard_segsum)
+                    + spill_segsum + obj_segsum + mv_segsum + shard_segsum
+                    + peer_segsum)
     rows += path_rows + pq_rows + vsql_l2
     adc_rows += pq_adc_rows + vsql_adc
     pq_build = report["ivf_pq"]["build_launches"]
@@ -7187,6 +7651,25 @@ def main(argv=None) -> int:
             "shape": best["shape"], "path": best["path"],
             "path_launches": best["path_launches"],
             **{key: best[key] for key in timed}}
+    # phase 18: each statement's counted run on the host peers (18a) and
+    # on the CNs' fragment servers (18c)
+    peers = report["host_peers"]
+    peer_launches = {kernel: {
+        **{key: rec["launches"][kernel]["launches"]
+           for key, rec in peers.items()
+           if isinstance(rec, dict) and "launches" in rec},
+        **{f"18c_{key}": peers["18c"][key]["launches"][kernel]["launches"]
+           for key in ("q3_peers", "q18_peers")}}
+        for kernel in ("sorted_search", "segment_sum")}
+    peer_timed = {}
+    for kernel, rows_ in (("sorted_search", peer_search),
+                          ("segment_sum", peer_segsum)):
+        best = max((r for r in rows_ if "ms" in r),
+                   key=lambda r: r["path_launches"], default=None)
+        peer_timed[kernel] = None if best is None else {
+            "shape": best["shape"], "path": best["path"],
+            "path_launches": best["path_launches"],
+            **{key: best[key] for key in timed}}
     mv_timed = {}
     for kernel, rows_ in (("sorted_search", mv_search),
                           ("segment_sum", mv_segsum)):
@@ -7268,11 +7751,13 @@ def main(argv=None) -> int:
             **serving_launches["sorted_search"],
             **counted_launches("sorted_search"),
             **mv_launches["sorted_search"],
-            **shard_launches["sorted_search"]},
+            **shard_launches["sorted_search"],
+            **peer_launches["sorted_search"]},
         "launches_under_fusion": fusion_launches["9a_q3"],
         "phase15": ingest_timed,
         "phase16": mv_timed["sorted_search"],
         "phase17": shard_timed["sorted_search"],
+        "phase18": peer_timed["sorted_search"],
         "max_abs_err": max(r["max_abs_err"] for r in search_rows),
         **{key: search_row[key] for key in timed},
         "library_call": "torch.searchsorted on pre-flipped int64",
@@ -7292,9 +7777,11 @@ def main(argv=None) -> int:
             **serving_launches["segment_sum"],
             **counted_launches("segment_sum"),
             **mv_launches["segment_sum"],
-            **shard_launches["segment_sum"]},
+            **shard_launches["segment_sum"],
+            **peer_launches["segment_sum"]},
         "phase16": mv_timed["segment_sum"],
         "phase17": shard_timed["segment_sum"],
+        "phase18": peer_timed["segment_sum"],
         "max_abs_err": max(r["max_abs_err"] for r in segsum_rows),
         **{key: segsum_row[key] for key in timed},
         **{key: segsum_row[key] for key in (

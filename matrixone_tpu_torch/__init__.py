@@ -11,7 +11,9 @@ executor (`vm/`: scans, filters, projections, hash joins, grouped
 aggregates, windows, sort, top-k, limit), whose fusable chains run as
 fused fragments, each step one CUDA graph replayed once per batch
 (`vm/fusion.py`, `vm/graphs.py`), as the JAX package runs them by
-default.  It
+default; and distribution, over the slots of the device mesh
+(`parallel/`) and over host peers: fragment servers, a TN and its CN
+replicas in the reference's CN/TN split (`cluster/`).  It
 mirrors the JAX package's layout (`container/`, `ops/`, `sql/`, `vm/`,
 `frontend/`, `vectorindex/`, `worker/`, `utils/`) so each module's
 counterpart is easy to find, and it is held against that package on

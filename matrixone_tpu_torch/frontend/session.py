@@ -43,7 +43,14 @@ ANALYZE TABLE, SET fault_point / fault_point_clear, EXPLAIN ANALYZE
 (rows, batches and time per operator, and each fused fragment's mode,
 step calls, trace and capture milliseconds and cache outcome), and
 `select mo_ctl(...)` with checkpoint, merge, flush, fault, serving,
-fusion, trace, metrics and keys.
+fusion, trace, metrics, keys and rpc (the fabric's circuit breakers and
+a CN's logtail breaker).
+
+Distribution: `SET query_shards = N` runs a qualifying statement's
+lower fragment on N slots of the device mesh (parallel/dist_query.py);
+a catalog whose `dist_peers` names fragment servers (cluster/cn.py)
+runs it on those host peers (parallel/fragments.py).  The session runs
+unchanged over a CN replica (`cluster.RemoteCatalog`).
 
 Secondary indexes: CREATE INDEX ... USING ivfflat | ivfpq | hnsw
 (op_type vector_l2_ops, vector_cosine_ops or vector_ip_ops; neither
@@ -74,7 +81,7 @@ nondeterministic UDFs bypass both serving caches.
 
 Not ported yet (ROADMAP.md, section A): parquet and iceberg (they need
 pyarrow), dynamic tables, accounts, the mo_ctl commands over modules
-the port lacks (lint, san, qa, crash, rpc), and every other statement,
+the port lacks (lint, san, qa, crash), and every other statement,
 which raises NotImplementedError.  The session
 runs on `device` (CUDA unless the caller names the CPU); every scan
 uploads its chunks there.
@@ -774,6 +781,10 @@ class Session:
             else:
                 raise BindError(f"unknown mview subcommand {arg!r}; "
                                 "use status | refresh:<view>")
+        elif cmd == "rpc":
+            # every peer's circuit breaker, and a CN's logtail breaker
+            from matrixone_tpu_torch.cluster.cn import rpc_status
+            out = json.dumps(rpc_status(self.catalog), sort_keys=True)
         elif cmd in _MO_CTL_NOT_PORTED:
             raise BindError(f"mo_ctl('{cmd}') is not ported yet: it needs "
                             f"{_MO_CTL_NOT_PORTED[cmd]} (ROADMAP.md, "
@@ -1192,24 +1203,35 @@ class Session:
         return "\n".join(render(op))
 
     def _maybe_distribute(self, node, ctx):
-        """Device shards (reference: the compiler's Magic: Remote
-        decision, compile/types.go:162): under `SET query_shards = N`
-        (MO_QUERY_SHARDS) a qualifying plan runs its lower fragment on N
-        slots of the mesh and re-enters here as a Materialized node
-        (parallel/dist_query.py).  Never inside a transaction; `SET dist
-        = 0` disables; `dist_min_rows` is the input size threshold.  The
-        host-peer branch of the reference is not ported."""
+        """Distributed execution (reference: the compiler's Magic: Remote
+        decision, compile/types.go:162).  Device shards first: under
+        `SET query_shards = N` (MO_QUERY_SHARDS) a qualifying plan runs
+        its lower fragment on N slots of the mesh (parallel/
+        dist_query.py).  Then host peers: with the catalog's
+        `dist_peers` set (fragment servers, cluster/cn.py) it runs on
+        them (parallel/fragments.py), `dist_batch_rows` rows a scan
+        batch there.  Either re-enters here as a Materialized node.
+        Never inside a transaction; `SET dist = 0` disables;
+        `dist_min_rows` is the input size threshold."""
         if self.txn is not None:
             return node
         if str(self.variables.get("dist", 1)) in ("0", "off", "false"):
             return node
+        min_rows = int(self.variables.get("dist_min_rows", 100_000))
         shards = int(self.variables.get("query_shards", 0) or 0)
-        if shards < 2:
+        if shards >= 2:
+            from matrixone_tpu_torch.parallel import dist_query as DQ
+            rebuilt = DQ.try_shard(node, self.catalog, ctx, shards,
+                                   min_rows=min_rows)
+            if rebuilt is not None:
+                return rebuilt
+        if not getattr(self.catalog, "dist_peers", None):
             return node
-        from matrixone_tpu_torch.parallel import dist_query as DQ
-        rebuilt = DQ.try_shard(
-            node, self.catalog, ctx, shards,
-            min_rows=int(self.variables.get("dist_min_rows", 100_000)))
+        from matrixone_tpu_torch.parallel import fragments as FR
+        rebuilt = FR.try_distribute(
+            node, self.catalog, ctx, FR.pool_for(self.catalog),
+            min_rows=min_rows,
+            batch_rows=int(self.variables.get("dist_batch_rows", 1 << 16)))
         return rebuilt if rebuilt is not None else node
 
     def _exchange_annotator(self, node):
@@ -1403,7 +1425,12 @@ class Session:
                 raise
             return Result(affected=n)
         # the post-commit hook never raises (it must not fail another
-        # writer's commit), but this statement's own init failure must
+        # writer's commit), but this statement's own init failure must.
+        # Checkable only where the maintaining engine is local: on a CN
+        # replica the TN maintains, and the backing rows arrive through
+        # the logtail
+        if not isinstance(self.catalog, Engine):
+            return Result(affected=self.catalog.get_table(stmt.name).n_rows)
         svc = self.catalog._mview_service
         rt = svc.runtime(d.name) if svc is not None else None
         if rt is None or rt.watermark is None:
@@ -1941,7 +1968,6 @@ _MO_CTL_NOT_PORTED = {
     "qa": "the moqa corpus runner (tools/moqa, which imports the JAX "
           "package; the padding canary itself is utils/qa.py)",
     "crash": "the crash-recovery sweep (mocrash)",
-    "rpc": "distribution (the RPC fabric)",
 }
 
 

@@ -189,7 +189,9 @@ class MViewService:
         if s is not None:
             return s.device
         if self.device is None:
-            self.device = resolve_device(None)
+            # the TN's service names its engine's device (cluster/tn.py)
+            self.device = resolve_device(
+                getattr(self.engine, "default_device", None))
         return self.device
 
     # ------------------------------------------------------- event intake

@@ -1,5 +1,8 @@
-"""Distribution over the slot mesh (`mesh.py`): the device-shard half of
-the JAX package's `parallel/` (its host-peer half is a later slice)."""
+"""Distribution: the device shards over the slot mesh (`mesh.py`,
+`dist_query.py`, `merge_exec.py`) and the host peers, fragment servers
+reached over the RPC fabric (`fragments.py`, `cluster/`).  The JAX
+package's `remote_exec.py` (stages through its gRPC worker) is not
+ported: the card machine has no grpcio."""
 
 from matrixone_tpu_torch.parallel import dist_query, mesh
 from matrixone_tpu_torch.parallel.mesh import (make_mesh, replicate,

@@ -1191,6 +1191,14 @@ class Engine:
                 for tname, gids in deletes.items():
                     t = self.get_table(tname)
                     mine = np.asarray(gids, np.int64)
+                    if len(mine) and snapshot_ts < t.last_merge_ts:
+                        # my victims' row ids are those a merge rewrote
+                        # after my snapshot (a CN replica that had not
+                        # applied the merge): they name no row any more
+                        metrics.txn_commits.inc(outcome="conflict")
+                        raise ConflictError(
+                            f"write-write conflict on {tname}: a merge "
+                            f"rewrote its row ids after the snapshot")
                     newer = [g for ts, g in t.tombstones if ts > snapshot_ts]
                     if newer and len(np.intersect1d(
                             mine, np.concatenate(newer))):
@@ -1614,6 +1622,19 @@ class Engine:
         eng.committed_ts = eng.hlc.now()
         return eng
 
+    @classmethod
+    def open_checkpoint(cls, fs: FileService) -> "Engine":
+        """A CN replica's bootstrap: the last checkpoint's manifest and
+        objects only, with a null WAL.  The WAL tail is the TN's and
+        reaches a CN as the logtail stream (cluster/cn.py), which applies
+        it record by record with `WalApplier`, as a restart replays it;
+        a replica never logs."""
+        eng = cls(fs, wal=NullWal())
+        with eng._commit_lock:
+            eng._load_checkpoint()
+        eng.committed_ts = max(eng._ckpt_ts, eng.committed_ts)
+        return eng
+
     def close(self) -> None:
         """Orderly shutdown: flush the statement recorder's tail (its
         64-statement buffering would otherwise drop the last statements
@@ -1647,11 +1668,16 @@ class Engine:
                        part_id=ob.get("part_id", -1),
                        obj_path=ob["path"], zonemaps=ob.get("zonemaps"))
 
-    def _load_manifest_table(self, name: str, tm: dict) -> None:
+    def _load_manifest_table(self, name: str, tm: dict,
+                             replace: bool = False) -> None:
         """One table from its manifest entry: its segments object-backed
-        (lazy: column bytes come through the block cache on demand)."""
+        (lazy: column bytes come through the block cache on demand).
+        `replace`: a CN replica's resync after a TN merge rewrote the
+        table's row ids."""
         from matrixone_tpu_torch.storage.partition import PartitionSpec
         schema = schema_from_json(tm["schema"])
+        if replace:
+            self.tables.pop(name, None)
         self.create_table(
             TableMeta(name, schema, tm["pk"],
                       auto_increment=tm.get("auto"),
@@ -1772,6 +1798,17 @@ class WalApplier:
             self.pending = []
             return ts
         return None
+
+
+class NullWal:
+    """The WAL of a CN replica: it never logs.  Durability is the TN's;
+    every mutation of a replica arrives from the TN's log."""
+
+    def append(self, header: dict, blob=b"") -> None:
+        pass
+
+    def truncate(self) -> None:
+        pass
 
 
 #: the catalog role is played by the engine itself

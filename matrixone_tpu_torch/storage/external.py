@@ -111,6 +111,7 @@ class ExternalTable:
         self.segments: list = []
         self.tombstones: list = []
         self.fences: list = []
+        self.last_merge_ts = 0
         self.delta_floor = 0
         self.next_gid = 0
         self._pk_col = None

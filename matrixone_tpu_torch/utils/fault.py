@@ -20,11 +20,17 @@ Trigger sites of the port (the JAX package's local ones):
                      with backoff; foreground commits proceed)
   merge.swap         merge, before the swap under the commit lock
                      publishes the merged segment and its fence
+  rpc.send           cluster/rpc.py, before a request is framed
+                     ("drop", or "partial": half a frame, then a drop)
+  rpc.recv           cluster/rpc.py, after the request reached the peer
+                     ("drop": the reply is lost)
+  logtail.subscribe  cluster/cn.py, a CN dialing the TN's logtail
+                     ("drop": the subscription fails; the consumer
+                     backs off and retries)
 
-The JAX package's remote sites (`rpc.send`, `rpc.recv`,
-`logtail.subscribe`, `proxy.relay`, `udf.remote`) wait for the port's
-distribution and host services (ROADMAP.md, section A).  Unarmed, a
-site costs one attribute read.
+The JAX package's `proxy.relay` and `udf.remote` wait for the port's
+proxy and remote UDF services (ROADMAP.md, section A).  Unarmed, a site
+costs one attribute read.
 """
 
 from __future__ import annotations

@@ -19,8 +19,10 @@ took), the spills' `agg_spills`, `spill_partitions`, `spill_bytes` and
 storage counters `pk_check_seconds`, `pk_bloom_suspects` and
 `scan_segments`.  The object store's (`mo_blockcache_*`,
 `mo_object_*`), the scan read-ahead's (`mo_scan_prefetch_*`), the
-merges' (`mo_merge_*`) and the restart's (`mo_recovery_*`) keep the
-JAX package's names.
+merges' (`mo_merge_*`), the restart's (`mo_recovery_*`) and the RPC
+fabric's (`mo_rpc_*`) keep the JAX package's names; the host-peer
+fragments' `fragment_wire_bytes` and `fragment_pushed_rows` are the
+port's own.
 """
 
 from __future__ import annotations
@@ -497,3 +499,28 @@ exchange_partial_merge = REGISTRY.counter(
 vector_shard_imbalance = REGISTRY.gauge(
     "mo_vector_shard_imbalance",
     "sharded IVF row imbalance: max shard rows / mean shard rows")
+
+# ---- the RPC fabric (cluster/rpc.py; the JAX package's names)
+rpc_attempts = REGISTRY.counter(
+    "mo_rpc_attempts_total", "RPC send attempts by op")
+rpc_retries = REGISTRY.counter(
+    "mo_rpc_retries_total", "RPC attempts that were retries, by op")
+rpc_errors = REGISTRY.counter(
+    "mo_rpc_errors_total",
+    "RPC calls that failed after all attempts, by error kind")
+rpc_seconds = REGISTRY.histogram(
+    "mo_rpc_call_seconds", "successful RPC round-trip latency")
+rpc_breaker_state = REGISTRY.gauge(
+    "mo_rpc_breaker_state",
+    "per-peer circuit breaker state (0 closed, 1 half-open, 2 open)")
+rpc_breaker_transitions = REGISTRY.counter(
+    "mo_rpc_breaker_transitions_total",
+    "circuit breaker state transitions, by peer and new state")
+# ---- host-peer fragments (parallel/fragments.py)
+fragment_wire_bytes = REGISTRY.counter(
+    "mo_fragment_wire_bytes_total",
+    "bytes of fragment results and shuffle buckets on the fabric, by "
+    "kind (result/shuffle)")
+fragment_pushed_rows = REGISTRY.counter(
+    "mo_fragment_pushed_rows_total",
+    "rows a shuffle scan pushed to another peer")

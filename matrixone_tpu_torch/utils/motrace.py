@@ -16,10 +16,14 @@ The span tree covers a statement's life on the host:
 
 Spans time host work: CUDA is asynchronous, so a span around a graph
 replay measures its launch, not the card's work, except in profile mode
-(`MO_FUSION_PROFILE=1`) and EXPLAIN ANALYZE, which synchronize.  The
-`sink` of a span (where a remote session's spans collect, to ship back
-to the caller) is kept for the port's distribution (ROADMAP.md, section
-A); the wire propagation waits for it.
+(`MO_FUSION_PROFILE=1`) and EXPLAIN ANALYZE, which synchronize.
+
+Across the fabric (`cluster/rpc.py`): each RPC attempt runs in an
+`rpc.call` span; `inject` puts the trace context on the request header
+beside `deadline_ms`, the server re-enters it (`remote_session`: a span
+such as `tn.commit` under the caller's `rpc.call`), its spans collect
+in the session's sink and ride back on the response header, and
+`merge_remote` folds them into the caller's trace.
 
 Cost discipline: unarmed, every instrumentation site costs one
 attribute read (`TRACER.armed`): `span()` returns a shared no-op
@@ -298,6 +302,85 @@ def annotate(**attrs) -> None:
     ctx = _CTX.get()
     if ctx is not None:
         ctx.attrs.update(attrs)
+
+
+# --------------------------------------------------- wire propagation
+def inject(header: dict) -> None:
+    """Add the trace context to an outgoing wire header (it rides beside
+    `deadline_ms`).  One attribute read when disarmed."""
+    if not TRACER.armed:
+        return
+    ctx = _CTX.get()
+    if ctx is not None:
+        header["trace"] = [ctx.trace_id, ctx.span_id]
+
+
+def merge_remote(resp_header) -> None:
+    """Fold the spans a server shipped back on its response header into
+    the local trace (or onward, inside a remote session of our own: a
+    chain of hops forwards them toward the trace's owner)."""
+    if not TRACER.armed or not isinstance(resp_header, dict):
+        return
+    spans = resp_header.pop("trace_spans", None)
+    if not spans:
+        return
+    ctx = _CTX.get()
+    sink = ctx.sink if ctx is not None else None
+    for rec in spans:
+        if isinstance(rec, dict) and "tid" in rec:
+            TRACER.record(rec, sink=sink)
+
+
+class _NoopRemote:
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *a):
+        return False
+
+    def attach(self, resp) -> None:
+        return None
+
+
+_NOOP_REMOTE = _NoopRemote()
+
+
+class _RemoteSession:
+    """The server side of a call: one span named for the op under the
+    caller's span, whose spans collect into a sink that `attach()` ships
+    back on the response header."""
+
+    __slots__ = ("_span", "_sink")
+
+    def __init__(self, trace_id: str, parent_sid: str, proc: str,
+                 name: str, attrs: dict):
+        self._sink: list = []
+        self._span = _Span(name, trace_id, parent_sid, proc,
+                           self._sink, attrs)
+
+    def __enter__(self):
+        self._span.__enter__()
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        return self._span.__exit__(exc_type, exc, tb)
+
+    def attach(self, resp) -> None:
+        if self._sink and isinstance(resp, dict):
+            resp["trace_spans"] = self._sink
+
+
+def remote_session(header, proc: str, name: str, **attrs):
+    """Re-enter the trace context a request header carries (the server
+    half of `inject`); a no-op when disarmed or the caller sent none."""
+    if not TRACER.armed:
+        return _NOOP_REMOTE
+    t = header.get("trace") if isinstance(header, dict) else None
+    if not (isinstance(t, (list, tuple)) and len(t) == 2):
+        return _NOOP_REMOTE
+    return _RemoteSession(str(t[0]), str(t[1]), proc, name, attrs)
 
 
 # ----------------------------------------------------------- summaries

@@ -2545,3 +2545,139 @@ def test_hash_route_on_the_card_equals_the_host(cuda):
     assert kept == moved == len(want)
     np.testing.assert_array_equal(a2["r"], want)
     assert a2["k"].is_cuda
+
+
+# ------------------------------------------- host peers and CN replicas
+
+def _peer_rig(device, n_peers=2):
+    """An engine of 8 inserts (8 segments), n FragmentServers on
+    `device` over it, and a distribution-enabled session."""
+    from matrixone_tpu_torch.cluster import FragmentServer
+    from matrixone_tpu_torch.frontend import Session
+    from matrixone_tpu_torch.storage.engine import Engine
+    eng = Engine()
+    s = Session(catalog=eng, device=device)
+    s.execute("create table pe (id bigint primary key, g varchar(4),"
+              " k bigint, x float)")
+    rng = np.random.default_rng(7)
+    for lo in range(0, 8000, 1000):
+        s.execute("insert into pe values " + ",".join(
+            f"({i},'g{i % 6}',{i % 300},{float(rng.standard_normal()):.6f})"
+            for i in range(lo, lo + 1000)))
+    s.execute("create table pd (k bigint primary key, w bigint)")
+    s.execute("insert into pd values " + ",".join(
+        f"({k},{k % 13})" for k in range(300)))
+    servers = [FragmentServer(eng, device=device).start()
+               for _ in range(n_peers)]
+    eng.dist_peers = [f.addr for f in servers]
+    sd = Session(catalog=eng, device=device)
+    sd.variables["dist_min_rows"] = 0
+    sd.variables["dist_batch_rows"] = 1024
+    return s, sd, servers
+
+
+PEER_SQL = [
+    "select g, sum(x), count(*), min(k) from pe group by g order by g",
+    "select pd.w, sum(pe.k), count(*) from pe join pd on pe.k = pd.k"
+    " group by pd.w order by pd.w",
+    "select id, k from pe order by k desc, id limit 11",
+]
+
+
+def test_fragments_on_cuda_peers_give_the_cpu_rows(fused_everywhere):
+    """The same statements on CUDA fragment servers and on CPU ones:
+    equal rows (f32 sums within 5c's tolerance), the peers' f32 GROUP BY
+    launching the segment sum and their join probes the sorted search,
+    and a shuffle join as a multiset."""
+    _s, sd, servers = _peer_rig("cuda")
+    _cs, csd, cservers = _peer_rig("cpu")
+    try:
+        for sql in PEER_SQL:
+            seg0 = CK.LAUNCHES.get("segment_sum")
+            srch0 = CK.LAUNCHES.get("sorted_search")
+            got, want = sd.execute(sql).rows(), csd.execute(sql).rows()
+            assert len(got) == len(want)
+            for g, w in zip(got, want):
+                for a, b in zip(g, w):
+                    if isinstance(a, float):
+                        assert abs(a - b) <= 1e-3 + 1e-4 * abs(b)
+                    else:
+                        assert a == b
+            if "sum(x)" in sql:
+                assert CK.LAUNCHES.get("segment_sum") > seg0
+            if "join" in sql:
+                assert CK.LAUNCHES.get("sorted_search") > srch0
+        sql = "select pe.id, pd.w from pe join pd on pe.k = pd.k"
+        assert sorted(sd.execute(sql).rows()) == \
+            sorted(csd.execute(sql).rows())
+        assert sum(f.frags_run for f in servers) == \
+            sum(f.frags_run for f in cservers) > 0
+    finally:
+        for f in servers + cservers:
+            assert f.stop() == []
+
+
+def test_card_fault_in_a_peer_surfaces(fused_everywhere, monkeypatch):
+    """A launch that fails inside a peer's fragment is not a reason to
+    run locally: it raises at the client with the peer's error; with
+    the fault gone the same statement distributes again."""
+    import threading
+
+    from matrixone_tpu_torch.parallel import fragments as FR
+    from matrixone_tpu_torch.vm import fusion
+    _s, sd, servers = _peer_rig("cuda")
+    sql = PEER_SQL[1]
+    real = CK.sorted_search
+    # a graph captured by an earlier test would replay the real launch
+    fusion.CACHE.clear()
+
+    def failed_launch(*a, **k):
+        if threading.current_thread().name.startswith("pt-frag-conn"):
+            raise RuntimeError("CUDA error: an illegal memory access was "
+                               "encountered")
+        return real(*a, **k)
+    try:
+        monkeypatch.setattr(CK, "sorted_search", failed_launch)
+        with pytest.raises(FR.FragmentError, match="illegal memory"):
+            sd.execute(sql)
+        monkeypatch.setattr(CK, "sorted_search", real)
+        fusion.CACHE.clear()
+        before = sum(f.frags_run for f in servers)
+        assert sd.execute(sql).rows() == _s.execute(sql).rows()
+        assert sum(f.frags_run for f in servers) == before + 2
+    finally:
+        for f in servers:
+            assert f.stop() == []
+
+
+def test_cn_replica_scan_runs_on_the_card(cuda, tmp_path):
+    """A TN on the card and a CN replica whose session runs on it: the
+    replica's scan uploads to the card, a join launches the sorted
+    search, and the rows equal a CPU session's on the same replica."""
+    from matrixone_tpu_torch.cluster import RemoteCatalog, TNService
+    from matrixone_tpu_torch.frontend import Session
+    from matrixone_tpu_torch.sql.parser import parse_one
+    from matrixone_tpu_torch.vm.compile import compile_plan
+    tn = TNService(data_dir=str(tmp_path), device="cuda").start()
+    cat = RemoteCatalog(("127.0.0.1", tn.port), data_dir=str(tmp_path))
+    try:
+        s = Session(catalog=cat, device="cuda")
+        s.execute("create table ra (id bigint primary key, k bigint)")
+        s.execute("create table rb (k bigint primary key, w bigint)")
+        s.execute("insert into ra values " + ",".join(
+            f"({i},{i % 50})" for i in range(2000)))
+        s.execute("insert into rb values " + ",".join(
+            f"({k},{k * 3})" for k in range(50)))
+        sql = ("select rb.w, count(*) from ra join rb on ra.k = rb.k"
+               " group by rb.w order by rb.w")
+        op = compile_plan(s.plan_select(parse_one("select k from ra")),
+                          s._ctx())
+        ex = next(iter(op.execute()))
+        assert all(c.data.is_cuda for c in ex.batch.columns.values())
+        before = CK.LAUNCHES.get("sorted_search")
+        got = s.execute(sql).rows()
+        assert CK.LAUNCHES.get("sorted_search") > before
+        assert got == Session(catalog=cat, device="cpu").execute(sql).rows()
+    finally:
+        cat.close()
+        assert tn.stop() == []

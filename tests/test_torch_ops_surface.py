@@ -290,8 +290,15 @@ def test_mo_ctl_commands_match_reference_text():
 def test_mo_ctl_over_modules_not_ported_names_the_roadmap(cmd):
     """A command over a module the port lacks names the ROADMAP; `mview`
     and `udf` are ported (their modules are mview/ and udf/): their
-    status answers and an unknown subcommand names the known ones."""
+    status answers and an unknown subcommand names the known ones.
+    `rpc` is ported with the fabric (cluster/): on an engine that is not
+    a CN replica it answers the breakers alone, as the JAX package's
+    does."""
     s = TSession(device="cpu")
+    if cmd == "rpc":
+        out = json.loads(s.execute("select mo_ctl('rpc')").rows()[0][0])
+        assert sorted(out) == ["breakers"]
+        return
     if cmd in ("mview", "udf"):
         assert isinstance(json.loads(s.execute(
             f"select mo_ctl('{cmd}')").rows()[0][0]), dict)

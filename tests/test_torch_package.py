@@ -64,8 +64,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     if torch.cuda.is_available():
         pytest.skip("this host has CUDA: the default resolves to it")
     from matrixone_tpu_torch import convert, resolve_device
+    from matrixone_tpu_torch.cluster import FragmentServer, TNService
     from matrixone_tpu_torch.frontend import Session
     from matrixone_tpu_torch.storage.engine import Engine
+    from matrixone_tpu_torch.storage.fileservice import MemoryFS
     from matrixone_tpu_torch.utils import datagen
     from matrixone_tpu_torch.vectorindex import ivf_flat
     from matrixone_tpu_torch.vm.compile import compile_plan
@@ -83,7 +85,11 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
              # the engine's scans run in an execution context, which
              # resolves its device the same way
              lambda: ExecContext(catalog=engine),
-             lambda: compile_plan(None, engine)]
+             lambda: compile_plan(None, engine),
+             # the host peers' fragment servers and the TN (its view
+             # maintenance) run on a device too
+             lambda: FragmentServer(engine),
+             lambda: TNService(fs=MemoryFS())]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
@@ -95,6 +101,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     assert data.device.type == "cpu"
     assert Session(device="cpu").device.type == "cpu"
     assert ExecContext(catalog=engine, device="cpu").device.type == "cpu"
+    f = FragmentServer(engine, device="cpu")
+    assert f.device.type == "cpu"
+    f.stop()
 
 
 def test_import_builds_nothing():
